@@ -1,0 +1,72 @@
+"""Builds the port's CUDA sources with ``nvcc`` and loads them with ctypes.
+
+A source under ``exploring_meta_tpu_torch/csrc/`` is compiled for
+``sm_90a`` into a shared library with a plain C interface, at first use,
+into ``build/`` beside the package. The library's name carries a hash of
+the source, so an edited source is rebuilt and a stale library is never
+loaded. A failed build raises with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+
+_LOCK = threading.Lock()
+_LOADED: dict = {}
+
+
+def find_nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc"), shutil.which("nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                       "machine with the CUDA toolkit (CUDA_HOME or PATH)")
+
+
+def library_path(source: str) -> str:
+    with open(os.path.join(CSRC, source), "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
+
+
+def build(source: str) -> str:
+    """Compile ``csrc/<source>`` unless its hashed library exists; -> path.
+
+    The compiler's report (registers, shared memory and spills per kernel,
+    from ``-Xptxas=-v``) is kept beside the library as ``<lib>.log``."""
+    lib = library_path(source)
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{lib}.{os.getpid()}.tmp"
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with open(lib + ".log", "w") as f:
+        f.write(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source} (exit "
+                           f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load(source: str) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<source>``, once per process."""
+    with _LOCK:
+        if source not in _LOADED:
+            _LOADED[source] = ctypes.CDLL(build(source))
+        return _LOADED[source]

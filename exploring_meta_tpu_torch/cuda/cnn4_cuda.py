@@ -1,0 +1,330 @@
+"""Fused CNN4-Omniglot block: CUDA kernels, their plain twins, autograd.
+
+Port of ``exploring_meta_tpu/pallas/cnn4_pallas.py`` (rows 1-4 of the
+TPU-kernel table in PERF.md). One block is zero-pad -> 3x3 stride-2 conv
++ bias -> batch-stat BN over (N, H, W) per channel and task -> scale/bias
+-> ReLU. Three kernels in ``csrc/cnn4_block.cu`` compute it:
+
+- ``cnn4_block_fwd``        the block forward (``_blk_fwd_kernel``);
+- ``cnn4_block_bwd_params`` dy, dw, db, dscale, dbias (``_block_bwd`` and
+  the dw/db half of ``_conv_s2_bwd``);
+- ``cnn4_block_bwd_input``  dx, the transposed stride-2 conv as a gather.
+
+Every tensor has a leading task axis B (the JAX single-task form is
+B = 1): x ``[B, N, H, W, Ci]`` NHWC, w ``[B, 3, 3, Ci, Co]`` HWIO,
+b/scale/bias ``[B, Co]``, all of one dtype (float32 or bfloat16; math in
+float32, outputs in that dtype).
+
+Each wrapper (:func:`block_fwd`, :func:`block_bwd_params`,
+:func:`block_bwd_input`) runs the plain PyTorch twin for CPU tensors and
+launches its kernel for CUDA tensors; there is no other path. Each counts
+its kernel launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
+
+EPS = 1e-5
+_THREADS = 256            # kThreads in csrc/cnn4_block.cu
+SMEM_LIMIT = 232448       # dynamic shared memory one H100 block may use
+MAX_TASKS = 65535         # gridDim.y of the per-(task, channel) kernels
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_SOURCE = "cnn4_block.cu"
+_lib = None
+
+
+def out_hw(h: int) -> int:
+    """Output extent of a 3x3, stride-2, pad-1 conv."""
+    return (h - 1) // 2 + 1
+
+
+def smem_bytes(n: int, h: int, w: int, ci: int) -> int:
+    """Shared memory of the fwd / bwd_params kernels for one task (mirrors
+    ``smem_floats`` in the source): weight column, reduction scratch and
+    one channel's conv output over all N*Ho*Wo positions."""
+    return 4 * (9 * ci + _THREADS + n * out_hw(h) * out_hw(w))
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch twins (CPU path; the card-side reference in chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+def _taps(x: torch.Tensor):
+    """The 9 stride-2 taps of zero-padded x: tap (dy, dx) at output (i, j)
+    reads input (2i + dy - 1, 2j + dx - 1)."""
+    ho, wo = out_hw(x.shape[2]), out_hw(x.shape[3])
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+    return [xp[:, :, dy:dy + 2 * ho - 1:2, dx:dx + 2 * wo - 1:2, :]
+            for dy in range(3) for dx in range(3)]
+
+
+def bn_stats_plain(x, w, b, scale, bias):
+    """-> (xhat, inv_std, scale, bias) in f32, from ``_block_fwd``."""
+    x, w, b, scale, bias = (t.float() for t in (x, w, b, scale, bias))
+    wt = w.reshape(w.shape[0], 9, w.shape[3], w.shape[4])
+    y = sum(torch.einsum("bnhwc,bco->bnhwo", t, wt[:, k])
+            for k, t in enumerate(_taps(x)))
+    y = y + b[:, None, None, None, :]
+    mu = y.mean(dim=(1, 2, 3), keepdim=True)
+    var = (y - mu).square().mean(dim=(1, 2, 3), keepdim=True)
+    inv = torch.rsqrt(var + EPS)
+    return ((y - mu) * inv, inv, scale[:, None, None, None, :],
+            bias[:, None, None, None, :])
+
+
+def block_fwd_plain(x, w, b, scale, bias) -> torch.Tensor:
+    xh, _, s, be = bn_stats_plain(x, w, b, scale, bias)
+    return torch.relu(xh * s + be).to(x.dtype)
+
+
+def block_bwd_params_plain(x, w, b, scale, bias, g):
+    """-> (dy f32, dw, db, dscale, dbias), from ``_block_bwd`` and
+    ``_conv_s2_bwd``."""
+    xh, inv, s, be = bn_stats_plain(x, w, b, scale, bias)
+    dz = g.float() * ((xh * s + be) > 0)
+    dscale = (dz * xh).sum(dim=(1, 2, 3))
+    dbias = dz.sum(dim=(1, 2, 3))
+    dxh = dz * s
+    dy = inv * (dxh - dxh.mean(dim=(1, 2, 3), keepdim=True)
+                - xh * (dxh * xh).mean(dim=(1, 2, 3), keepdim=True))
+    dw = torch.stack([torch.einsum("bnhwc,bnhwo->bco", t, dy)
+                      for t in _taps(x.float())], dim=1)
+    dw = dw.reshape(w.shape)
+    db = dy.sum(dim=(1, 2, 3))
+    pd = w.dtype
+    return dy, dw.to(pd), db.to(pd), dscale.to(pd), dbias.to(pd)
+
+
+def block_bwd_input_plain(dy, w, h: int, wd: int) -> torch.Tensor:
+    """dx of the conv from its output cotangent dy (f32): the transposed
+    stride-2 conv, as the tap scatter of ``_conv_s2_bwd``."""
+    B, N, ho, wo, _ = dy.shape
+    ci = w.shape[3]
+    dxp = dy.new_zeros(B, N, h + 2, wd + 2, ci)
+    wf = w.float()
+    for dyy in range(3):
+        for dxx in range(3):
+            dxp[:, :, dyy:dyy + 2 * ho - 1:2, dxx:dxx + 2 * wo - 1:2, :] += \
+                torch.einsum("bnhwo,bco->bnhwc", dy, wf[:, dyy, dxx])
+    return dxp[:, :, 1:1 + h, 1:1 + wd, :].to(w.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _load():
+    global _lib
+    if _lib is None:
+        from exploring_meta_tpu_torch.cuda import build
+        lib = build.load(_SOURCE)
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.cnn4_block_fwd.argtypes = [I] + [P] * 6 + [I] * 6 + [P]
+        lib.cnn4_block_bwd_params.argtypes = [I] + [P] * 11 + [I] * 6 + [P]
+        lib.cnn4_block_bwd_input.argtypes = [I] + [P] * 3 + [I] * 6 + [P]
+        for fn in (lib.cnn4_block_fwd, lib.cnn4_block_bwd_params,
+                   lib.cnn4_block_bwd_input):
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise RuntimeError(f"fused CNN4 block: unsupported device {t.device}")
+    return False
+
+
+def _check(x, w, b, scale, bias):
+    """Raise on anything the kernels do not take; -> (B, N, H, W, Ci, Co)."""
+    if x.ndim != 5 or w.ndim != 5 or w.shape[1:3] != (3, 3):
+        raise ValueError(f"fused CNN4 block wants x [B,N,H,W,Ci] and w "
+                         f"[B,3,3,Ci,Co], got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    B, N, H, W, ci = x.shape
+    co = w.shape[4]
+    if w.shape[:1] + w.shape[3:4] != (B, ci):
+        raise ValueError(f"w {tuple(w.shape)} does not match x "
+                         f"{tuple(x.shape)}")
+    for t in (b, scale, bias):
+        if tuple(t.shape) != (B, co):
+            raise ValueError(f"per-channel param {tuple(t.shape)} != "
+                             f"{(B, co)}")
+    for t in (x, w, b, scale, bias):
+        if t.dtype != x.dtype or t.device != x.device:
+            raise ValueError("fused CNN4 block wants every tensor in x's "
+                             "dtype and on x's device")
+        if not t.is_contiguous():
+            raise ValueError("fused CNN4 block wants contiguous tensors")
+    if x.dtype not in _DTYPES:
+        raise ValueError(f"fused CNN4 block: unsupported dtype {x.dtype}")
+    if B > MAX_TASKS:
+        raise ValueError(f"fused CNN4 block: {B} tasks in one launch, above "
+                         f"the grid's {MAX_TASKS}")
+    if smem_bytes(N, H, W, ci) > SMEM_LIMIT:
+        raise ValueError(
+            f"fused CNN4 block: {N} images of {H}x{W} per task need "
+            f"{smem_bytes(N, H, W, ci)} B of shared memory, above "
+            f"{SMEM_LIMIT}")
+    return B, N, H, W, ci, co
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def block_fwd(x, w, b, scale, bias) -> torch.Tensor:
+    """Block forward -> a ``[B, N, Ho, Wo, Co]`` in x's dtype."""
+    if _on_cpu(x):
+        return block_fwd_plain(x, w, b, scale, bias)
+    B, N, H, W, ci, co = _check(x, w, b, scale, bias)
+    out = torch.empty(B, N, out_hw(H), out_hw(W), co, dtype=x.dtype,
+                      device=x.device)
+    with torch.cuda.device(x.device):
+        err = _load().cnn4_block_fwd(
+            _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            B, N, H, W, ci, co, _stream(x))
+    _raise_on(err, "cnn4_block_fwd")
+    block_fwd.launches += 1
+    return out
+
+
+def block_bwd_params(x, w, b, scale, bias, g):
+    """-> (dy f32 ``[B, N, Ho, Wo, Co]``, dw, db, dscale, dbias)."""
+    if _on_cpu(x):
+        return block_bwd_params_plain(x, w, b, scale, bias, g)
+    B, N, H, W, ci, co = _check(x, w, b, scale, bias)
+    shape = (B, N, out_hw(H), out_hw(W), co)
+    if tuple(g.shape) != shape or g.dtype != x.dtype \
+            or g.device != x.device or not g.is_contiguous():
+        raise ValueError(f"cotangent {tuple(g.shape)} {g.dtype} does not "
+                         f"match the block output {shape} {x.dtype}")
+    dy = torch.empty(shape, dtype=torch.float32, device=x.device)
+    dw, db, ds, dbe = (torch.empty_like(t) for t in (w, b, scale, bias))
+    with torch.cuda.device(x.device):
+        err = _load().cnn4_block_bwd_params(
+            _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), g.data_ptr(), dy.data_ptr(),
+            dw.data_ptr(), db.data_ptr(), ds.data_ptr(), dbe.data_ptr(),
+            B, N, H, W, ci, co, _stream(x))
+    _raise_on(err, "cnn4_block_bwd_params")
+    block_bwd_params.launches += 1
+    return dy, dw, db, ds, dbe
+
+
+def block_bwd_input(dy, w, h: int, wd: int) -> torch.Tensor:
+    """dx ``[B, N, h, wd, Ci]`` in w's dtype from dy (f32, from
+    :func:`block_bwd_params`)."""
+    if _on_cpu(dy):
+        return block_bwd_input_plain(dy, w, h, wd)
+    B, N, ho, wo, co = dy.shape
+    ci = w.shape[3]
+    if (dy.dtype != torch.float32 or w.dtype not in _DTYPES
+            or tuple(w.shape) != (B, 3, 3, ci, co)
+            or (ho, wo) != (out_hw(h), out_hw(wd))
+            or w.device != dy.device
+            or not (dy.is_contiguous() and w.is_contiguous())):
+        raise ValueError(f"block_bwd_input: dy {tuple(dy.shape)} "
+                         f"{dy.dtype}, w {tuple(w.shape)} {w.dtype} and "
+                         f"input {h}x{wd} do not fit")
+    dx = torch.empty(B, N, h, wd, ci, dtype=w.dtype, device=dy.device)
+    with torch.cuda.device(dy.device):
+        err = _load().cnn4_block_bwd_input(
+            _DTYPES[w.dtype], dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
+            B, N, h, wd, ci, co, _stream(dy))
+    _raise_on(err, "cnn4_block_bwd_input")
+    block_bwd_input.launches += 1
+    return dx
+
+
+block_fwd.launches = 0
+block_bwd_params.launches = 0
+block_bwd_input.launches = 0
+
+KERNELS = {"cnn4_block_fwd": block_fwd,
+           "cnn4_block_bwd_params": block_bwd_params,
+           "cnn4_block_bwd_input": block_bwd_input}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# autograd
+# ---------------------------------------------------------------------------
+
+class FusedBlock(torch.autograd.Function):
+    """One fused block; first-order backward on the two bwd kernels.
+
+    A second-order backward (``create_graph=True``) is not implemented
+    and raises: MAML meta-training needs it and brings it with the
+    meta-training port."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, scale, bias):
+        ctx.save_for_backward(x, w, b, scale, bias)
+        return block_fwd(x, w, b, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        if torch.is_grad_enabled():
+            raise RuntimeError(
+                "the fused CNN4 block has a first-order backward only; "
+                "create_graph=True (second-order MAML) needs "
+                "set_conv_impl('direct')")
+        return FusedBlock._backward(ctx, g)
+
+    @staticmethod
+    @once_differentiable
+    def _backward(ctx, g):
+        x, w, b, scale, bias = ctx.saved_tensors
+        dy, dw, db, ds, dbe = block_bwd_params(x, w, b, scale, bias,
+                                               g.contiguous())
+        dx = (block_bwd_input(dy, w, x.shape[2], x.shape[3])
+              if ctx.needs_input_grad[0] else None)
+        return dx, dw, db, ds, dbe
+
+
+def _per_task(p: torch.Tensor, B: int, shared_ndim: int) -> torch.Tensor:
+    if p.ndim == shared_ndim:
+        p = p.unsqueeze(0).expand((B,) + tuple(p.shape))
+    return p.contiguous()
+
+
+def fused_omni_base(blocks: list, x: torch.Tensor) -> torch.Tensor:
+    """Pooled CNN4-Omniglot base features: 4 fused blocks, then the
+    spatial mean (``cnn4_pallas.py:fused_omni_base``).
+
+    ``x`` is ``[B, N, H, W, C]`` (or ``[N, H, W, C]``, one task); block
+    params are shared or per task (leading ``[B]``). -> ``[B, N, hidden]``
+    (or ``[N, hidden]``)."""
+    single = x.ndim == 4
+    a = (x.unsqueeze(0) if single else x).contiguous()
+    B = a.shape[0]
+    for blk in blocks:
+        a = FusedBlock.apply(
+            a, _per_task(blk["conv"]["w"], B, 4),
+            *(_per_task(p, B, 1) for p in (blk["conv"]["b"],
+                                           blk["bn"]["scale"],
+                                           blk["bn"]["bias"])))
+    feats = a.mean(dim=(-3, -2))
+    return feats[0] if single else feats
