@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from exploring_meta_tpu_torch.cuda import cnn4_cuda as tc
+from exploring_meta_tpu_torch.cuda import gae_cuda as gc
 from exploring_meta_tpu_torch.models.cnn4 import init_cnn4, omniglot_spec
 from exploring_meta_tpu_torch.models.layers import set_precision
 from exploring_meta_tpu_torch.serve import VisionServer
@@ -76,3 +77,62 @@ def test_served_batch_runs_every_kernel(cuda_device):
                                   "cnn4_block_bwd_params": 4,
                                   "cnn4_block_bwd_input": 3}
     assert torch.isfinite(probs).all() and preds.shape == (3, 15)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(20, 100, 20), (100, 400), (100,)])
+@pytest.mark.parametrize("dones", ["mid", "zeros", "ones"])
+def test_sweep_kernels_match_plain_twins(cuda_device, shape, dones):
+    rng = np.random.default_rng(len(shape))
+    r, v = (torch.tensor(rng.normal(size=shape), dtype=torch.float32,
+                         device=cuda_device) for _ in range(2))
+    d = torch.tensor(rng.uniform(size=shape) < 0.1 if dones == "mid"
+                     else np.full(shape, dones == "ones"),
+                     dtype=torch.float32, device=cuda_device)
+    gc.reset_launch_counts()
+    for got, want in ((gc.gae_sweep(0.99, 0.95, r, d, v),
+                       gc.gae_plain(0.99, 0.95, r, d, v)),
+                      (gc.discount_sweep(0.99, r, d),
+                       gc.discount_plain(0.99, r, d))):
+        # up to T = 100 float32 terms, each rounded once
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-5 * float(want.abs().max()))
+    assert gc.launch_counts() == {"gae_sweep": 1, "discount_sweep": 1}
+
+
+@pytest.mark.cuda
+def test_sweep_autograd_is_the_plain_vjp(cuda_device):
+    rng = np.random.default_rng(0)
+    r, d, v, g = (torch.tensor(a, dtype=torch.float32, device=cuda_device)
+                  for a in (rng.normal(size=(3, 40, 5)),
+                            rng.uniform(size=(3, 40, 5)) < 0.1,
+                            rng.normal(size=(3, 40, 5)),
+                            rng.normal(size=(3, 40, 5))))
+
+    def grads(fn):
+        ins = [x.clone().requires_grad_() for x in (r, v)]
+        return torch.autograd.grad(fn(ins[0], d, ins[1]), ins, g)
+
+    got = grads(lambda r, d, v: gc.gae_sweep(0.99, 0.95, r, d, v))
+    want = grads(lambda r, d, v: gc.gae_plain(0.99, 0.95, r, d, v))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+    rr = r.clone().requires_grad_()
+    (a,) = torch.autograd.grad(gc.discount_sweep(0.99, rr, d), rr, g)
+    (b,) = torch.autograd.grad(gc.discount_plain(0.99, rr, d), rr, g)
+    torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_trpo_iteration_runs_the_sweeps(cuda_device, tmp_path):
+    from exploring_meta_tpu_torch.trainers.rl import RLTrainer
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+    cfg = RLScriptConfig(num_iterations=1, meta_batch_size=4,
+                         adapt_batch_size=5, max_path_length=20,
+                         n_eval_tasks=2)
+    gc.reset_launch_counts()
+    final = RLTrainer(cfg, path=str(tmp_path) + "/").run()
+    counts = gc.launch_counts()
+    # collection 3 + two surrogate evaluations or more 2 each, + meta-test 3
+    assert counts["gae_sweep"] >= 10 and counts["discount_sweep"] >= 10
+    assert np.isfinite(final["mean_reward"])

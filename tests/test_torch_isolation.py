@@ -30,7 +30,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = (out.stdout.split("\n") + [""])[:2]
-    assert int(n) >= 15
+    assert int(n) >= 33
     assert bad == "", bad
 
 
@@ -41,7 +41,13 @@ def test_port_module_list_is_complete():
     for mod in ("serve", "cuda.cnn4_cuda", "cuda.build", "models.cnn4",
                 "models.layers", "models.init", "adapt.maml", "ops.losses",
                 "tasks.datasets", "tasks.sampler", "utils.experiment",
-                "utils.bridge", "utils.tree", "device"):
+                "utils.bridge", "utils.tree", "device",
+                # slice 2: MAML-TRPO on Particles2D
+                "cuda.gae_cuda", "envs.particles2d", "envs.factory",
+                "models.distributions", "models.policies", "ops.value",
+                "ops.gae", "ops.cg", "rl.rollout", "rl.adapt_rl",
+                "rl.trpo_meta", "rl.evaluate", "utils.config",
+                "trainers.rl", "cli"):
         assert f"exploring_meta_tpu_torch.{mod}" in names
 
 
@@ -50,5 +56,6 @@ def test_packaging_ships_the_port_and_its_cuda_source():
         tool = tomllib.load(f)["tool"]["setuptools"]
     assert "exploring_meta_tpu_torch*" in tool["packages"]["find"]["include"]
     assert "csrc/*.cu" in tool["package-data"]["exploring_meta_tpu_torch"]
-    assert os.path.exists(os.path.join(
-        REPO, "exploring_meta_tpu_torch", "csrc", "cnn4_block.cu"))
+    for source in ("cnn4_block.cu", "gae.cu"):
+        assert os.path.exists(os.path.join(
+            REPO, "exploring_meta_tpu_torch", "csrc", source))
