@@ -13,9 +13,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
    64 requests, 25 support images each), in float32 and bfloat16, launch
    every fused-block kernel, hold it against its plain PyTorch twin, and
    time kernel, twin and a PyTorch library yardstick with CUDA events;
-   then load full-width ``omniglot_spec(ways=5)`` params from ``.npz`` and
-   serve 64 synthetic-Omniglot requests through ``VisionServer.batch``
-   with the launch counters zeroed just before and read just after, check
+   hold the forward and input-gradient kernels against their twins at
+   the query forward (N = 15), at B = 1, N = 1 and at N = 128 (block 1),
+   and time the forward at N = 15 too; then load full-width
+   ``omniglot_spec(ways=5)`` params from ``.npz`` and serve 64
+   synthetic-Omniglot requests through ``VisionServer.batch`` with the
+   launch counters zeroed just before and read just after, check
    that every kernel ran, that the batch agrees with per-request
    ``__call__`` and with the CPU path, and that the support set is
    labelled above chance; time and profile it;
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -52,6 +56,13 @@ INNER_LR, ADAPT_STEPS = 0.5, 1
 # (H, Ci) of the four CNN4-Omniglot blocks at hidden 64
 BLOCKS = [(28, 1), (14, 64), (7, 64), (4, 64)]
 HIDDEN = 64
+# Shapes beyond the served support batch at which cnn4_block_fwd and
+# cnn4_block_bwd_input are held against their twins, as (tasks, images per
+# task, block index): the served query forward (N = 15; M = 735 at block
+# 2 leaves a ragged last tile of 31 rows), the smallest call, and the most
+# images per task the tests ask for.
+EXTRA_SHAPES = ([(BATCH, QUERIES, k) for k in range(4)]
+                + [(1, 1, k) for k in range(4)] + [(BATCH, 128, 0)])
 # H100 SXM data-sheet peaks: HBM bytes/s and f32 FLOP/s outside the
 # tensor cores (the kernels do f32 FMAs on the CUDA cores).
 PEAK_BYTES = 3.35e12
@@ -136,6 +147,42 @@ def bound(kernel: str, b: int, n: int, h: int, ci: int, co: int,
     return 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
 
 
+def block_inputs(torch, tc, gen, b, n, h, ci, dt):
+    """Random block inputs at one shape: x, w, b, scale, bias and a
+    cotangent g, zero where the ReLU input lies within 1e-3 of its kink:
+    there the kernel's and the twin's f32 rounding may disagree on the
+    mask, which is a tie, not an error."""
+    dev, co = torch.device("cuda"), HIDDEN
+    ho = (h - 1) // 2 + 1
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = rnd(b, n, h, h, ci).to(dt)
+    w = rnd(b, 3, 3, ci, co, scale=(2.0 / (9 * ci)) ** 0.5).to(dt)
+    bb = rnd(b, co, scale=0.1).to(dt)
+    sc = (torch.rand(b, co, generator=gen, device=dev) * 0.9 + 0.1).to(dt)
+    be = rnd(b, co, scale=0.1).to(dt)
+    xh, _, s_, be_ = tc.bn_stats_plain(x, w, bb, sc, be)
+    g = (rnd(b, n, ho, ho, co) * ((xh * s_ + be_).abs() > 1e-3)).to(dt)
+    return x, w, bb, sc, be, g
+
+
+def held(torch, got, want, dname: str, what: str, db=None) -> float:
+    """|got - want| <= TOL (or DB_TOL * db, for the conv-bias gradient)
+    everywhere -> the largest |got - want|."""
+    rtol, atol = TOL[dname]
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    if db is not None:
+        lim = DB_TOL[dname] * db
+    else:
+        lim = atol * want.abs().max() + rtol * want.abs()
+    check(bool(torch.isfinite(got).all()), f"{what}: finite kernel output")
+    check(bool((d <= lim).all()), f"{dname} {what}: max |err| {float(d.max())}")
+    return float(d.max())
+
+
 def kernel_phase(tc, F, torch) -> dict:
     """Phase 3: every kernel vs its twin at every block shape and dtype."""
     res = {name: {"max_abs_err": {}, "ms": 0.0, "plain_ms": 0.0,
@@ -143,72 +190,78 @@ def kernel_phase(tc, F, torch) -> dict:
                   "bound_ms": 0.0, "shapes": []}
            for name in tc.KERNELS}
     res["cnn4_block_bwd_params"]["library_ms"] = None
+    res["cnn4_block_fwd"].update(ms_n15=0.0, library_ms_n15=0.0,
+                                 bound_ms_n15=0.0)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    dev = torch.device("cuda")
     B, N, co = BATCH, WAYS * SHOTS, HIDDEN
 
-    def rnd(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
+    def note(name, dname, e):
+        prev = res[name]["max_abs_err"].get(dname, 0.0)
+        res[name]["max_abs_err"][dname] = max(prev, e)
+
+    def grouped(x, w, b, sc, be, dy=None):
+        """The yardsticks' operands: tasks as conv groups, NCHW."""
+        bt, n, h, _, ci = x.shape
+        out = {"xg": x.permute(1, 0, 4, 2, 3).reshape(n, bt * ci, h, h)
+                      .contiguous(),
+               "wg": w.permute(0, 4, 3, 1, 2).reshape(bt * co, ci, 3, 3)
+                      .contiguous(),
+               "bf": b.reshape(-1), "sf": sc.reshape(-1),
+               "bef": be.reshape(-1)}
+        if dy is not None:
+            ho = dy.shape[2]
+            out["dyg"] = dy.permute(1, 0, 4, 2, 3).reshape(
+                n, bt * co, ho, ho).contiguous()
+        return out
+
+    def fwd_library(x, w, b, sc, be):
+        o = grouped(x, w, b, sc, be)
+        return lambda: torch.relu(F.batch_norm(
+            F.conv2d(o["xg"], o["wg"], o["bf"], stride=2, padding=1,
+                     groups=x.shape[0]),
+            None, None, o["sf"], o["bef"], training=True, eps=tc.EPS))
+
+    def timed(name, b, n, blk, kern, plain, lib, on_path):
+        h, ci = BLOCKS[blk]
+        shape = {"block": blk + 1, "x": [b, n, h, h, ci],
+                 "on_path": on_path, "ms": time_ms(kern),
+                 "plain_ms": time_ms(plain),
+                 "library_ms": time_ms(lib) if lib else None}
+        bms, oms = bound(name, b, n, h, ci, co, 4)
+        shape.update(bytes_ms=bms, ops_ms=oms, bound_ms=max(bms, oms),
+                     tflops=oms * PEAK_F32 / 1e12 / shape["ms"])
+        res[name]["shapes"].append(shape)
+        return shape
 
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
-        rtol, atol = TOL[dname]
         for blk, (h, ci) in enumerate(BLOCKS):
-            ho = (h - 1) // 2 + 1
-            x = rnd(B, N, h, h, ci).to(dt)
-            w = rnd(B, 3, 3, ci, co, scale=(2.0 / (9 * ci)) ** 0.5).to(dt)
-            b = rnd(B, co, scale=0.1).to(dt)
-            sc = (torch.rand(B, co, generator=gen, device=dev) * 0.9 + 0.1).to(dt)
-            be = rnd(B, co, scale=0.1).to(dt)
-            # zero the cotangent where the ReLU input lies within 1e-3 of
-            # its kink: there the kernel's and the twin's f32 rounding may
-            # disagree on the mask, which is a tie, not an error
-            xh, _, s_, be_ = tc.bn_stats_plain(x, w, b, sc, be)
-            g = (rnd(B, N, ho, ho, co) * ((xh * s_ + be_).abs() > 1e-3)).to(dt)
-
-            def err(got, want, db=None):
-                got, want = got.float(), want.float()
-                d = (got - want).abs()
-                if db is not None:
-                    lim = DB_TOL[dname] * db
-                else:
-                    lim = atol * want.abs().max() + rtol * want.abs()
-                check(bool(torch.isfinite(got).all()), "finite kernel output")
-                check(bool((d <= lim).all()),
-                      f"{dname} block {blk + 1}: max |err| {float(d.max())}")
-                return float(d.max())
-
-            a_k = tc.block_fwd(x, w, b, sc, be)
-            e_fwd = err(a_k, tc.block_fwd_plain(x, w, b, sc, be))
+            x, w, b, sc, be, g = block_inputs(torch, tc, gen, B, N, h, ci, dt)
+            what = f"block {blk + 1} N {N}"
+            note("cnn4_block_fwd", dname, held(
+                torch, tc.block_fwd(x, w, b, sc, be),
+                tc.block_fwd_plain(x, w, b, sc, be), dname, what))
             got = tc.block_bwd_params(x, w, b, sc, be, g)
             want = tc.block_bwd_params_plain(x, w, b, sc, be, g)
             dy_abs = want[0].abs().sum(dim=(1, 2, 3))
-            e_bwp = max(err(got[0], want[0]), err(got[1], want[1]),
-                        err(got[2], want[2], db=dy_abs + 1e-30),
-                        err(got[3], want[3]), err(got[4], want[4]))
+            note("cnn4_block_bwd_params", dname, max(
+                held(torch, got[i], want[i], dname, f"{what} output {i}",
+                     db=dy_abs + 1e-30 if i == 2 else None)
+                for i in range(5)))
             dy = got[0]
-            e_bwi = err(tc.block_bwd_input(dy, w, h, h),
-                        tc.block_bwd_input_plain(dy, w, h, h))
+            note("cnn4_block_bwd_input", dname, held(
+                torch, tc.block_bwd_input(dy, w, h, h),
+                tc.block_bwd_input_plain(dy, w, h, h), dname, what))
             torch.cuda.synchronize()
-            for name, e in (("cnn4_block_fwd", e_fwd),
-                            ("cnn4_block_bwd_params", e_bwp),
-                            ("cnn4_block_bwd_input", e_bwi)):
-                prev = res[name]["max_abs_err"].get(dname, 0.0)
-                res[name]["max_abs_err"][dname] = max(prev, e)
 
             # Timing at float32, the served dtype: kernel, twin, yardstick.
             if dt != torch.float32:
                 continue
-            xg = x.permute(1, 0, 4, 2, 3).reshape(N, B * ci, h, h).contiguous()
-            wg = w.permute(0, 4, 3, 1, 2).reshape(B * co, ci, 3, 3).contiguous()
-            dyg = dy.permute(1, 0, 4, 2, 3).reshape(N, B * co, ho, ho).contiguous()
-            bf, sf, bef = b.reshape(-1), sc.reshape(-1), be.reshape(-1)
+            o = grouped(x, w, b, sc, be, dy)
             runs = {
                 "cnn4_block_fwd": (
                     lambda: tc.block_fwd(x, w, b, sc, be),
                     lambda: tc.block_fwd_plain(x, w, b, sc, be),
-                    lambda: torch.relu(F.batch_norm(
-                        F.conv2d(xg, wg, bf, stride=2, padding=1, groups=B),
-                        None, None, sf, bef, training=True, eps=tc.EPS))),
+                    fwd_library(x, w, b, sc, be)),
                 "cnn4_block_bwd_params": (
                     lambda: tc.block_bwd_params(x, w, b, sc, be, g),
                     lambda: tc.block_bwd_params_plain(x, w, b, sc, be, g),
@@ -217,26 +270,53 @@ def kernel_phase(tc, F, torch) -> dict:
                     lambda: tc.block_bwd_input(dy, w, h, h),
                     lambda: tc.block_bwd_input_plain(dy, w, h, h),
                     lambda: torch.nn.grad.conv2d_input(
-                        xg.shape, wg, dyg, stride=2, padding=1, groups=B)),
+                        o["xg"].shape, o["wg"], o["dyg"], stride=2,
+                        padding=1, groups=B)),
             }
             for name, (kern, plain, lib) in runs.items():
                 on_path = not (name == "cnn4_block_bwd_input" and blk == 0)
-                shape = {"block": blk + 1, "x": [B, N, h, h, ci],
-                         "on_path": on_path, "ms": time_ms(kern),
-                         "plain_ms": time_ms(plain),
-                         "library_ms": time_ms(lib) if lib else None}
-                bms, oms = bound(name, B, N, h, ci, co, 4)
-                shape.update(bytes_ms=bms, ops_ms=oms, bound_ms=max(bms, oms))
-                res[name]["shapes"].append(shape)
+                shape = timed(name, B, N, blk, kern, plain, lib, on_path)
                 if on_path:
                     r = res[name]
                     r["ms"] += shape["ms"]
                     r["plain_ms"] += shape["plain_ms"]
                     if lib:
                         r["library_ms"] += shape["library_ms"]
-                    r["bytes_ms"] += bms
-                    r["ops_ms"] += oms
-                    r["bound_ms"] += max(bms, oms)
+                    r["bytes_ms"] += shape["bytes_ms"]
+                    r["ops_ms"] += shape["ops_ms"]
+                    r["bound_ms"] += shape["bound_ms"]
+
+        # fwd and bwd_input at the other shapes their tiling must handle
+        for b_, n_, blk in EXTRA_SHAPES:
+            h, ci = BLOCKS[blk]
+            x, w, b, sc, be, _ = block_inputs(torch, tc, gen, b_, n_, h, ci,
+                                              dt)
+            ho = (h - 1) // 2 + 1
+            dy = torch.randn(b_, n_, ho, ho, co, generator=gen,
+                             device="cuda")
+            what = f"block {blk + 1} B {b_} N {n_}"
+            note("cnn4_block_fwd", dname, held(
+                torch, tc.block_fwd(x, w, b, sc, be),
+                tc.block_fwd_plain(x, w, b, sc, be), dname, what))
+            note("cnn4_block_bwd_input", dname, held(
+                torch, tc.block_bwd_input(dy, w, h, h),
+                tc.block_bwd_input_plain(dy, w, h, h), dname, what))
+            torch.cuda.synchronize()
+            if dt == torch.float32 and (b_, n_) == (BATCH, QUERIES):
+                shape = timed("cnn4_block_fwd", b_, n_, blk,
+                              lambda: tc.block_fwd(x, w, b, sc, be),
+                              lambda: tc.block_fwd_plain(x, w, b, sc, be),
+                              fwd_library(x, w, b, sc, be), True)
+                r = res["cnn4_block_fwd"]
+                r["ms_n15"] += shape["ms"]
+                r["library_ms_n15"] += shape["library_ms"]
+                r["bound_ms_n15"] += shape["bound_ms"]
+    for name in ("cnn4_block_fwd", "cnn4_block_bwd_input"):
+        for sh in res[name]["shapes"]:
+            print(f"  {name} block {sh['block']} x {sh['x']}: ms {sh['ms']} "
+                  f"({sh['tflops']} TFLOP/s) bound_ms {sh['bound_ms']} "
+                  f"library_ms {sh['library_ms']} plain_ms "
+                  f"{sh['plain_ms']}", flush=True)
     return res
 
 
@@ -280,15 +360,18 @@ def device_profile(torch, fn, launches: bool = False) -> tuple:
                     key=lambda e: -e.self_device_time_total)
     out = (sum(e.self_device_time_total for e in events),
            [(e.key[:60], e.self_device_time_total, e.count)
-            for e in events[:8]])
+            for e in events[:12]])
     return out + (sum(e.count for e in events),) if launches else out
 
 
 def kernel_device_ms(torch, fn, name: str, calls: int = 50) -> float:
     """Device time of one launch of the kernel whose name holds ``name``:
-    the profiler's (CUPTI) kernel time over ``calls`` calls of ``fn``. For
-    a kernel of a few microseconds, CUDA events around back-to-back calls
-    time the host's dispatch instead, so this is the kernel's own time."""
+    the profiler's (CUPTI) kernel time over ``calls`` calls of ``fn``,
+    averaged over the launches it recorded. For a kernel of a few
+    microseconds, CUDA events around back-to-back calls time the host's
+    dispatch instead, so this is the kernel's own time. CUPTI may drop a
+    record now and then (one of 50 has been seen missing on an H100), so
+    the check asks for nine in ten of the launches, not every one."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -300,7 +383,8 @@ def kernel_device_ms(torch, fn, name: str, calls: int = 50) -> float:
               if e.device_type == torch.autograd.DeviceType.CUDA
               and name in e.key]
     count = sum(e.count for e in events)
-    check(count == calls, f"profiler saw {count} launches of {name}")
+    check(0.9 * calls <= count <= calls,
+          f"profiler saw {count} of {calls} launches of {name}")
     return sum(e.self_device_time_total for e in events) / count / 1e3
 
 
@@ -317,7 +401,8 @@ def build_all(build) -> tuple[float, dict]:
     for src in sources:
         with open(build.library_path(src) + ".log") as f:
             ptxas[src] = [ln.strip() for ln in f
-                          if "Used" in ln or "spill" in ln]
+                          if "Used" in ln or "spill" in ln
+                          or "entry function" in ln]
     return seconds, ptxas
 
 
@@ -714,12 +799,19 @@ def main() -> int:
     for src, lines in ptxas.items():
         for ln in lines:
             print(f"ptxas {src}: {ln}")
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", ln)
+            check(not spill or spill.groups() == ("0", "0"),
+                  f"no register spills in {src}: {ln}")
 
     res = kernel_phase(tc, F, torch)
     for name, r in res.items():
         print(f"kernel {name}: max_abs_err {r['max_abs_err']} ms {r['ms']} "
               f"plain_ms {r['plain_ms']} library_ms {r['library_ms']} "
-              f"bound_ms {r['bound_ms']} [{gpu}]", flush=True)
+              f"bound_ms {r['bound_ms']}" + "".join(
+                  f" {k} {r[k]}" for k in ("ms_n15", "library_ms_n15",
+                                           "bound_ms_n15") if k in r)
+              + f" [{gpu}]", flush=True)
     served = serve_phase(torch, np, tc, gpu)
     sweeps = sweep_phase(torch, gc, gpu)
     with tempfile.TemporaryDirectory() as tmp:

@@ -3,12 +3,15 @@
 Port of ``exploring_meta_tpu/pallas/cnn4_pallas.py`` (rows 1-4 of the
 TPU-kernel table in PERF.md). One block is zero-pad -> 3x3 stride-2 conv
 + bias -> batch-stat BN over (N, H, W) per channel and task -> scale/bias
--> ReLU. Three kernels in ``csrc/cnn4_block.cu`` compute it:
+-> ReLU. Three entry points in ``csrc/cnn4_block.cu`` compute it:
 
-- ``cnn4_block_fwd``        the block forward (``_blk_fwd_kernel``);
+- ``cnn4_block_fwd``        the block forward (``_blk_fwd_kernel``): a
+  tiled implicit GEMM with per-tile BN statistics, their combine in tile
+  order, then the normalisation (three launches);
 - ``cnn4_block_bwd_params`` dy, dw, db, dscale, dbias (``_block_bwd`` and
   the dw/db half of ``_conv_s2_bwd``);
-- ``cnn4_block_bwd_input``  dx, the transposed stride-2 conv as a gather.
+- ``cnn4_block_bwd_input``  dx, the transposed stride-2 conv as four
+  parity-class GEMMs.
 
 Every tensor has a leading task axis B (the JAX single-task form is
 B = 1): x ``[B, N, H, W, Ci]`` NHWC, w ``[B, 3, 3, Ci, Co]`` HWIO,
@@ -18,7 +21,12 @@ float32, outputs in that dtype).
 Each wrapper (:func:`block_fwd`, :func:`block_bwd_params`,
 :func:`block_bwd_input`) runs the plain PyTorch twin for CPU tensors and
 launches its kernel for CUDA tensors; there is no other path. Each counts
-its kernel launches in ``<wrapper>.launches``.
+the calls that launch its kernels in ``<wrapper>.launches``.
+
+Beside the twins stand plain versions of the kernels' decompositions
+(:func:`tile_stats_plain`, :func:`combine_tile_stats_plain`,
+:func:`parity_classes`, :func:`block_bwd_input_parity_plain`), which the
+tests hold against the JAX package.
 """
 
 from __future__ import annotations
@@ -31,8 +39,9 @@ from torch.autograd.function import once_differentiable
 
 EPS = 1e-5
 _THREADS = 256            # kThreads in csrc/cnn4_block.cu
+_TILE_M = 64              # kTileM: positions per CTA of the tiled kernels
 SMEM_LIMIT = 232448       # dynamic shared memory one H100 block may use
-MAX_TASKS = 65535         # gridDim.y of the per-(task, channel) kernels
+MAX_TASKS = 65535         # the task axis is gridDim.y or .z of every kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "cnn4_block.cu"
 _lib = None
@@ -44,10 +53,21 @@ def out_hw(h: int) -> int:
 
 
 def smem_bytes(n: int, h: int, w: int, ci: int) -> int:
-    """Shared memory of the fwd / bwd_params kernels for one task (mirrors
+    """Shared memory of the bwd_params kernel for one task (mirrors
     ``smem_floats`` in the source): weight column, reduction scratch and
     one channel's conv output over all N*Ho*Wo positions."""
     return 4 * (9 * ci + _THREADS + n * out_hw(h) * out_hw(w))
+
+
+def fwd_workspace_floats(b: int, n: int, h: int, w: int, co: int,
+                         dtype: torch.dtype) -> int:
+    """f32 scratch of ``cnn4_block_fwd`` (mirrors ``launch_fwd_t``): the
+    per-tile (mean, M2) and per-task (mean, inv_std) of every channel, and
+    y between the kernels where the output (bf16) cannot hold it."""
+    m = n * out_hw(h) * out_hw(w)
+    tiles = -(-m // _TILE_M)
+    y = 0 if dtype == torch.float32 else b * m * co
+    return 2 * b * tiles * co + 2 * b * co + y
 
 
 # ---------------------------------------------------------------------------
@@ -63,13 +83,19 @@ def _taps(x: torch.Tensor):
             for dy in range(3) for dx in range(3)]
 
 
-def bn_stats_plain(x, w, b, scale, bias):
-    """-> (xhat, inv_std, scale, bias) in f32, from ``_block_fwd``."""
-    x, w, b, scale, bias = (t.float() for t in (x, w, b, scale, bias))
+def conv_plain(x, w, b) -> torch.Tensor:
+    """The block's conv plus bias in f32 (``_conv_s2`` + b)."""
+    x, w, b = x.float(), w.float(), b.float()
     wt = w.reshape(w.shape[0], 9, w.shape[3], w.shape[4])
     y = sum(torch.einsum("bnhwc,bco->bnhwo", t, wt[:, k])
             for k, t in enumerate(_taps(x)))
-    y = y + b[:, None, None, None, :]
+    return y + b[:, None, None, None, :]
+
+
+def bn_stats_plain(x, w, b, scale, bias):
+    """-> (xhat, inv_std, scale, bias) in f32, from ``_block_fwd``."""
+    y = conv_plain(x, w, b)
+    scale, bias = scale.float(), bias.float()
     mu = y.mean(dim=(1, 2, 3), keepdim=True)
     var = (y - mu).square().mean(dim=(1, 2, 3), keepdim=True)
     inv = torch.rsqrt(var + EPS)
@@ -115,6 +141,68 @@ def block_bwd_input_plain(dy, w, h: int, wd: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# the kernels' decompositions in plain PyTorch (tests only)
+# ---------------------------------------------------------------------------
+
+def tile_stats_plain(y: torch.Tensor, tile: int = _TILE_M):
+    """Per-tile statistics of y ``[B, M, C]`` over row tiles of ``tile``
+    rows, as the forward's kernel A takes them: -> (n ``[T]``, mean
+    ``[B, T, C]``, M2 ``[B, T, C]``), M2 the centred sum of squares (two
+    passes over the tile)."""
+    n, means, m2s = [], [], []
+    for r in range(0, y.shape[1], tile):
+        part = y[:, r:r + tile]
+        mu = part.mean(dim=1)
+        n.append(part.shape[1])
+        means.append(mu)
+        m2s.append((part - mu[:, None]).square().sum(dim=1))
+    return (torch.tensor(n, dtype=y.dtype), torch.stack(means, 1),
+            torch.stack(m2s, 1))
+
+
+def combine_tile_stats_plain(n, mean, m2):
+    """Chan's combine of per-tile statistics in tile order, as
+    ``fwd_combine_kernel``: -> (mean ``[B, C]``, biased var ``[B, C]``)."""
+    total = float(n.sum())
+    mu = torch.zeros_like(mean[:, 0])
+    for t in range(mean.shape[1]):
+        mu = mu + n[t] * mean[:, t]
+    mu = mu / total
+    acc = torch.zeros_like(mu)
+    for t in range(mean.shape[1]):
+        acc = acc + m2[:, t] + n[t] * (mean[:, t] - mu).square()
+    return mu, acc / total
+
+
+def parity_classes():
+    """The parity classes (hi % 2, wi % 2) of the input positions in the
+    order of ``bwd_input_kernel``'s grid, each with its taps (ty, tx, di,
+    dj): input (2a + ph, 2b + pw) takes w[ty, tx] times dy at output
+    (a + di, b + dj)."""
+    rows = {0: [(1, 0)], 1: [(0, 1), (2, 0)]}
+    return [((ph, pw), [(ty, tx, di, dj) for ty, di in rows[ph]
+                        for tx, dj in rows[pw]])
+            for ph, pw in ((1, 1), (1, 0), (0, 1), (0, 0))]
+
+
+def block_bwd_input_parity_plain(dy, w, h: int, wd: int) -> torch.Tensor:
+    """dx as ``bwd_input_kernel`` computes it: per parity class, the sum
+    over its taps of dy at the tap's source rows (zero past the last
+    output row or column) times w[tap] read as ``[Ci, Co]``."""
+    B, N, ho, wo, _ = dy.shape
+    dx = dy.new_zeros(B, N, h, wd, w.shape[3])
+    dyp = F.pad(dy, (0, 0, 0, 1, 0, 1))    # row Ho and column Wo are zero
+    wf = w.float()
+    for (ph, pw), taps in parity_classes():
+        hc, wc = (h - ph + 1) // 2, (wd - pw + 1) // 2
+        for ty, tx, di, dj in taps:
+            src = dyp[:, :, di:di + hc, dj:dj + wc, :]
+            dx[:, :, ph::2, pw::2, :] += torch.einsum(
+                "bnhwo,bco->bnhwc", src, wf[:, ty, tx])
+    return dx.to(w.dtype)
+
+
+# ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -124,7 +212,7 @@ def _load():
         from exploring_meta_tpu_torch.cuda import build
         lib = build.load(_SOURCE)
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.cnn4_block_fwd.argtypes = [I] + [P] * 6 + [I] * 6 + [P]
+        lib.cnn4_block_fwd.argtypes = [I] + [P] * 7 + [I] * 6 + [P]
         lib.cnn4_block_bwd_params.argtypes = [I] + [P] * 11 + [I] * 6 + [P]
         lib.cnn4_block_bwd_input.argtypes = [I] + [P] * 3 + [I] * 6 + [P]
         for fn in (lib.cnn4_block_fwd, lib.cnn4_block_bwd_params,
@@ -192,10 +280,12 @@ def block_fwd(x, w, b, scale, bias) -> torch.Tensor:
     B, N, H, W, ci, co = _check(x, w, b, scale, bias)
     out = torch.empty(B, N, out_hw(H), out_hw(W), co, dtype=x.dtype,
                       device=x.device)
+    ws = torch.empty(fwd_workspace_floats(B, N, H, W, co, x.dtype),
+                     dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _load().cnn4_block_fwd(
             _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), ws.data_ptr(),
             B, N, H, W, ci, co, _stream(x))
     _raise_on(err, "cnn4_block_fwd")
     block_fwd.launches += 1

@@ -60,6 +60,46 @@ def test_kernels_match_plain_twins(cuda_device, h, ci):
                                rtol=1e-4, atol=1e-4)
 
 
+# (tasks, images per task, H, Ci) at which the tiled kernels are held:
+# the four served block shapes at N = 25, the query forward at N = 15 (M =
+# 735 at block 2 leaves a ragged last tile), B = 1 with N = 1, and N = 128
+# at block 1
+_BLOCKS = [(28, 1), (14, 64), (7, 64), (4, 64)]
+_TILED_SHAPES = ([(2, 25, h, ci) for h, ci in _BLOCKS]
+                 + [(2, 15, h, ci) for h, ci in _BLOCKS]
+                 + [(1, 1, h, ci) for h, ci in _BLOCKS] + [(2, 128, 28, 1)])
+
+
+def _held(got, want, tol):
+    """|got - want| <= tol * max|want| + tol * |want| (chip_smoke.TOL)."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    lim = tol * want.abs().max() + tol * want.abs()
+    assert ((got - want).abs() <= lim).all(), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("b,n,h,ci", _TILED_SHAPES)
+def test_tiled_kernels_match_plain_twins(cuda_device, b, n, h, ci, dtype,
+                                         tol):
+    """The forward and the input gradient against their twins, and each
+    twice with bitwise equal results."""
+    rng = np.random.default_rng(n * h + ci)
+    x, w, p, _ = _block_inputs(rng, cuda_device, b, n, h, ci)
+    x, w, p = x.to(dtype), w.to(dtype), [t.to(dtype) for t in p]
+    got = tc.block_fwd(x, w, *p)
+    _held(got, tc.block_fwd_plain(x, w, *p), tol)
+    assert torch.equal(got, tc.block_fwd(x, w, *p))
+    ho = tc.out_hw(h)
+    dy = torch.tensor(rng.normal(size=(b, n, ho, ho, 64)),
+                      dtype=torch.float32, device=cuda_device)
+    got = tc.block_bwd_input(dy, w, h, h)
+    _held(got, tc.block_bwd_input_plain(dy, w, h, h), tol)
+    assert torch.equal(got, tc.block_bwd_input(dy, w, h, h))
+
+
 @pytest.mark.cuda
 def test_served_batch_runs_every_kernel(cuda_device):
     spec = omniglot_spec(ways=5)
