@@ -12,10 +12,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
 3. serving (slice 1): at each of the four CNN4-Omniglot block shapes (B =
    64 requests, 25 support images each), in float32 and bfloat16, launch
    every fused-block kernel, hold it against its plain PyTorch twin, and
-   time kernel, twin and a PyTorch library yardstick with CUDA events;
-   hold the forward and input-gradient kernels against their twins at
-   the query forward (N = 15), at B = 1, N = 1 and at N = 128 (block 1),
-   and time the forward at N = 15 too; then load full-width
+   time kernel, twin and a PyTorch library yardstick with CUDA events
+   (for ``cnn4_block_bwd_params``, whose five outputs no one PyTorch call
+   computes, the grouped ``conv2d_weight`` of its dw part only); hold
+   every kernel against its twin at the query forward (N = 15), at B = 1,
+   N = 1, and at N = 128 and N = 400 (block 1), and ``bwd_params`` twice
+   with bitwise equal results; time the forward at N = 15 too; then load
+   full-width
    ``omniglot_spec(ways=5)`` params from ``.npz`` and serve 64
    synthetic-Omniglot requests through ``VisionServer.batch`` with the
    launch counters zeroed just before and read just after, check
@@ -56,13 +59,15 @@ INNER_LR, ADAPT_STEPS = 0.5, 1
 # (H, Ci) of the four CNN4-Omniglot blocks at hidden 64
 BLOCKS = [(28, 1), (14, 64), (7, 64), (4, 64)]
 HIDDEN = 64
-# Shapes beyond the served support batch at which cnn4_block_fwd and
-# cnn4_block_bwd_input are held against their twins, as (tasks, images per
-# task, block index): the served query forward (N = 15; M = 735 at block
-# 2 leaves a ragged last tile of 31 rows), the smallest call, and the most
-# images per task the tests ask for.
+# Shapes beyond the served support batch at which every CNN4 kernel is
+# held against its twin, as (tasks, images per task, block index): the
+# served query forward (N = 15; M = 735 at block 2 leaves a ragged last
+# tile of 31 rows), the smallest call, the most images per task the tests
+# ask for, and 400 images, past the 295 that bwd_params took when it kept
+# a task's channel in shared memory.
 EXTRA_SHAPES = ([(BATCH, QUERIES, k) for k in range(4)]
-                + [(1, 1, k) for k in range(4)] + [(BATCH, 128, 0)])
+                + [(1, 1, k) for k in range(4)] + [(BATCH, 128, 0)]
+                + [(BATCH, 400, 0)])
 # H100 SXM data-sheet peaks: HBM bytes/s and f32 FLOP/s outside the
 # tensor cores (the kernels do f32 FMAs on the CUDA cores).
 PEAK_BYTES = 3.35e12
@@ -189,7 +194,7 @@ def kernel_phase(tc, F, torch) -> dict:
                   "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                   "bound_ms": 0.0, "shapes": []}
            for name in tc.KERNELS}
-    res["cnn4_block_bwd_params"]["library_ms"] = None
+    res["cnn4_block_bwd_params"].update(library_ms=None, dw_library_ms=0.0)
     res["cnn4_block_fwd"].update(ms_n15=0.0, library_ms_n15=0.0,
                                  bound_ms_n15=0.0)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -198,6 +203,21 @@ def kernel_phase(tc, F, torch) -> dict:
     def note(name, dname, e):
         prev = res[name]["max_abs_err"].get(dname, 0.0)
         res[name]["max_abs_err"][dname] = max(prev, e)
+
+    def held_bwd_params(x, w, b, sc, be, g, dname, what):
+        """bwd_params against its twin, and twice bitwise equal -> its
+        outputs."""
+        got = tc.block_bwd_params(x, w, b, sc, be, g)
+        want = tc.block_bwd_params_plain(x, w, b, sc, be, g)
+        dy_abs = want[0].abs().sum(dim=(1, 2, 3))
+        note("cnn4_block_bwd_params", dname, max(
+            held(torch, got[i], want[i], dname, f"{what} output {i}",
+                 db=dy_abs + 1e-30 if i == 2 else None)
+            for i in range(5)))
+        again = tc.block_bwd_params(x, w, b, sc, be, g)
+        check(all(torch.equal(p, q) for p, q in zip(got, again)),
+              f"{dname} {what}: bwd_params bitwise equal in two calls")
+        return got
 
     def grouped(x, w, b, sc, be, dy=None):
         """The yardsticks' operands: tasks as conv groups, NCHW."""
@@ -240,14 +260,7 @@ def kernel_phase(tc, F, torch) -> dict:
             note("cnn4_block_fwd", dname, held(
                 torch, tc.block_fwd(x, w, b, sc, be),
                 tc.block_fwd_plain(x, w, b, sc, be), dname, what))
-            got = tc.block_bwd_params(x, w, b, sc, be, g)
-            want = tc.block_bwd_params_plain(x, w, b, sc, be, g)
-            dy_abs = want[0].abs().sum(dim=(1, 2, 3))
-            note("cnn4_block_bwd_params", dname, max(
-                held(torch, got[i], want[i], dname, f"{what} output {i}",
-                     db=dy_abs + 1e-30 if i == 2 else None)
-                for i in range(5)))
-            dy = got[0]
+            dy = held_bwd_params(x, w, b, sc, be, g, dname, what)[0]
             note("cnn4_block_bwd_input", dname, held(
                 torch, tc.block_bwd_input(dy, w, h, h),
                 tc.block_bwd_input_plain(dy, w, h, h), dname, what))
@@ -276,6 +289,13 @@ def kernel_phase(tc, F, torch) -> dict:
             for name, (kern, plain, lib) in runs.items():
                 on_path = not (name == "cnn4_block_bwd_input" and blk == 0)
                 shape = timed(name, B, N, blk, kern, plain, lib, on_path)
+                if name == "cnn4_block_bwd_params":
+                    # the yardstick of its dw part alone
+                    shape["dw_library_ms"] = time_ms(
+                        lambda: torch.nn.grad.conv2d_weight(
+                            o["xg"], o["wg"].shape, o["dyg"], stride=2,
+                            padding=1, groups=B))
+                    res[name]["dw_library_ms"] += shape["dw_library_ms"]
                 if on_path:
                     r = res[name]
                     r["ms"] += shape["ms"]
@@ -286,10 +306,10 @@ def kernel_phase(tc, F, torch) -> dict:
                     r["ops_ms"] += shape["ops_ms"]
                     r["bound_ms"] += shape["bound_ms"]
 
-        # fwd and bwd_input at the other shapes their tiling must handle
+        # every kernel at the other shapes its tiling must handle
         for b_, n_, blk in EXTRA_SHAPES:
             h, ci = BLOCKS[blk]
-            x, w, b, sc, be, _ = block_inputs(torch, tc, gen, b_, n_, h, ci,
+            x, w, b, sc, be, g = block_inputs(torch, tc, gen, b_, n_, h, ci,
                                               dt)
             ho = (h - 1) // 2 + 1
             dy = torch.randn(b_, n_, ho, ho, co, generator=gen,
@@ -298,6 +318,7 @@ def kernel_phase(tc, F, torch) -> dict:
             note("cnn4_block_fwd", dname, held(
                 torch, tc.block_fwd(x, w, b, sc, be),
                 tc.block_fwd_plain(x, w, b, sc, be), dname, what))
+            held_bwd_params(x, w, b, sc, be, g, dname, what)
             note("cnn4_block_bwd_input", dname, held(
                 torch, tc.block_bwd_input(dy, w, h, h),
                 tc.block_bwd_input_plain(dy, w, h, h), dname, what))
@@ -311,12 +332,13 @@ def kernel_phase(tc, F, torch) -> dict:
                 r["ms_n15"] += shape["ms"]
                 r["library_ms_n15"] += shape["library_ms"]
                 r["bound_ms_n15"] += shape["bound_ms"]
-    for name in ("cnn4_block_fwd", "cnn4_block_bwd_input"):
-        for sh in res[name]["shapes"]:
+    for name, r in res.items():
+        for sh in r["shapes"]:
             print(f"  {name} block {sh['block']} x {sh['x']}: ms {sh['ms']} "
                   f"({sh['tflops']} TFLOP/s) bound_ms {sh['bound_ms']} "
-                  f"library_ms {sh['library_ms']} plain_ms "
-                  f"{sh['plain_ms']}", flush=True)
+                  f"library_ms {sh['library_ms']} plain_ms {sh['plain_ms']}"
+                  + (f" dw_library_ms {sh['dw_library_ms']}"
+                     if "dw_library_ms" in sh else ""), flush=True)
     return res
 
 
@@ -810,7 +832,8 @@ def main() -> int:
               f"plain_ms {r['plain_ms']} library_ms {r['library_ms']} "
               f"bound_ms {r['bound_ms']}" + "".join(
                   f" {k} {r[k]}" for k in ("ms_n15", "library_ms_n15",
-                                           "bound_ms_n15") if k in r)
+                                           "bound_ms_n15", "dw_library_ms")
+                  if k in r)
               + f" [{gpu}]", flush=True)
     served = serve_phase(torch, np, tc, gpu)
     sweeps = sweep_phase(torch, gc, gpu)

@@ -84,29 +84,51 @@
 // heaviest class first. Every dx element is written by one thread: no
 // atomics, as before.
 //
-// Every sum has a fixed order (k ascending within a thread, the tile
-// statistics in tile order), so results are deterministic.
+// cnn4_block_bwd_params: dy, dw, db, dscale and dbias, the half of the TPU
+// backward kernel that _block_fwd (the recompute), _block_bwd and the
+// dw/db half of _conv_s2_bwd compute.
 //
-// cnn4_block_bwd_params keeps its first design: what bounds it on an H100,
-// and what the design does about it: the work is small. A served batch of
-// 64 requests does ~40 GFLOP of f32 conv in 15 launches, and each launch
-// moves at most a few MB, so the kernels sit far below both the bytes and
-// the FLOP roofline and are bound by latency: launch overhead, the serial
-// BN reductions and the uncoalesced channel-strided stores. The design
-// keeps every intermediate of a (task, channel) pair in one CTA's shared
-// memory: the conv output y of one channel over all N*Ho*Wo positions
-// (19.6 KB at block 1 with N = 25), so the BN statistics need no second
-// kernel and no atomics, and no conv output or normalised value ever goes
-// to device memory. Means and variances are taken in two passes (mean,
-// then the sum of squared deviations), never as E[y^2] - E[y]^2, which
-// drifts in f32. Every reduction has a fixed order, so results are
-// deterministic. Tensor cores, TMA and tiling are left for a later change.
+// What bounds it. At blocks 2-4 the operations: the recomputed conv and
+// the dw GEMM, 4 FLOP per multiply-add of the forward, in f32 on the CUDA
+// cores. At block 1 (Ci = 1) the bytes: g read and dy written, 80 MB each
+// for a served batch of 64 (25 images), about 0.05 ms at 3.35 TB/s. The
+// four served shapes sum to a 0.257 ms bound (H100 SXM, 700 W).
+//
+// What the design does about it: no CTA ever holds a whole task. One call
+// is five launches (six where the positions are split):
+//   1  kernels A and C of the forward, as they are: y = conv + bias into
+//      an f32 scratch, and (mean, inv_std) per (task, channel),
+//      bit-identical to the forward's statistics;
+//   2  bwd_tile_sums_kernel  per tile of 64 positions x 64 channels, the
+//      channel's sums of dz * xhat and dz over the tile, y and g read 16
+//      bytes at a time, the row groups added in a fixed order;
+//   3  bwd_combine_kernel    per (task, channel), those sums in tile order:
+//      dscale, dbias and dy's constants m1 = scale * dbias / M, m2 = scale
+//      * dscale / M;
+//   4  bwd_dw_kernel         dw[(tap, ci), co] = sum_m x_tap(m, ci) dy(m,
+//      co), per task a GEMM of 9 Ci rows and Co columns whose reduction
+//      runs over the M positions. A CTA owns a 64 x 64 tile of dw and one
+//      chunk of positions, staged 16 positions a stage into the same
+//      two-stage ring: x gathered from the NHWC tensor as the forward's
+//      conv_tile does (cp.async), dy formed in registers from y, g and the
+//      constants, dy = inv_std (dz scale - m1 - xhat m2). The CTAs of the
+//      first dw row tile also store dy (16 bytes a thread) and the chunk's
+//      db. With one chunk the CTA stores dw and db; else its f32 partial;
+//   5  bwd_dw_reduce_kernel  the chunk partials in chunk order -> dw, db.
+// The positions are split into chunks only as far as it takes to give the
+// card about 528 CTAs, two waves at two CTAs an SM (block 1: 64 tiles of
+// dw in a batch, so 9 chunks; blocks 2-4: 576 tiles, one chunk).
+//
+// Every sum has a fixed order (k or m ascending within a thread, the row
+// groups, tiles and chunks in order) and no result is summed with atomics,
+// so results are deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 namespace {
@@ -123,197 +145,12 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// Sum of v over the block; every thread gets the result. red holds
-// kThreads / 32 floats.
-__device__ float block_sum(float v, float* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  __syncthreads();  // red may still be read by a previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float t = lane < (kThreads >> 5) ? red[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
-    if (lane == 0) red[0] = t;
-  }
-  __syncthreads();
-  return red[0];
-}
-
 struct Shape {
   int N, H, W, Ci, Co, Ho, Wo, M;  // M = N * Ho * Wo
 };
 
 // ---------------------------------------------------------------------------
-// cnn4_block_bwd_params: one CTA per (task, channel)
-// ---------------------------------------------------------------------------
-
-// Shared memory of the per-(task, channel) kernel, in floats:
-//   wcol [9*Ci]   this channel's weight column, tap-major
-//   red  [kThreads]
-//   y    [M]      conv output, then dy, of this channel
-// (cuda/cnn4_cuda.py:smem_bytes mirrors this to refuse oversized calls.)
-inline size_t smem_floats(const Shape& s) {
-  return (size_t)9 * s.Ci + kThreads + (size_t)s.M;
-}
-
-// y[m] = b + sum_{dy,dx,ci} x[n, 2i+dy-1, 2j+dx-1, ci] * w[dy,dx,ci,co]
-// for every position m = (n, i, j) of this task, into shared memory.
-// Out-of-range taps (the zero padding) are skipped.
-template <typename T>
-__device__ void conv_channel(const T* x, const float* wcol, float bias,
-                             const Shape& s, float* y) {
-  for (int m = threadIdx.x; m < s.M; m += blockDim.x) {
-    const int j = m % s.Wo;
-    const int i = (m / s.Wo) % s.Ho;
-    const int n = m / (s.Wo * s.Ho);
-    float acc = bias;
-    for (int dy = 0; dy < 3; ++dy) {
-      const int hi = 2 * i + dy - 1;
-      if (hi < 0 || hi >= s.H) continue;
-      for (int dx = 0; dx < 3; ++dx) {
-        const int wi = 2 * j + dx - 1;
-        if (wi < 0 || wi >= s.W) continue;
-        const T* xp = x + (((size_t)n * s.H + hi) * s.W + wi) * s.Ci;
-        const float* wp = wcol + (dy * 3 + dx) * s.Ci;
-        for (int ci = 0; ci < s.Ci; ++ci) acc += ld(xp + ci) * wp[ci];
-      }
-    }
-    y[m] = acc;
-  }
-}
-
-// Loads this (task, channel)'s weight column into shared memory, then
-// computes y over all positions and its BN statistics (two passes).
-template <typename T>
-__device__ void conv_bn_stats(const T* x, const T* w, const T* b,
-                              const Shape& s, int co, float* wcol, float* red,
-                              float* y, float* mean, float* inv_std) {
-  for (int k = threadIdx.x; k < 9 * s.Ci; k += blockDim.x)
-    wcol[k] = ld(w + (size_t)k * s.Co + co);
-  __syncthreads();
-  conv_channel(x, wcol, ld(b + co), s, y);
-  __syncthreads();
-  float acc = 0.f;
-  for (int m = threadIdx.x; m < s.M; m += blockDim.x) acc += y[m];
-  const float mu = block_sum(acc, red) / s.M;
-  acc = 0.f;
-  for (int m = threadIdx.x; m < s.M; m += blockDim.x) {
-    const float d = y[m] - mu;
-    acc += d * d;
-  }
-  const float var = block_sum(acc, red) / s.M;
-  *mean = mu;
-  *inv_std = rsqrtf(var + kEps);
-}
-
-// grid (Co, B). Recomputes y, xhat and inv_std, then the BN+ReLU
-// backward of _block_bwd:
-//   dz = g * [xhat*scale + bias > 0]
-//   dscale = sum dz*xhat, dbias = sum dz
-//   dy = inv_std * (dxh - mean(dxh) - xhat * mean(dxh*xhat)), dxh = dz*scale
-// and the conv parameter grads dw[:, :, :, co] = sum_m tap(m) * dy(m),
-// db = sum dy. dy goes to dy_out (f32) for the input-gradient kernel.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-cnn4_block_bwd_params_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                             const T* __restrict__ b, const T* __restrict__ sc,
-                             const T* __restrict__ be,
-                             const T* __restrict__ gout,
-                             float* __restrict__ dy_out, T* __restrict__ dw,
-                             T* __restrict__ db, T* __restrict__ dsc,
-                             T* __restrict__ dbe, Shape s) {
-  extern __shared__ float smem[];
-  float* wcol = smem;
-  float* red = wcol + 9 * s.Ci;
-  float* y = red + kThreads;
-  const int co = blockIdx.x, t = blockIdx.y;
-  x += (size_t)t * s.N * s.H * s.W * s.Ci;
-  w += (size_t)t * 9 * s.Ci * s.Co;
-  b += (size_t)t * s.Co;
-  sc += (size_t)t * s.Co;
-  be += (size_t)t * s.Co;
-  gout += (size_t)t * s.M * s.Co;
-  dy_out += (size_t)t * s.M * s.Co;
-  dw += (size_t)t * 9 * s.Ci * s.Co;
-  db += (size_t)t * s.Co;
-  dsc += (size_t)t * s.Co;
-  dbe += (size_t)t * s.Co;
-
-  float mu, inv;
-  conv_bn_stats(x, w, b, s, co, wcol, red, y, &mu, &inv);
-  const float g = ld(sc + co), h = ld(be + co);
-
-  // pass 1: y[m] <- xhat; dscale and dbias
-  float a_ds = 0.f, a_db = 0.f;
-  for (int m = threadIdx.x; m < s.M; m += blockDim.x) {
-    const float xh = (y[m] - mu) * inv;
-    y[m] = xh;
-    const float dz = (xh * g + h > 0.f) ? ld(gout + (size_t)m * s.Co + co) : 0.f;
-    a_ds += dz * xh;
-    a_db += dz;
-  }
-  const float dscale = block_sum(a_ds, red);
-  const float dbias = block_sum(a_db, red);
-  // mean(dxh) = scale * dbias / M, mean(dxh * xhat) = scale * dscale / M
-  const float m1 = g * dbias / s.M, m2 = g * dscale / s.M;
-
-  // pass 2: y[m] <- dy; db
-  float a_b = 0.f;
-  for (int m = threadIdx.x; m < s.M; m += blockDim.x) {
-    const float xh = y[m];
-    const float dz = (xh * g + h > 0.f) ? ld(gout + (size_t)m * s.Co + co) : 0.f;
-    const float d = inv * (dz * g - m1 - xh * m2);
-    y[m] = d;
-    dy_out[(size_t)m * s.Co + co] = d;
-    a_b += d;
-  }
-  const float dbv = block_sum(a_b, red);  // its barriers publish y = dy
-  if (threadIdx.x == 0) {
-    st(db + co, dbv);
-    st(dsc + co, dscale);
-    st(dbe + co, dbias);
-  }
-
-  // dw[k, co], k = (dy*3+dx)*Ci + ci: K = 9*Ci sums over the M positions.
-  // With K >= kThreads each thread owns whole sums; otherwise (block 1,
-  // Ci = 1) G groups of K threads split the positions and red combines.
-  const int K = 9 * s.Ci;
-  const int G = K >= kThreads ? 1 : kThreads / K;
-  const int kk = threadIdx.x % K, grp = threadIdx.x / K;
-  for (int k0 = 0; k0 < K; k0 += kThreads) {
-    const int k = G == 1 ? k0 + threadIdx.x : kk;
-    float acc = 0.f;
-    if (k < K && grp < G) {
-      const int ci = k % s.Ci, tap = k / s.Ci;
-      const int ty = tap / 3, tx = tap % 3;
-      for (int m = (G == 1 ? 0 : grp); m < s.M; m += G) {
-        const int j = m % s.Wo;
-        const int i = (m / s.Wo) % s.Ho;
-        const int n = m / (s.Wo * s.Ho);
-        const int hi = 2 * i + ty - 1, wi = 2 * j + tx - 1;
-        if (hi < 0 || hi >= s.H || wi < 0 || wi >= s.W) continue;
-        acc += ld(x + (((size_t)n * s.H + hi) * s.W + wi) * s.Ci + ci) * y[m];
-      }
-    }
-    if (G == 1) {
-      if (k < K) st(dw + (size_t)k * s.Co + co, acc);
-    } else {
-      __syncthreads();
-      red[threadIdx.x] = acc;
-      __syncthreads();
-      if (threadIdx.x < K) {
-        float tot = 0.f;
-        for (int q = 0; q < G; ++q) tot += red[q * K + threadIdx.x];
-        st(dw + (size_t)threadIdx.x * s.Co + co, tot);
-      }
-      break;  // G > 1 means K < kThreads: one round covers every k
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Tiled implicit GEMMs: cnn4_block_fwd and cnn4_block_bwd_input
+// Tiled implicit GEMMs
 // ---------------------------------------------------------------------------
 
 constexpr int kTileM = 64;  // positions per CTA (cuda/cnn4_cuda.py:_TILE_M)
@@ -326,6 +163,7 @@ constexpr int kSliceA = kTileM * kLdK;           // A slice [m][k]
 constexpr int kStage = kSliceA + kTileN * kLdK;  // + B, [k][n] or [n][k]
 constexpr int kRing = 2 * kStage;                // two stages, in floats
 static_assert(kTileK * kTileN <= kTileN * kLdK, "B [k][n] fits its slice");
+static_assert(kTileK * kTileM <= kSliceA, "A [k][m] fits its slice");
 static_assert(kTileM * kLdC + 5 * kTileN <= kRing,
               "the epilogue's tile and reductions fit the ring");
 static_assert(kThreads == 4 * kTileM && kThreads == 16 * kTileK,
@@ -337,6 +175,29 @@ __device__ __forceinline__ float f4(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+// p[0..3] as f32, one 16-byte load (8 bytes in bf16).
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+// A bf16 is the top half of the f32 with the same value; shifts, not the
+// address of a local, so the words stay in registers.
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(p);
+  return make_float4(__uint_as_float(raw.x << 16),
+                     __uint_as_float(raw.x & 0xffff0000u),
+                     __uint_as_float(raw.y << 16),
+                     __uint_as_float(raw.y & 0xffff0000u));
+}
+
+// p[0..3] as f32 for the channels below `limit` (the count of channels
+// from p on), zeros past it: one load where `vec` says p is aligned.
+template <typename T>
+__device__ __forceinline__ float4 load_row4(const T* p, int limit, bool vec) {
+  if (vec && limit >= 4) return ld4(p);
+  return make_float4(limit > 0 ? ld(p) : 0.f, limit > 1 ? ld(p + 1) : 0.f,
+                     limit > 2 ? ld(p + 2) : 0.f, limit > 3 ? ld(p + 3) : 0.f);
+}
+
 // dst[0..3] <- src[0..3] as f32, or zeros where !valid (src is then not
 // read). f32 goes as one 16-byte cp.async; bf16 through registers.
 __device__ __forceinline__ void stage4(float* dst, const float* src,
@@ -345,27 +206,20 @@ __device__ __forceinline__ void stage4(float* dst, const float* src,
 }
 __device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src,
                                        bool valid) {
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (valid) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(src);
-    const float2 lo =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    v = make_float4(lo.x, lo.y, hi.x, hi.y);
-  }
-  *reinterpret_cast<float4*>(dst) = v;
+  *reinterpret_cast<float4*>(dst) =
+      valid ? ld4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 __device__ __forceinline__ void st4(float* p, float4 v) {
   *reinterpret_cast<float4*>(p) = v;
 }
 __device__ __forceinline__ void st4(__nv_bfloat16* p, float4 v) {
-  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
-  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  auto bits = [](float a) {
+    return (unsigned)__bfloat16_as_ushort(__float2bfloat16(a));
+  };
   uint2 raw;
-  raw.x = *reinterpret_cast<const unsigned*>(&lo);
-  raw.y = *reinterpret_cast<const unsigned*>(&hi);
+  raw.x = bits(v.x) | bits(v.y) << 16;
+  raw.y = bits(v.z) | bits(v.w) << 16;
   *reinterpret_cast<uint2*>(p) = raw;
 }
 
@@ -425,6 +279,23 @@ __device__ __forceinline__ void mma_nt(const float* A, const float* Bt,
 #pragma unroll
         for (int c = 0; c < 4; ++c)
           acc[r][c] = fmaf(f4(a[r], q), f4(b[c], q), acc[r][c]);
+  }
+}
+
+// One stage of At [k][m] x Bt [k][n], both reduction-major (the dw GEMM:
+// k is a position, m a row (tap, ci) of dw): acc[r][c] += sum_k
+// At[k][4ty+r] * Bt[k][4tx+c], k ascending.
+__device__ __forceinline__ void mma_tn(const float* At, const float* Bt,
+                                       float (&acc)[4][4], int tx, int ty) {
+#pragma unroll
+  for (int k = 0; k < kTileK; ++k) {
+    const float4 a = *reinterpret_cast<const float4*>(At + k * kTileM + 4 * ty);
+    const float4 b = *reinterpret_cast<const float4*>(Bt + k * kTileN + 4 * tx);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        acc[r][c] = fmaf(f4(a, r), f4(b, c), acc[r][c]);
   }
 }
 
@@ -600,6 +471,24 @@ fwd_combine_kernel(const float2* __restrict__ tstats,
   stats[(size_t)t * s.Co + co] = make_float2(mu, rsqrtf(m2 / s.M + kEps));
 }
 
+// par[0..3][c] <- mean, inv_std, scale and bias of channel co0 + c of task
+// t (zeros past Co), by the first kTileN threads; the caller syncs.
+template <typename T>
+__device__ __forceinline__ void load_bn_par(float (*par)[kTileN],
+                                            const float2* stats, const T* sc,
+                                            const T* be, int t, int co0,
+                                            const Shape& s) {
+  const int c = threadIdx.x;
+  if (c >= kTileN) return;
+  const bool in = co0 + c < s.Co;
+  const size_t pc = (size_t)t * s.Co + co0 + c;
+  const float2 st2 = in ? stats[pc] : make_float2(0.f, 0.f);
+  par[0][c] = st2.x;
+  par[1][c] = st2.y;
+  par[2][c] = in ? ld(sc + pc) : 0.f;
+  par[3][c] = in ? ld(be + pc) : 0.f;
+}
+
 // Kernel B of the forward. grid as kernel A: out = relu((y - mean) *
 // inv_std * scale + bias) for one tile. yin may be out itself (T = f32):
 // each element is read and then written by the same thread.
@@ -612,16 +501,7 @@ fwd_norm_kernel(const T* __restrict__ sc, const T* __restrict__ be,
   const int tid = threadIdx.x;
   const int tile = blockIdx.x, co0 = blockIdx.y * kTileN, t = blockIdx.z;
   const int m0 = tile * kTileM, rows = min(kTileM, s.M - m0);
-  if (tid < kTileN) {
-    const int co = co0 + tid;
-    const bool in = co < s.Co;
-    const size_t pc = (size_t)t * s.Co + co;
-    const float2 st2 = in ? stats[pc] : make_float2(0.f, 0.f);
-    par[0][tid] = st2.x;
-    par[1][tid] = st2.y;
-    par[2][tid] = in ? ld(sc + pc) : 0.f;
-    par[3][tid] = in ? ld(be + pc) : 0.f;
-  }
+  load_bn_par(par, stats, sc, be, t, co0, s);
   __syncthreads();
   auto bn = [&](float y, int col) {
     return fmaxf((y - par[0][col]) * par[1][col] * par[2][col] + par[3][col],
@@ -634,15 +514,7 @@ fwd_norm_kernel(const T* __restrict__ sc, const T* __restrict__ be,
     if (row >= rows || co0 + col >= s.Co) continue;
     const size_t off = base + (size_t)(m0 + row) * s.Co + co0 + col;
     const int limit = s.Co - co0 - col;
-    float4 y;
-    if (vec) {
-      y = *reinterpret_cast<const float4*>(yin + off);
-    } else {
-      y.x = yin[off];
-      y.y = limit > 1 ? yin[off + 1] : 0.f;
-      y.z = limit > 2 ? yin[off + 2] : 0.f;
-      y.w = limit > 3 ? yin[off + 3] : 0.f;
-    }
+    const float4 y = load_row4(yin + off, limit, vec);
     store_row4(out + off,
                make_float4(bn(y.x, col), bn(y.y, col + 1), bn(y.z, col + 2),
                            bn(y.w, col + 3)),
@@ -772,6 +644,289 @@ bwd_input_kernel(const float* __restrict__ dy, const T* __restrict__ w,
   }
 }
 
+// The BN + ReLU backward of one element (_block_bwd): xhat = (y - mean) *
+// inv_std, and -> dz = g * [xhat * scale + bias > 0]. The one definition
+// of the mask for the tile sums and for dy.
+__device__ __forceinline__ float bn_dz(float y, float g, float mean,
+                                       float inv, float scale, float bias,
+                                       float& xh) {
+  xh = (y - mean) * inv;
+  return fmaf(xh, scale, bias) > 0.f ? g : 0.f;
+}
+
+// Step 2 of cnn4_block_bwd_params. grid (tiles, ceil(Co/64), B). Per
+// channel of one tile, sum dz * xhat and sum dz -> tsums[b][tile][co].
+// Thread (rg, q) takes rows rg, rg + 16, .. of channels 4q .. 4q + 3,
+// reading y and g 16 bytes at a time where `vec`; then the 16 row groups
+// are added in order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_tile_sums_kernel(const T* __restrict__ sc, const T* __restrict__ be,
+                     const T* __restrict__ g, const float* __restrict__ y,
+                     const float2* __restrict__ stats,
+                     float2* __restrict__ tsums, bool vec, Shape s) {
+  constexpr int kGroups = kThreads / (kTileN / 4);
+  __shared__ float par[4][kTileN];  // mean, inv_std, scale, bias
+  __shared__ float red[2][kGroups][kTileN];
+  const int tid = threadIdx.x, col = 4 * (tid & 15), rg = tid >> 4;
+  const int tile = blockIdx.x, co0 = blockIdx.y * kTileN, t = blockIdx.z;
+  const int m0 = tile * kTileM, rows = min(kTileM, s.M - m0);
+  const int limit = s.Co - co0 - col;
+  load_bn_par(par, stats, sc, be, t, co0, s);
+  __syncthreads();
+  float sx[4] = {0.f, 0.f, 0.f, 0.f}, sz[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int r = rg; r < rows && limit > 0; r += kGroups) {
+    const size_t off = ((size_t)t * s.M + m0 + r) * s.Co + co0 + col;
+    const float4 yv = load_row4(y + off, limit, vec);
+    const float4 gv = load_row4(g + off, limit, vec);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float xh;
+      const float dz = bn_dz(f4(yv, u), f4(gv, u), par[0][col + u],
+                             par[1][col + u], par[2][col + u],
+                             par[3][col + u], xh);
+      sx[u] += dz * xh;
+      sz[u] += dz;
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    red[0][rg][col + u] = sx[u];
+    red[1][rg][col + u] = sz[u];
+  }
+  __syncthreads();
+  if (tid < kTileN && co0 + tid < s.Co) {
+    float a = 0.f, b = 0.f;
+    for (int r = 0; r < kGroups; ++r) {
+      a += red[0][r][tid];
+      b += red[1][r][tid];
+    }
+    tsums[((size_t)t * gridDim.x + tile) * s.Co + co0 + tid] =
+        make_float2(a, b);
+  }
+}
+
+// Step 3. grid (ceil(Co/64), B), one thread per (task, channel): the tile
+// sums in tile order -> dscale, dbias, and dy's constants in consts[b][co]
+// = (m1, m2): m1 = scale * dbias / M = mean(dxhat), m2 = scale * dscale /
+// M = mean(dxhat * xhat), dxhat = dz * scale.
+template <typename T>
+__global__ void __launch_bounds__(kTileN)
+bwd_combine_kernel(const float2* __restrict__ tsums, const T* __restrict__ sc,
+                   float2* __restrict__ consts, T* __restrict__ dsc,
+                   T* __restrict__ dbe, int ntiles, Shape s) {
+  const int co = blockIdx.x * kTileN + threadIdx.x, t = blockIdx.y;
+  if (co >= s.Co) return;
+  const float2* ts = tsums + (size_t)t * ntiles * s.Co + co;
+  float ds = 0.f, db = 0.f;
+  for (int k = 0; k < ntiles; ++k) {
+    const float2 v = ts[(size_t)k * s.Co];
+    ds += v.x;
+    db += v.y;
+  }
+  const size_t pc = (size_t)t * s.Co + co;
+  st(dsc + pc, ds);
+  st(dbe + pc, db);
+  const float scale = ld(sc + pc);
+  consts[pc] = make_float2(scale * db / s.M, scale * ds / s.M);
+}
+
+// Step 4. grid (chunks, dw row tiles x column tiles, B). dw[k][co] = sum
+// over the chunk's positions m of x_tap(m, ci) * dy(m, co), k = tap * Ci
+// + ci, for the CTA's 64 x 64 tile of dw. A stage is 16 positions: the x
+// slice [m][k] gathered as conv_tile gathers it (kVec: Ci % 4 == 0, each
+// thread's 4 values of k lie in one tap, one 16-byte piece; else element
+// by element, only the rows k < K, and threads whose rows all lie past K
+// skip the FMAs: block 1 has 9 rows), the dy slice [m][co] formed in
+// registers from y and g. The CTAs of dw row tile 0 also
+// store dy and sum the chunk's db. With one chunk (gridDim.x == 1) the CTA
+// stores dw and db in T; else the f32 partial part[b][chunk] = (dw [K][Co],
+// db [Co]). At least two CTAs an SM: left to itself, ptxas holds the bf16
+// kVec form to 80 registers (three CTAs) and spills two values.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ sc,
+              const T* __restrict__ be, const T* __restrict__ g,
+              const float* __restrict__ y, const float2* __restrict__ stats,
+              const float2* __restrict__ consts, float* __restrict__ dy,
+              T* __restrict__ dw, T* __restrict__ db,
+              float* __restrict__ part, int chunk, bool vec, Shape s) {
+  __shared__ __align__(16) float ring[kRing];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, col = 4 * tx;
+  const int K = 9 * s.Ci, nct = cdiv(s.Co, kTileN), nchunks = gridDim.x;
+  const int ch = blockIdx.x, t = blockIdx.z;
+  const int k0 = blockIdx.y / nct * kTileM, co0 = blockIdx.y % nct * kTileN;
+  const bool first = k0 == 0;
+  const int mb = ch * chunk, me = min(mb + chunk, s.M);
+  const int limit = s.Co - co0 - col;  // channels from this thread's column
+  const size_t row0 = (size_t)t * s.M;  // this task's rows of y, g and dy
+  x += (size_t)t * s.N * s.H * s.W * s.Ci;
+
+  // this thread's 4 channels: mean, inv_std, scale, bias, m1, m2
+  float pm[4], pi[4], ps[4], pb[4], p1[4], p2[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const bool in = u < limit;
+    const size_t pc = (size_t)t * s.Co + co0 + col + u;
+    const float2 st2 = in ? stats[pc] : make_float2(0.f, 0.f);
+    const float2 c2 = in ? consts[pc] : make_float2(0.f, 0.f);
+    pm[u] = st2.x;
+    pi[u] = st2.y;
+    ps[u] = in ? ld(sc + pc) : 0.f;
+    pb[u] = in ? ld(be + pc) : 0.f;
+    p1[u] = c2.x;
+    p2[u] = c2.y;
+  }
+
+  // x slice: row ty of a stage is position m0 + ty; kVec: its piece is
+  // k = k0 + col .. + 3, one tap (dty, dtx) and channels ci .. ci + 3
+  const int ka = k0 + col, tap = ka / s.Ci, ci = ka - tap * s.Ci;
+  const int dty = tap / 3 - 1, dtx = tap % 3 - 1;
+  const bool kin = ka < K;
+  const int kw = min(kTileM, K - k0);  // rows of dw in this tile (block 1: 9)
+  auto stage_x = [&](int m0, float* buf) {
+    if constexpr (kVec) {
+      const int m = m0 + ty;
+      const int j = m % s.Wo, i = (m / s.Wo) % s.Ho, n = m / (s.Wo * s.Ho);
+      const int hi = 2 * i + dty, wi = 2 * j + dtx;
+      const bool ok =
+          kin && m < me && hi >= 0 && hi < s.H && wi >= 0 && wi < s.W;
+      stage4(buf + ty * kTileM + col,
+             ok ? x + (((size_t)n * s.H + hi) * s.W + wi) * s.Ci + ci : x, ok);
+    } else {  // the rows k < K only: the others stay zero
+      for (int e = tid; e < kTileK * kw; e += kThreads) {
+        const int row = e / kw, kk = e - row * kw;
+        const int m = m0 + row, k = k0 + kk;
+        float v = 0.f;
+        if (m < me) {
+          const int tp = k / s.Ci, c = k - tp * s.Ci;
+          const int j = m % s.Wo, i = (m / s.Wo) % s.Ho, n = m / (s.Wo * s.Ho);
+          const int hi = 2 * i + tp / 3 - 1, wi = 2 * j + tp % 3 - 1;
+          if (hi >= 0 && hi < s.H && wi >= 0 && wi < s.W)
+            v = ld(x + (((size_t)n * s.H + hi) * s.W + wi) * s.Ci + c);
+        }
+        buf[row * kTileM + kk] = v;
+      }
+    }
+  };
+
+  // dy slice: row ty of a stage, channels co0 + col .. + 3. load_dy issues
+  // the loads of y and g; stage_dy forms dy from them after the stage's
+  // FMAs, so the loads are in flight meanwhile.
+  float4 yv, gv;
+  float dbacc[4] = {0.f, 0.f, 0.f, 0.f};
+  auto load_dy = [&](int m0) {
+    const int m = m0 + ty;
+    yv = gv = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (m < me && limit > 0) {
+      const size_t off = (row0 + m) * s.Co + co0 + col;
+      yv = load_row4(y + off, limit, vec);
+      gv = load_row4(g + off, limit, vec);
+    }
+  };
+  auto stage_dy = [&](int m0, float* buf) {
+    const int m = m0 + ty;
+    float d[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float xh;
+      const float dz =
+          bn_dz(f4(yv, u), f4(gv, u), pm[u], pi[u], ps[u], pb[u], xh);
+      d[u] = m < me ? pi[u] * (fmaf(dz, ps[u], -p1[u]) - xh * p2[u]) : 0.f;
+    }
+    const float4 dv = make_float4(d[0], d[1], d[2], d[3]);
+    if (first && m < me && limit > 0) {
+      store_row4(dy + (row0 + m) * s.Co + co0 + col, dv, limit, vec);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) dbacc[u] += d[u];
+    }
+    st4(buf + kSliceA + ty * kTileN + col, dv);
+  };
+
+  // the reduction over the chunk: stage c + 1's copies and loads are in
+  // flight while stage c's FMAs run; one barrier a stage
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  const int nk = cdiv(me - mb, kTileK);
+  if (!kVec && kw < kTileM) {  // x rows past K: zero in both stages, once
+    for (int e = tid; e < kTileK * kTileM; e += kThreads)
+      ring[e] = ring[kStage + e] = 0.f;
+    __syncthreads();
+  }
+  stage_x(mb, ring);
+  __pipeline_commit();
+  load_dy(mb);
+  stage_dy(mb, ring);
+  for (int c = 0; c < nk; ++c) {
+    float* cur = ring + (c & 1) * kStage;
+    float* nxt = ring + ((c + 1) & 1) * kStage;  // last read in stage c - 1
+    const int mn = mb + (c + 1) * kTileK;
+    const bool more = c + 1 < nk;
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    if (more) {
+      stage_x(mn, nxt);
+      __pipeline_commit();
+      load_dy(mn);
+    }
+    if (4 * ty < kw) mma_tn(cur, cur + kSliceA, acc, tx, ty);
+    if (more) stage_dy(mn, nxt);
+  }
+
+  // dw rows k0 + 4ty + r, channels co0 + col .. + 3
+  const bool vw = (s.Co & 3) == 0;
+  T* dwt = dw + (size_t)t * K * s.Co;
+  float* pt = part + ((size_t)t * nchunks + ch) * ((size_t)K * s.Co + s.Co);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int k = k0 + 4 * ty + r;
+    if (k >= K || limit <= 0) continue;
+    const float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    const size_t off = (size_t)k * s.Co + co0 + col;
+    if (nchunks == 1)
+      store_row4(dwt + off, v, limit, vw);
+    else
+      store_row4(pt + off, v, limit, vw);
+  }
+  if (!first) return;
+  // db over the chunk: the 16 row groups of each channel, in order
+  __syncthreads();  // the last stage's FMAs are done with the ring
+  float* red = ring;  // [kTileK][kTileN]
+#pragma unroll
+  for (int u = 0; u < 4; ++u) red[ty * kTileN + col + u] = dbacc[u];
+  __syncthreads();
+  if (tid < kTileN && co0 + tid < s.Co) {
+    float a = 0.f;
+    for (int r = 0; r < kTileK; ++r) a += red[r * kTileN + tid];
+    if (nchunks == 1)
+      st(db + (size_t)t * s.Co + co0 + tid, a);
+    else
+      pt[(size_t)K * s.Co + co0 + tid] = a;
+  }
+}
+
+// Step 5, where the positions were split: dw and db are the chunk
+// partials summed in chunk order, one thread per output.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_dw_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw,
+                     T* __restrict__ db, int nchunks, int B, Shape s) {
+  const size_t kco = (size_t)9 * s.Ci * s.Co, len = kco + s.Co;
+  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= (size_t)B * len) return;
+  const size_t t = e / len, i = e - t * len;
+  const float* p = part + t * nchunks * len + i;
+  float a = 0.f;
+  for (int c = 0; c < nchunks; ++c) a += p[(size_t)c * len];
+  if (i < kco)
+    st(dw + t * kco + i, a);
+  else
+    st(db + t * s.Co + (i - kco), a);
+}
+
 Shape make_shape(int N, int H, int W, int Ci, int Co) {
   Shape s;
   s.N = N; s.H = H; s.W = W; s.Ci = Ci; s.Co = Co;
@@ -783,12 +938,33 @@ Shape make_shape(int N, int H, int W, int Ci, int Co) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-template <typename T, bool kVec>
-int launch_fwd_t(const T* x, const T* w, const T* b, const T* sc,
-                 const T* be, T* out, float* ws, int B, const Shape& s,
-                 cudaStream_t st) {
+// Kernels A and C of the forward: y = conv + bias (f32) and per (task,
+// channel) stats = (mean, inv_std); tstats holds the tile statistics
+// between them.
+template <typename T>
+int conv_stats(const T* x, const T* w, const T* b, float* y, float2* tstats,
+               float2* stats, int B, const Shape& s, cudaStream_t st) {
   const int ntiles = cdiv(s.M, kTileM);
   const dim3 grid(ntiles, cdiv(s.Co, kTileN), B);
+  if (s.Ci % kTileK == 0 && s.Co % 4 == 0 && aligned16(x) && aligned16(w))
+    fwd_conv_stats_kernel<T, true><<<grid, kThreads, 0, st>>>(x, w, b, y,
+                                                               tstats, s);
+  else
+    fwd_conv_stats_kernel<T, false><<<grid, kThreads, 0, st>>>(x, w, b, y,
+                                                                tstats, s);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  fwd_combine_kernel<<<dim3(cdiv(s.Co, kTileN), B), kTileN, 0, st>>>(
+      tstats, stats, ntiles, s);
+  return (int)cudaGetLastError();
+}
+
+// ws: f32 scratch of cuda/cnn4_cuda.py:fwd_workspace_floats.
+template <typename T>
+int launch_fwd(const T* x, const T* w, const T* b, const T* sc, const T* be,
+               T* out, float* ws, int B, const Shape& s, cudaStream_t st) {
+  if (B == 0 || s.M == 0) return 0;
+  const int ntiles = cdiv(s.M, kTileM);
   float2* tstats = reinterpret_cast<float2*>(ws);
   float2* stats = tstats + (size_t)B * ntiles * s.Co;
   float* y;  // y between kernels A and B
@@ -797,48 +973,77 @@ int launch_fwd_t(const T* x, const T* w, const T* b, const T* sc,
   } else {
     y = reinterpret_cast<float*>(stats + (size_t)B * s.Co);
   }
-  fwd_conv_stats_kernel<T, kVec><<<grid, kThreads, 0, st>>>(x, w, b, y,
-                                                             tstats, s);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fwd_combine_kernel<<<dim3(cdiv(s.Co, kTileN), B), kTileN, 0, st>>>(
-      tstats, stats, ntiles, s);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  fwd_norm_kernel<T><<<grid, kThreads, 0, st>>>(sc, be, y, stats, out, s);
+  const int err = conv_stats(x, w, b, y, tstats, stats, B, s, st);
+  if (err != 0) return err;
+  fwd_norm_kernel<T><<<dim3(ntiles, cdiv(s.Co, kTileN), B), kThreads, 0,
+                       st>>>(sc, be, y, stats, out, s);
   return (int)cudaGetLastError();
 }
 
-// ws: f32 scratch of cuda/cnn4_cuda.py:fwd_workspace_floats.
-template <typename T>
-int launch_fwd(const void* x, const void* w, const void* b, const void* sc,
-               const void* be, void* out, void* ws, int B, const Shape& s,
-               cudaStream_t st) {
-  if (B == 0 || s.M == 0) return 0;
-  const bool vec = s.Ci % kTileK == 0 && s.Co % 4 == 0 && aligned16(x) &&
-                   aligned16(w);
-  if (vec)
-    return launch_fwd_t<T, true>((const T*)x, (const T*)w, (const T*)b,
-                                 (const T*)sc, (const T*)be, (T*)out,
-                                 (float*)ws, B, s, st);
-  return launch_fwd_t<T, false>((const T*)x, (const T*)w, (const T*)b,
-                                (const T*)sc, (const T*)be, (T*)out,
-                                (float*)ws, B, s, st);
+// Positions per chunk of the dw GEMM's reduction: enough chunks that the
+// grid holds about kDwCtas CTAs (two waves of bwd_dw_kernel's two CTAs an
+// SM on an H100's 132), none shorter than kDwMinChunk, a whole number of
+// stages (cuda/cnn4_cuda.py:dw_chunk mirrors this).
+constexpr int kDwCtas = 4 * 132;
+constexpr int kDwMinChunk = 256;
+int dw_chunk(const Shape& s, int B) {
+  const int tiles = B * cdiv(9 * s.Ci, kTileM) * cdiv(s.Co, kTileN);
+  const int want = std::max(
+      1, std::min(cdiv(kDwCtas, tiles), cdiv(s.M, kDwMinChunk)));
+  return cdiv(cdiv(s.M, want), kTileK) * kTileK;
 }
 
+// ws: f32 scratch of cuda/cnn4_cuda.py:bwd_params_workspace_floats, in
+// order: tile statistics, then tile sums [B][tiles][Co] (float2); stats
+// and consts [B][Co] (float2); y [B][M][Co]; the dw partials [B][chunks]
+// [9 Ci Co + Co] where there is more than one chunk.
 template <typename T>
-int launch_bwd_params(const void* x, const void* w, const void* b,
-                      const void* sc, const void* be, const void* g, void* dy,
-                      void* dw, void* db, void* dsc, void* dbe, int B,
-                      const Shape& s, cudaStream_t st) {
-  const size_t smem = smem_floats(s) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      cnn4_block_bwd_params_kernel<T>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cnn4_block_bwd_params_kernel<T><<<dim3(s.Co, B), kThreads, smem, st>>>(
-      (const T*)x, (const T*)w, (const T*)b, (const T*)sc, (const T*)be,
-      (const T*)g, (float*)dy, (T*)dw, (T*)db, (T*)dsc, (T*)dbe, s);
+int launch_bwd_params(const T* x, const T* w, const T* b, const T* sc,
+                      const T* be, const T* g, float* dy, T* dw, T* db,
+                      T* dsc, T* dbe, float* ws, int B, const Shape& s,
+                      cudaStream_t st) {
+  if (B == 0) return 0;
+  const int K = 9 * s.Ci;
+  if (s.M == 0) {  // no positions: every sum is empty
+    const size_t per = (size_t)B * s.Co * sizeof(T);
+    cudaMemsetAsync(dw, 0, K * per, st);
+    cudaMemsetAsync(db, 0, per, st);
+    cudaMemsetAsync(dsc, 0, per, st);
+    cudaMemsetAsync(dbe, 0, per, st);
+    return (int)cudaGetLastError();
+  }
+  const int ntiles = cdiv(s.M, kTileM), nct = cdiv(s.Co, kTileN);
+  float2* tsums = reinterpret_cast<float2*>(ws);
+  float2* stats = tsums + (size_t)B * ntiles * s.Co;
+  float2* consts = stats + (size_t)B * s.Co;
+  float* y = reinterpret_cast<float*>(consts + (size_t)B * s.Co);
+  float* part = y + (size_t)B * s.M * s.Co;
+  int err = conv_stats(x, w, b, y, tsums, stats, B, s, st);
+  if (err != 0) return err;
+  // y, g and dy rows by 16 bytes (ws keeps y's rows aligned when Co % 4 == 0)
+  const bool vec = s.Co % 4 == 0 && aligned16(g) && aligned16(dy) &&
+                   aligned16(ws);
+  bwd_tile_sums_kernel<T><<<dim3(ntiles, nct, B), kThreads, 0, st>>>(
+      sc, be, g, y, stats, tsums, vec, s);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  bwd_combine_kernel<T><<<dim3(nct, B), kTileN, 0, st>>>(tsums, sc, consts,
+                                                         dsc, dbe, ntiles, s);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const int chunk = dw_chunk(s, B), nchunks = cdiv(s.M, chunk);
+  const dim3 grid(nchunks, cdiv(K, kTileM) * nct, B);
+  if (s.Ci % 4 == 0 && aligned16(x))
+    bwd_dw_kernel<T, true><<<grid, kThreads, 0, st>>>(
+        x, sc, be, g, y, stats, consts, dy, dw, db, part, chunk, vec, s);
+  else
+    bwd_dw_kernel<T, false><<<grid, kThreads, 0, st>>>(
+        x, sc, be, g, y, stats, consts, dy, dw, db, part, chunk, vec, s);
+  err = (int)cudaGetLastError();
+  if (err != 0 || nchunks == 1) return err;
+  const size_t outs = (size_t)B * ((size_t)K * s.Co + s.Co);
+  bwd_dw_reduce_kernel<T><<<(unsigned)((outs + kThreads - 1) / kThreads),
+                            kThreads, 0, st>>>(part, dw, db, nchunks, B, s);
   return (int)cudaGetLastError();
 }
 
@@ -873,26 +1078,40 @@ int cnn4_block_fwd(int dtype, const void* x, const void* w, const void* b,
                    int N, int H, int W, int Ci, int Co, void* stream) {
   const Shape s = make_shape(N, H, W, Ci, Co);
   cudaStream_t st = (cudaStream_t)stream;
+  using F = float;
+  using H16 = __nv_bfloat16;
   if (dtype == 0)
-    return launch_fwd<float>(x, w, b, sc, be, out, ws, B, s, st);
+    return launch_fwd<F>((const F*)x, (const F*)w, (const F*)b, (const F*)sc,
+                         (const F*)be, (F*)out, (float*)ws, B, s, st);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(x, w, b, sc, be, out, ws, B, s, st);
+    return launch_fwd<H16>((const H16*)x, (const H16*)w, (const H16*)b,
+                           (const H16*)sc, (const H16*)be, (H16*)out,
+                           (float*)ws, B, s, st);
   return (int)cudaErrorInvalidValue;
 }
 
+// ws: f32 scratch of cuda/cnn4_cuda.py:bwd_params_workspace_floats(...)
+// floats.
 int cnn4_block_bwd_params(int dtype, const void* x, const void* w,
                           const void* b, const void* sc, const void* be,
                           const void* g, void* dy, void* dw, void* db,
-                          void* dsc, void* dbe, int B, int N, int H, int W,
-                          int Ci, int Co, void* stream) {
+                          void* dsc, void* dbe, void* ws, int B, int N, int H,
+                          int W, int Ci, int Co, void* stream) {
   const Shape s = make_shape(N, H, W, Ci, Co);
   cudaStream_t st = (cudaStream_t)stream;
+  using F = float;
+  using H16 = __nv_bfloat16;
   if (dtype == 0)
-    return launch_bwd_params<float>(x, w, b, sc, be, g, dy, dw, db, dsc, dbe,
-                                    B, s, st);
+    return launch_bwd_params<F>((const F*)x, (const F*)w, (const F*)b,
+                                (const F*)sc, (const F*)be, (const F*)g,
+                                (float*)dy, (F*)dw, (F*)db, (F*)dsc, (F*)dbe,
+                                (float*)ws, B, s, st);
   if (dtype == 1)
-    return launch_bwd_params<__nv_bfloat16>(x, w, b, sc, be, g, dy, dw, db,
-                                            dsc, dbe, B, s, st);
+    return launch_bwd_params<H16>((const H16*)x, (const H16*)w, (const H16*)b,
+                                  (const H16*)sc, (const H16*)be,
+                                  (const H16*)g, (float*)dy, (H16*)dw,
+                                  (H16*)db, (H16*)dsc, (H16*)dbe, (float*)ws,
+                                  B, s, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -9,7 +9,10 @@ TPU-kernel table in PERF.md). One block is zero-pad -> 3x3 stride-2 conv
   tiled implicit GEMM with per-tile BN statistics, their combine in tile
   order, then the normalisation (three launches);
 - ``cnn4_block_bwd_params`` dy, dw, db, dscale, dbias (``_block_bwd`` and
-  the dw/db half of ``_conv_s2_bwd``);
+  the dw/db half of ``_conv_s2_bwd``): the forward's conv and statistics
+  recomputed, per-tile BN-backward sums and their combine in tile order,
+  then dw as an implicit GEMM whose reduction over the positions is split
+  into chunks, summed in chunk order (five or six launches);
 - ``cnn4_block_bwd_input``  dx, the transposed stride-2 conv as four
   parity-class GEMMs.
 
@@ -25,8 +28,10 @@ the calls that launch its kernels in ``<wrapper>.launches``.
 
 Beside the twins stand plain versions of the kernels' decompositions
 (:func:`tile_stats_plain`, :func:`combine_tile_stats_plain`,
-:func:`parity_classes`, :func:`block_bwd_input_parity_plain`), which the
-tests hold against the JAX package.
+:func:`bwd_tile_sums_plain`, :func:`combine_bwd_sums_plain`,
+:func:`bwd_dy_plain`, :func:`dw_split_plain`, :func:`parity_classes`,
+:func:`block_bwd_input_parity_plain`), which the tests hold against the
+JAX package.
 """
 
 from __future__ import annotations
@@ -38,9 +43,11 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 EPS = 1e-5
-_THREADS = 256            # kThreads in csrc/cnn4_block.cu
-_TILE_M = 64              # kTileM: positions per CTA of the tiled kernels
-SMEM_LIMIT = 232448       # dynamic shared memory one H100 block may use
+_TILE_M = 64              # kTileM: positions (or dw rows) per CTA
+_TILE_N = 64              # kTileN: channels per CTA
+_TILE_K = 16              # kTileK: positions per stage of the dw GEMM
+_DW_CTAS = 4 * 132        # kDwCtas: CTAs the dw grid aims at
+_DW_MIN_CHUNK = 256       # kDwMinChunk: fewest positions in a dw chunk
 MAX_TASKS = 65535         # the task axis is gridDim.y or .z of every kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "cnn4_block.cu"
@@ -52,22 +59,43 @@ def out_hw(h: int) -> int:
     return (h - 1) // 2 + 1
 
 
-def smem_bytes(n: int, h: int, w: int, ci: int) -> int:
-    """Shared memory of the bwd_params kernel for one task (mirrors
-    ``smem_floats`` in the source): weight column, reduction scratch and
-    one channel's conv output over all N*Ho*Wo positions."""
-    return 4 * (9 * ci + _THREADS + n * out_hw(h) * out_hw(w))
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
 
 
 def fwd_workspace_floats(b: int, n: int, h: int, w: int, co: int,
                          dtype: torch.dtype) -> int:
-    """f32 scratch of ``cnn4_block_fwd`` (mirrors ``launch_fwd_t``): the
+    """f32 scratch of ``cnn4_block_fwd`` (mirrors ``launch_fwd``): the
     per-tile (mean, M2) and per-task (mean, inv_std) of every channel, and
     y between the kernels where the output (bf16) cannot hold it."""
     m = n * out_hw(h) * out_hw(w)
-    tiles = -(-m // _TILE_M)
     y = 0 if dtype == torch.float32 else b * m * co
-    return 2 * b * tiles * co + 2 * b * co + y
+    return 2 * b * _cdiv(m, _TILE_M) * co + 2 * b * co + y
+
+
+def dw_chunk(b: int, m: int, ci: int, co: int) -> int:
+    """Positions per chunk of the dw GEMM's split reduction (mirrors
+    ``dw_chunk`` in the source): enough chunks that the grid holds about
+    ``_DW_CTAS`` CTAs, none under ``_DW_MIN_CHUNK`` positions, a whole
+    number of stages."""
+    tiles = b * _cdiv(9 * ci, _TILE_M) * _cdiv(co, _TILE_N)
+    want = max(1, min(_cdiv(_DW_CTAS, tiles), _cdiv(m, _DW_MIN_CHUNK)))
+    return _cdiv(_cdiv(m, want), _TILE_K) * _TILE_K
+
+
+def bwd_params_workspace_floats(b: int, n: int, h: int, w: int, ci: int,
+                                co: int) -> int:
+    """f32 scratch of ``cnn4_block_bwd_params`` (mirrors
+    ``launch_bwd_params``): the tile statistics, later the tile sums, and
+    per (task, channel) the statistics and dy's constants, all as pairs; y
+    ``[B, M, Co]``; and the dw partials ``[B, chunks, 9 Ci Co + Co]``
+    where the positions are split into more than one chunk."""
+    m = n * out_hw(h) * out_hw(w)
+    if m == 0:
+        return 0
+    chunks = _cdiv(m, dw_chunk(b, m, ci, co))
+    part = b * chunks * (9 * ci * co + co) if chunks > 1 else 0
+    return 2 * b * _cdiv(m, _TILE_M) * co + 4 * b * co + b * m * co + part
 
 
 # ---------------------------------------------------------------------------
@@ -174,6 +202,60 @@ def combine_tile_stats_plain(n, mean, m2):
     return mu, acc / total
 
 
+def _bn_dz(y, g, mean, inv, scale, bias):
+    """xhat and dz = g * [xhat * scale + bias > 0] of y, g ``[B, M, C]``
+    (f32) from per-(task, channel) ``[B, C]`` mean, inv_std, scale, bias."""
+    xh = (y - mean[:, None]) * inv[:, None]
+    return xh, g * ((xh * scale[:, None] + bias[:, None]) > 0)
+
+
+def bwd_tile_sums_plain(y, g, mean, inv, scale, bias, tile: int = _TILE_M):
+    """Per tile of ``tile`` rows of y and g ``[B, M, C]``, the sums of dz *
+    xhat and of dz per channel, as ``bwd_tile_sums_kernel`` takes them ->
+    (``[B, T, C]``, ``[B, T, C]``)."""
+    xh, dz = _bn_dz(y, g, mean, inv, scale, bias)
+    sx, sz = [], []
+    for r in range(0, y.shape[1], tile):
+        sx.append((dz[:, r:r + tile] * xh[:, r:r + tile]).sum(dim=1))
+        sz.append(dz[:, r:r + tile].sum(dim=1))
+    return torch.stack(sx, 1), torch.stack(sz, 1)
+
+
+def combine_bwd_sums_plain(sx, sz, scale, m: int):
+    """The tile sums in tile order, as ``bwd_combine_kernel`` -> (dscale,
+    dbias, m1, m2), each ``[B, C]``: m1 = scale * dbias / M = mean(dxhat),
+    m2 = scale * dscale / M = mean(dxhat * xhat)."""
+    ds, db = torch.zeros_like(sx[:, 0]), torch.zeros_like(sz[:, 0])
+    for t in range(sx.shape[1]):
+        ds, db = ds + sx[:, t], db + sz[:, t]
+    return ds, db, scale * db / m, scale * ds / m
+
+
+def bwd_dy_plain(y, g, mean, inv, scale, bias, m1, m2):
+    """dy ``[B, M, C]`` as ``bwd_dw_kernel`` forms it while staging:
+    inv_std * (dz * scale - m1 - xhat * m2)."""
+    xh, dz = _bn_dz(y, g, mean, inv, scale, bias)
+    return inv[:, None] * (dz * scale[:, None] - m1[:, None]
+                           - xh * m2[:, None])
+
+
+def dw_split_plain(x, dy, chunk: int):
+    """dw and db as ``bwd_dw_kernel`` and ``bwd_dw_reduce_kernel`` take
+    them: per chunk of ``chunk`` positions the implicit GEMM dw[(tap, ci),
+    co] = sum_m x_tap(m, ci) * dy(m, co) and db = sum_m dy(m, co), the
+    chunks summed in order. x ``[B, N, H, W, Ci]``, dy ``[B, M, Co]`` ->
+    (dw ``[B, 3, 3, Ci, Co]``, db ``[B, Co]``), f32."""
+    B, ci, co = x.shape[0], x.shape[4], dy.shape[-1]
+    a = torch.stack(_taps(x.float()), dim=4).reshape(B, -1, 9 * ci)
+    d = dy.reshape(B, -1, co)
+    dw, db = a.new_zeros(B, 9 * ci, co), a.new_zeros(B, co)
+    for r in range(0, d.shape[1], chunk):
+        dw = dw + torch.einsum("bmk,bmo->bko", a[:, r:r + chunk],
+                               d[:, r:r + chunk])
+        db = db + d[:, r:r + chunk].sum(dim=1)
+    return dw.reshape(B, 3, 3, ci, co), db
+
+
 def parity_classes():
     """The parity classes (hi % 2, wi % 2) of the input positions in the
     order of ``bwd_input_kernel``'s grid, each with its taps (ty, tx, di,
@@ -213,7 +295,7 @@ def _load():
         lib = build.load(_SOURCE)
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.cnn4_block_fwd.argtypes = [I] + [P] * 7 + [I] * 6 + [P]
-        lib.cnn4_block_bwd_params.argtypes = [I] + [P] * 11 + [I] * 6 + [P]
+        lib.cnn4_block_bwd_params.argtypes = [I] + [P] * 12 + [I] * 6 + [P]
         lib.cnn4_block_bwd_input.argtypes = [I] + [P] * 3 + [I] * 6 + [P]
         for fn in (lib.cnn4_block_fwd, lib.cnn4_block_bwd_params,
                    lib.cnn4_block_bwd_input):
@@ -256,11 +338,6 @@ def _check(x, w, b, scale, bias):
     if B > MAX_TASKS:
         raise ValueError(f"fused CNN4 block: {B} tasks in one launch, above "
                          f"the grid's {MAX_TASKS}")
-    if smem_bytes(N, H, W, ci) > SMEM_LIMIT:
-        raise ValueError(
-            f"fused CNN4 block: {N} images of {H}x{W} per task need "
-            f"{smem_bytes(N, H, W, ci)} B of shared memory, above "
-            f"{SMEM_LIMIT}")
     return B, N, H, W, ci, co
 
 
@@ -304,12 +381,14 @@ def block_bwd_params(x, w, b, scale, bias, g):
                          f"match the block output {shape} {x.dtype}")
     dy = torch.empty(shape, dtype=torch.float32, device=x.device)
     dw, db, ds, dbe = (torch.empty_like(t) for t in (w, b, scale, bias))
+    ws = torch.empty(bwd_params_workspace_floats(B, N, H, W, ci, co),
+                     dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _load().cnn4_block_bwd_params(
             _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
             scale.data_ptr(), bias.data_ptr(), g.data_ptr(), dy.data_ptr(),
             dw.data_ptr(), db.data_ptr(), ds.data_ptr(), dbe.data_ptr(),
-            B, N, H, W, ci, co, _stream(x))
+            ws.data_ptr(), B, N, H, W, ci, co, _stream(x))
     _raise_on(err, "cnn4_block_bwd_params")
     block_bwd_params.launches += 1
     return dy, dw, db, ds, dbe

@@ -181,7 +181,6 @@ def _meta_block(b=1, n=2, h=28, ci=1, co=4, dtype=torch.float32):
 
 @pytest.mark.parametrize("args,match", [
     (dict(b=tc.MAX_TASKS + 1), "tasks in one launch"),
-    (dict(n=1000), "shared memory"),
     (dict(dtype=torch.float16), "unsupported dtype"),
 ])
 def test_launch_checks_refuse_what_the_kernels_do_not_take(args, match):
@@ -191,9 +190,27 @@ def test_launch_checks_refuse_what_the_kernels_do_not_take(args, match):
     assert tc._check(*_meta_block()) == (1, 2, 28, 28, 1, 4)
 
 
-def test_shared_memory_covers_128_images_per_task():
-    assert tc.smem_bytes(128, 28, 28, 1) <= tc.SMEM_LIMIT
-    assert tc.smem_bytes(25, 28, 28, 1) == 4 * (9 + 256 + 25 * 14 * 14)
+def test_launch_checks_take_1000_images_per_task():
+    """No kernel holds a whole task on chip, so only device memory limits
+    the images per task (block 1: once 295 at most)."""
+    assert tc._check(*_meta_block(n=1000)) == (1, 1000, 28, 28, 1, 4)
+
+
+def test_bwd_params_workspace_floats():
+    """The scratch of ``cnn4_block_bwd_params`` (mirrors
+    ``launch_bwd_params``): tile and task pairs and y, plus the dw
+    partials where the positions are split (block 1 of a served batch:
+    9 chunks; block 2: one)."""
+    b, co = 64, 64
+    m1, m2 = 25 * 14 * 14, 25 * 7 * 7
+    assert tc.dw_chunk(b, m1, 1, co) == 560
+    assert -(-m1 // 560) == 9
+    assert tc.bwd_params_workspace_floats(b, 25, 28, 28, 1, co) == (
+        2 * b * 77 * co + 4 * b * co + b * m1 * co + b * 9 * (9 * co + co))
+    assert tc.dw_chunk(b, m2, 64, co) == 1232        # one chunk of all M
+    assert tc.bwd_params_workspace_floats(b, 25, 14, 14, 64, co) == (
+        2 * b * 20 * co + 4 * b * co + b * m2 * co)
+    assert tc.bwd_params_workspace_floats(b, 0, 14, 14, 64, co) == 0
 
 
 def test_plain_path_counts_no_launches():

@@ -63,11 +63,16 @@ def test_kernels_match_plain_twins(cuda_device, h, ci):
 # (tasks, images per task, H, Ci) at which the tiled kernels are held:
 # the four served block shapes at N = 25, the query forward at N = 15 (M =
 # 735 at block 2 leaves a ragged last tile), B = 1 with N = 1, and N = 128
-# at block 1
+# and N = 400 at block 1 (400: past the 295 images per task that
+# bwd_params took when it held a task's channel in shared memory)
 _BLOCKS = [(28, 1), (14, 64), (7, 64), (4, 64)]
 _TILED_SHAPES = ([(2, 25, h, ci) for h, ci in _BLOCKS]
                  + [(2, 15, h, ci) for h, ci in _BLOCKS]
-                 + [(1, 1, h, ci) for h, ci in _BLOCKS] + [(2, 128, 28, 1)])
+                 + [(1, 1, h, ci) for h, ci in _BLOCKS] + [(2, 128, 28, 1),
+                                                          (2, 400, 28, 1)])
+# db = sum(dy) is zero in exact arithmetic: held relative to sum(|dy|) per
+# (task, channel), as chip_smoke.DB_TOL
+_DB_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
 def _held(got, want, tol):
@@ -84,14 +89,27 @@ def _held(got, want, tol):
 @pytest.mark.parametrize("b,n,h,ci", _TILED_SHAPES)
 def test_tiled_kernels_match_plain_twins(cuda_device, b, n, h, ci, dtype,
                                          tol):
-    """The forward and the input gradient against their twins, and each
-    twice with bitwise equal results."""
+    """The forward, the parameter gradients and the input gradient against
+    their twins, and each twice with bitwise equal results."""
     rng = np.random.default_rng(n * h + ci)
-    x, w, p, _ = _block_inputs(rng, cuda_device, b, n, h, ci)
+    x, w, p, g = _block_inputs(rng, cuda_device, b, n, h, ci)
     x, w, p = x.to(dtype), w.to(dtype), [t.to(dtype) for t in p]
+    # the cotangent's mask at the kink, again from the inputs as cast
+    xh, _, s, be = tc.bn_stats_plain(x, w, *p)
+    g = (g * ((xh * s + be).abs() > 1e-3)).to(dtype)
     got = tc.block_fwd(x, w, *p)
     _held(got, tc.block_fwd_plain(x, w, *p), tol)
     assert torch.equal(got, tc.block_fwd(x, w, *p))
+    got = tc.block_bwd_params(x, w, *p, g)
+    want = tc.block_bwd_params_plain(x, w, *p, g)
+    for i, (a, c) in enumerate(zip(got, want)):
+        if i == 2:
+            lim = _DB_TOL[dtype] * want[0].abs().sum(dim=(1, 2, 3))
+            assert ((a.float() - c.float()).abs() <= lim).all()
+        else:
+            _held(a, c, tol)
+    again = tc.block_bwd_params(x, w, *p, g)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
     ho = tc.out_hw(h)
     dy = torch.tensor(rng.normal(size=(b, n, ho, ho, 64)),
                       dtype=torch.float32, device=cuda_device)
