@@ -25,10 +25,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
    that every kernel ran, that the batch agrees with per-request
    ``__call__`` and with the CPU path, and that the support set is
    labelled above chance; time and profile it;
-4. the GAE / discount sweeps (slice 2): at ``[20, 100, 20]``,
-   ``[100, 400]`` and ``[100]``, with dones mid-column, all zero and all
-   one, hold each kernel against its twin and a float64 CPU reference,
-   forward and backward, and time kernel and twin;
+4. the GAE / discount sweeps (slice 2; a segmented affine scan over
+   time): at ``[20, 100, 20]``, ``[40, 150, 20]``, ``[100, 400]`` and
+   ``[100]`` (timed), and at T = 1, T = 129 (one past a slab) and T = 1000
+   (checked only), with dones mid-column, all zero and all one, hold each
+   kernel against its twin and a float64 CPU reference, forward and
+   backward, and each twice at ``[20, 100, 20]`` with bitwise equal
+   results; time kernel (device microseconds a launch) and twin;
 5. MAML-TRPO meta-training (slice 2): 3 full-width iterations of
    ``RLTrainer`` on Particles2D in a temporary run dir, with the launch
    counters zeroed just before; check that both sweeps ran in every
@@ -82,16 +85,23 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # removes dy's mean); both sides hold rounding noise, bounded relative to
 # sum(|dy|) per (request, channel).
 DB_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-# GAE / discount sweeps: the main path's [B, T, E], the [T, lanes] form and
-# a single column; the trainer's gamma and tau.
-SWEEP_SHAPES = [(20, 100, 20), (100, 400), (100,)]
+# GAE / discount sweeps, timed: the main path's [B, T, E]; the JAX
+# reference's own maml_trpo scale (40 tasks x 20 episodes x horizon 150,
+# exploring_meta_tpu/utils/config.py:170-171); the [T, lanes] form; a
+# single column. Checked only: T = 1, one step past a 128-step slab (one
+# lane and 20 lanes of 4 tasks) and a long T.
+SWEEP_SHAPES = [(20, 100, 20), (40, 150, 20), (100, 400), (100,)]
+SWEEP_CHECK_SHAPES = [(1,), (129,), (4, 129, 5), (1000,)]
 GAMMA, TAU = 0.99, 1.0
-# A sweep output sums up to T = 100 float32 terms, each rounded once
-# (2^-24 relative): |kernel - reference| <= 1e-5 * max|reference|.
+# A sweep output is a discounted sum of up to T float32 terms, each rounded
+# once (2^-24 relative). Their weights sum to at most 1 / (1 - gamma) = 100
+# whatever T, so T = 1000 rounds like T = 100: |kernel - reference| <=
+# 1e-5 * max|reference|.
 SWEEP_TOL = 1e-5
-# the sweep kernels' names in csrc/gae.cu, as the profiler reports them
-KERNEL_NAMES = {"gae_sweep": "sweep_kernel<true>",
-                "discount_sweep": "sweep_kernel<false>"}
+# the sweep kernels' names in csrc/gae.cu, as the profiler reports them:
+# one launch a call, of the instance for 4 or 8 steps a thread
+KERNEL_NAMES = {"gae_sweep": "scan_kernel<true,",
+                "discount_sweep": "scan_kernel<false,"}
 TRPO_ITERATIONS = 3
 
 
@@ -393,18 +403,26 @@ def kernel_device_ms(torch, fn, name: str, calls: int = 50) -> float:
     microseconds, CUDA events around back-to-back calls time the host's
     dispatch instead, so this is the kernel's own time. CUPTI may drop a
     record now and then (one of 50 has been seen missing on an H100), so
-    the check asks for nine in ten of the launches, not every one."""
+    the check asks for nine in ten of the launches, not every one. A
+    session has also been seen to record none, or 32 of 50, so a session
+    that records fewer than nine in ten is taken again, at most five
+    times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and name in e.key]
-    count = sum(e.count for e in events)
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and name in e.key]
+        count = sum(e.count for e in events)
+        if count >= 0.9 * calls:
+            break
+        print(f"profiler saw {count} of {calls} launches of {name}; "
+              f"timing again", flush=True)
     check(0.9 * calls <= count <= calls,
           f"profiler saw {count} of {calls} launches of {name}")
     return sum(e.self_device_time_total for e in events) / count / 1e3
@@ -515,13 +533,14 @@ def sweep_inputs(torch, gen, shape, dones: str):
 
 def sweep_phase(torch, gc, gpu) -> dict:
     """Phase 4: each sweep kernel vs its twin and a float64 CPU reference,
-    forward and backward, at every shape and kind of dones; timed at each
-    shape with dones mid-column."""
+    forward and backward, at every shape and kind of dones, and twice with
+    bitwise equal results at the main shape; timed at each timed shape with
+    dones mid-column."""
     plain = {"gae_sweep": gc.gae_plain, "discount_sweep": gc.discount_plain}
     res = {name: {"max_abs_err": 0.0, "max_abs_err_f64": 0.0,
                   "max_grad_err": 0.0, "shapes": []} for name in gc.KERNELS}
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    for shape in SWEEP_SHAPES:
+    for shape in SWEEP_SHAPES + SWEEP_CHECK_SHAPES:
         for dones in ("mid", "zeros", "ones"):
             r, d, v = sweep_inputs(torch, gen, shape, dones)
             g = torch.randn(shape, generator=gen, device="cuda")
@@ -538,6 +557,10 @@ def sweep_phase(torch, gc, gpu) -> dict:
                 check(e_twin <= lim and e_ref <= lim,
                       f"{name} {shape} dones {dones}: |err| twin {e_twin}, "
                       f"f64 {e_ref}, limit {lim}")
+                if shape == SWEEP_SHAPES[0]:
+                    check(torch.equal(got, kern(*args)),
+                          f"{name} {shape} dones {dones}: bitwise equal in "
+                          f"two calls")
 
                 def grads(fn):
                     ins = [a.detach().clone().requires_grad_()
@@ -558,7 +581,7 @@ def sweep_phase(torch, gc, gpu) -> dict:
                 r_["max_abs_err"] = max(r_["max_abs_err"], e_twin)
                 r_["max_abs_err_f64"] = max(r_["max_abs_err_f64"], e_ref)
                 r_["max_grad_err"] = max(r_["max_grad_err"], e_grad)
-                if dones != "mid":
+                if dones != "mid" or shape not in SWEEP_SHAPES:
                     continue
                 n = r.numel()
                 arrays, flops = (4, 7) if name == "gae_sweep" else (3, 3)
@@ -583,11 +606,13 @@ def sweep_phase(torch, gc, gpu) -> dict:
                                         "bytes_ms", "ops_ms", "bound_ms")},
                   library_ms=None)
         print(f"kernel {name}: max_abs_err {r_['max_abs_err']} (f64 "
-              f"{r_['max_abs_err_f64']}, grad {r_['max_grad_err']}); "
-              + "; ".join(f"{s['shape']}: ms {s['ms']} call_ms "
-                          f"{s['call_ms']} plain_ms {s['plain_ms']} "
-                          f"bound_ms {s['bound_ms']}"
-                          for s in r_["shapes"]) + f" [{gpu}]", flush=True)
+              f"{r_['max_abs_err_f64']}, grad {r_['max_grad_err']}) [{gpu}]",
+              flush=True)
+        for s in r_["shapes"]:
+            print(f"  {name} {s['shape']}: {1e3 * s['ms']} us a launch "
+                  f"(device), bound {1e3 * s['bound_ms']} us, call_ms "
+                  f"{s['call_ms']} plain_ms {s['plain_ms']} [{gpu}]",
+                  flush=True)
     return res
 
 

@@ -1,7 +1,8 @@
 """Reverse GAE / discount sweeps: CUDA kernels, their plain twins, autograd.
 
 Port of ``exploring_meta_tpu/pallas/gae_pallas.py`` (rows 5-6 of the
-TPU-kernel table in PERF.md). Two kernels in ``csrc/gae.cu``:
+TPU-kernel table in PERF.md). Two kernels in ``csrc/gae.cu``, each a
+segmented affine scan over time (:func:`scan_plain` is its decomposition):
 
 - ``gae_sweep``       ``a_t = (r_t + g(1-d_t)V_{t+1} - V_t) + g*tau(1-d_t)a_{t+1}``
   with ``V_T = 0`` (``gae_pallas``);
@@ -28,7 +29,10 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-_THREADS = 64          # kThreads in csrc/gae.cu
+# csrc/gae.cu: 32 segments (a warp) a slab, kLanes lanes (warps) a CTA, and
+# kSegShort steps a thread while one slab covers T, else kSegLong
+SEGMENTS, LANES = 32, 4
+SEG_SHORT, SEG_LONG = 4, 8
 _SOURCE = "gae.cu"
 _lib = None
 
@@ -79,6 +83,66 @@ def gae_plain(gamma: float, tau: float, rewards, dones, values):
         out[t] = carry
         v_next = v[:, t]
     return torch.stack(out, dim=1).reshape(rewards.shape)
+
+
+def segment_steps(T: int) -> int:
+    """Steps a thread owns in a slab of the kernels, for a sweep of T."""
+    return SEG_SHORT if T <= SEGMENTS * SEG_SHORT else SEG_LONG
+
+
+def scan_plain(gamma: float, tau, rewards, dones, values=None, *,
+               seg: int | None = None, segments: int = SEGMENTS):
+    """The kernels' decomposition of either sweep (GAE with ``values``,
+    else the discount; ``tau`` is unused then): ``x_t = b_t + a_t x_{t+1}``
+    over slabs of ``seg * segments`` steps from the end of time, the top
+    slab zero-padded; in a slab, each segment of ``seg`` steps (by default
+    the kernels' :func:`segment_steps`) folded into one map, the maps
+    combined by the kernel's doubling suffix scan, and each segment
+    replayed from the next one's first x. For tests: the wrappers' CPU
+    path is :func:`gae_plain` / :func:`discount_plain`."""
+    r = sweep_view(rewards)
+    G, T, L = r.shape
+    seg = segment_steps(T) if seg is None else seg
+    slab = seg * segments
+    n = -(-T // slab)
+    pad = n * slab - T
+
+    def padded(x):
+        return torch.nn.functional.pad(sweep_view(x).to(r.dtype),
+                                       (0, 0, 0, pad))
+
+    nd = 1.0 - padded(dones)
+    if values is None:
+        a, b = gamma * nd, padded(rewards)
+    else:
+        v = padded(values)
+        v_next = torch.nn.functional.pad(v[:, 1:], (0, 0, 0, 1))
+        a = gamma * tau * nd
+        b = padded(rewards) + gamma * nd * v_next - v
+    a, b = (x.reshape(G, n, segments, seg, L) for x in (a, b))
+    # fold each segment from its top step down
+    A, B = a[..., -1, :], b[..., -1, :]
+    for k in reversed(range(seg - 1)):
+        A, B = a[..., k, :] * A, b[..., k, :] + a[..., k, :] * B
+    # combine: inclusive suffix scan over the segments by doubling
+    off = 1
+    while off < segments:
+        A2 = torch.nn.functional.pad(A[:, :, off:], (0, 0, 0, off), value=1.0)
+        B2 = torch.nn.functional.pad(B[:, :, off:], (0, 0, 0, off))
+        A, B = A * A2, B + A * B2
+        off *= 2
+    out = torch.empty_like(a)
+    carry = torch.zeros_like(r[:, 0])
+    for j in reversed(range(n)):
+        # each segment's carry: the next segment's first x; the top one's,
+        # the first output of the slab after this one
+        first = A[:, j] * carry[:, None] + B[:, j]
+        x = torch.cat([first[:, 1:], carry[:, None]], dim=1)
+        for k in reversed(range(seg)):
+            x = b[:, j, :, k] + a[:, j, :, k] * x
+            out[:, j, :, k] = x
+        carry = out[:, j, 0, 0]
+    return out.reshape(G, n * slab, L)[:, :T].reshape(rewards.shape)
 
 
 # ---------------------------------------------------------------------------

@@ -138,9 +138,14 @@ def test_served_batch_runs_every_kernel(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(20, 100, 20), (100, 400), (100,)])
+@pytest.mark.parametrize("shape", [(20, 100, 20), (40, 150, 20), (100, 400),
+                                   (100,), (1,), (129,), (4, 129, 5),
+                                   (1000,)])
 @pytest.mark.parametrize("dones", ["mid", "zeros", "ones"])
 def test_sweep_kernels_match_plain_twins(cuda_device, shape, dones):
+    """The main path's shape, the reference's maml_trpo scale, the [T,
+    lanes] form and one column; T = 1, one step past a 128-step slab and a
+    long T. Each kernel twice, with bitwise equal results."""
     rng = np.random.default_rng(len(shape))
     r, v = (torch.tensor(rng.normal(size=shape), dtype=torch.float32,
                          device=cuda_device) for _ in range(2))
@@ -148,14 +153,18 @@ def test_sweep_kernels_match_plain_twins(cuda_device, shape, dones):
                      else np.full(shape, dones == "ones"),
                      dtype=torch.float32, device=cuda_device)
     gc.reset_launch_counts()
-    for got, want in ((gc.gae_sweep(0.99, 0.95, r, d, v),
-                       gc.gae_plain(0.99, 0.95, r, d, v)),
-                      (gc.discount_sweep(0.99, r, d),
-                       gc.discount_plain(0.99, r, d))):
-        # up to T = 100 float32 terms, each rounded once
+    for got, again, want in (
+            (gc.gae_sweep(0.99, 0.95, r, d, v),
+             gc.gae_sweep(0.99, 0.95, r, d, v),
+             gc.gae_plain(0.99, 0.95, r, d, v)),
+            (gc.discount_sweep(0.99, r, d), gc.discount_sweep(0.99, r, d),
+             gc.discount_plain(0.99, r, d))):
+        # float32 terms, each rounded once, whose weights sum to at most
+        # 1 / (1 - 0.99) = 100 whatever T
         torch.testing.assert_close(got, want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
-    assert gc.launch_counts() == {"gae_sweep": 1, "discount_sweep": 1}
+        assert torch.equal(got, again)
+    assert gc.launch_counts() == {"gae_sweep": 2, "discount_sweep": 2}
 
 
 @pytest.mark.cuda

@@ -47,7 +47,9 @@ def test_port_module_list_is_complete():
                 "models.distributions", "models.policies", "ops.value",
                 "ops.gae", "ops.cg", "rl.rollout", "rl.adapt_rl",
                 "rl.trpo_meta", "rl.evaluate", "utils.config",
-                "trainers.rl", "cli"):
+                "trainers.rl", "cli",
+                # slice 5: the sweeps' redesign
+                "cuda.compare_sweeps"):
         assert f"exploring_meta_tpu_torch.{mod}" in names
 
 
