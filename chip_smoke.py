@@ -39,7 +39,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    exist and load, and that the final meta-test is finite; then one
    outer step on identical replays on the card and on the CPU path, which
    must agree; then profile one iteration;
-6. print one ``{"kernels": [...]}`` line, the card line again, and last
+6. vision meta-training (slice 6): one full-width second-order
+   meta-gradient (4 tasks, f32, inner_lr 0.05) through the fused kernels,
+   held against a float64 reference on the kernels' ReLU masks and, more
+   loosely, the direct path (cuDNN) and the CPU path, bf16's loss
+   against f32's, with the launch counters showing that the kernels ran
+   under ``create_graph=True``; 3 iterations of ``VisionTrainer`` at
+   ``bench.py``'s ``maml_omni`` configuration (bf16, meta-batch 32) in a
+   temporary run dir, with the counters zeroed just before and checked per
+   iteration, finite metrics, the saved model and checkpoint loading back
+   and a finite meta-test; tasks/s of the meta-step in f32 and bf16,
+   fused and direct, timed in turns; one meta-step profiled (idle share,
+   launches, device time of the CNN4 kernels, of the plain double backward
+   and of the rest);
+7. print one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports neither
@@ -103,6 +116,55 @@ SWEEP_TOL = 1e-5
 KERNEL_NAMES = {"gae_sweep": "scan_kernel<true,",
                 "discount_sweep": "scan_kernel<false,"}
 TRPO_ITERATIONS = 3
+# Vision meta-training (slice 6), bench.py's maml_omni: 5-way 5-shot,
+# meta-batch 32, one inner step at inner_lr 0.5, Adam 3e-3, bf16 compute
+# (cast_compute), synthetic Omniglot at its real shape (1623 classes x 20).
+META_BATCH, VISION_ITERATIONS = 32, 3
+# CNN4 kernel calls of one second-order meta-step: the support and query
+# forwards (4 + 4); the inner backward (4 bwd_params + 3 bwd_input, block 1
+# needs no dx); the outer pass, the query blocks' backward and the support
+# blocks' backward (4 + 3 each). A meta-eval adapts first order: 8 / 4 / 3.
+META_STEP_CALLS = {"cnn4_block_fwd": 8, "cnn4_block_bwd_params": 12,
+                   "cnn4_block_bwd_input": 9}
+META_EVAL_CALLS = {"cnn4_block_fwd": 8, "cnn4_block_bwd_params": 4,
+                   "cnn4_block_bwd_input": 3}
+# The second-order check: 4 tasks at full width, f32, inner_lr 0.05 (at
+# 0.5 the f32 meta-gradient through batch-stat BN is ill-conditioned).
+# At full width (1.25M block-1 activations a pass) a few ReLU inputs lie
+# within f32 rounding of the kink, and two f32 paths (kernels, cuDNN, the
+# CPU) may put one on opposite sides: that moves every leaf of the
+# meta-gradient at once, by up to a few 1e-3 of its max|grad|
+# ("direct_vs_reference_f64" in the output), more than the JAX test's
+# tolerance and the size of the second-order term itself at this
+# inner_lr. So the kernels' meta-gradient is held, per leaf at |got -
+# want| <= 3e-4 |want| + 3e-5 max|want| (the JAX test's tolerances,
+# tests/test_pallas_cnn4.py), against a float64 plain reference that
+# takes the kernels' own ReLU masks (reference_meta_grad); against the
+# direct path (cuDNN) and the CPU path, which make their own masks, within
+# 1e-2 max|want|; the masks of the card and the CPU are compared. The
+# conv-bias gradient is zero in exact arithmetic (BN removes the bias), so
+# it is held by magnitude, within 1e-4 of the largest |gradient| of the
+# block's BN bias, a sum over the same positions. The bf16 loss lies
+# within 2e-2 of f32's; a bf16 meta-gradient lies far (tens of per cent,
+# relative L2, "bf16_rel_l2") from the f32 one on either path, so the
+# kernels' is held against cuDNN's bf16 one: no farther from f32 than
+# 1.5x cuDNN's distance.
+SO_TASKS, SO_LR = 4, 0.05
+SO_TOL, SO_DB_TOL, SO_FLIP_TOL = (3e-4, 3e-5), 1e-4, 1e-2
+BF16_LOSS_TOL, BF16_GRAD_RATIO = 2e-2, 1.5
+# tasks/s as bench.py measures it: 32 x steps / wall time of make_train_scan
+# over TIMED_STEPS steps (ended by a sync), after WARM_STEPS; best of
+# WINDOWS windows, the configurations timed in turns
+TIMED_STEPS, WARM_STEPS, WINDOWS = 10, 2, 3
+# profiler ranges: the kernel wrappers' and the plain double backward's
+RANGES = ("cnn4_block_fwd", "cnn4_block_bwd_params", "cnn4_block_bwd_input",
+          "cnn4_block_double_backward")
+# the kernels of csrc/cnn4_block.cu (the profiler prefixes their
+# namespace and suffixes their template arguments)
+CNN4_KERNEL_NAMES = ("fwd_conv_stats_kernel", "fwd_combine_kernel",
+                     "fwd_norm_kernel", "bwd_input_kernel",
+                     "bwd_tile_sums_kernel", "bwd_combine_kernel",
+                     "bwd_dw_kernel", "bwd_dw_reduce_kernel")
 
 
 def check(ok: bool, what: str) -> None:
@@ -380,15 +442,18 @@ def device_profile(torch, fn, launches: bool = False) -> tuple:
     """Run ``fn`` once under ``torch.profiler`` -> (microseconds the card
     was busy with kernels, the top kernels as (name, us, count)[, the
     number of kernels launched]). Device kernels only: a CPU op that
-    launched a kernel reports its time too, so summing every event would
-    count it twice."""
+    launched a kernel reports its time too, and a profiler range (RANGES)
+    its span on the device, so summing every event would count them
+    twice."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = sorted((e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and not getattr(e, "is_user_annotation", False)
+                     and e.key not in RANGES),
                     key=lambda e: -e.self_device_time_total)
     out = (sum(e.self_device_time_total for e in events),
            [(e.key[:60], e.self_device_time_total, e.count)
@@ -819,6 +884,449 @@ def trpo_profile(torch, gpu) -> dict:
     return out
 
 
+def vision_config(**kw):
+    """bench.py's maml_omni configuration as the port's VisionConfig."""
+    from exploring_meta_tpu_torch.utils.config import VisionConfig
+    return VisionConfig(**{**dict(
+        ways=WAYS, shots=SHOTS, meta_batch_size=META_BATCH, inner_lr=0.5,
+        outer_lr=3e-3, bf16=True, conv_impl="fused", synthetic=True,
+        synth_classes=1623, synth_per_class=20, seed=SEED), **kw})
+
+
+def held_meta_grads(torch, got: dict, want: dict, what: str,
+                    loose: bool = False) -> float:
+    """Each leaf within SO_TOL (``loose``: within SO_FLIP_TOL max|want|);
+    conv biases by magnitude -> the largest |got - want| / max|want|."""
+    worst = 0.0
+    for key, w in want.items():
+        g = got[key]
+        if key.endswith("conv/b"):
+            scale = float(want[key[:-len("conv/b")] + "bn/bias"].abs().max())
+            check(float(g.abs().max()) <= SO_DB_TOL * scale
+                  and float(w.abs().max()) <= SO_DB_TOL * scale,
+                  f"{what} {key}: |grad| {float(g.abs().max())}, "
+                  f"{float(w.abs().max())} vs BN-bias scale {scale}")
+            continue
+        top = float(w.abs().max())
+        d = (g - w).abs()
+        lim = (SO_FLIP_TOL * top if loose
+               else SO_TOL[0] * w.abs() + SO_TOL[1] * top)
+        check(bool(torch.isfinite(g).all()) and bool((d <= lim).all()),
+              f"{what} {key}: max |err| {float(d.max())} of max {top}")
+        worst = max(worst, float(d.max()) / top)
+    return worst
+
+
+def rel_l2(torch, grads: dict, ref: dict) -> float:
+    """Distance of a meta-gradient from ``ref`` over every leaf but the
+    conv biases, relative to |ref|."""
+    keys = [k for k in ref if not k.endswith("conv/b")]
+    d = torch.cat([(grads[k] - ref[k]).reshape(-1) for k in keys])
+    return float(d.norm() / torch.cat([ref[k].reshape(-1) for k in keys])
+                 .norm())
+
+
+def reference_meta_grad(torch, base: dict, data, labels, masks: list,
+                        lr: float) -> tuple:
+    """The MAML meta-gradient of one inner SGD step, written out in float64
+    with plain ops: per task (tasks as conv groups) conv 3x3 stride 2 pad 1
+    + bias -> batch-stat BN -> ReLU, four times, the spatial mean and the
+    linear head; cross-entropy; even examples adapt, odd ones score. Each
+    ReLU keeps the entries where the next of ``masks`` (``[B, N, Ho, Wo,
+    C]`` bools, in call order: support blocks 1-4, then query blocks 1-4)
+    is set. -> (mean query loss, {leaf path: grad}) for ``base``'s shared
+    params."""
+    import torch.nn.functional as F
+    from exploring_meta_tpu_torch.utils.tree import (
+        tree_items, tree_leaves, tree_map, tree_unflatten,
+    )
+    dt, dev = torch.float64, data.device
+    B = data.shape[0]
+    params = tree_map(lambda t: t.to(dev, dt).requires_grad_(), base)
+    shared = tree_leaves(params)
+    it = iter(masks)
+
+    def logits(p, x):
+        a = x.to(dt).permute(1, 0, 4, 2, 3)            # [N, B, C, H, W]
+        for blk in p["base"]:
+            n, w = a.shape[0], blk["conv"]["w"]        # w [B, 3, 3, Ci, Co]
+            y = F.conv2d(a.reshape(n, -1, *a.shape[3:]),
+                         w.permute(0, 4, 3, 1, 2).reshape(-1, w.shape[3], 3, 3),
+                         stride=2, padding=1, groups=B)
+            y = y.reshape(n, B, -1, *y.shape[2:])
+            y = y + blk["conv"]["b"][None, :, :, None, None]
+            mu = y.mean(dim=(0, 3, 4), keepdim=True)
+            var = (y - mu).square().mean(dim=(0, 3, 4), keepdim=True)
+            z = ((y - mu) / torch.sqrt(var + 1e-5)
+                 * blk["bn"]["scale"][None, :, :, None, None]
+                 + blk["bn"]["bias"][None, :, :, None, None])
+            a = z * next(it).permute(1, 0, 4, 2, 3).to(dt)
+        feats = a.mean(dim=(3, 4)).permute(1, 0, 2)    # [B, N, C]
+        return feats @ p["head"]["w"] + p["head"]["b"][:, None, :]
+
+    def loss(p, x, y):                                 # [B] task losses
+        return F.cross_entropy(logits(p, x).transpose(1, 2), y,
+                               reduction="none").mean(dim=1)
+
+    p = tree_map(lambda t: t.unsqueeze(0).expand((B,) + tuple(t.shape)),
+                 params)
+    leaves = tree_leaves(p)
+    g = torch.autograd.grad(loss(p, data[:, ::2], labels[:, ::2]).sum(),
+                            leaves, create_graph=True)
+    fast = tree_unflatten(p, [t - lr * d for t, d in zip(leaves, g)])
+    q = loss(fast, data[:, 1::2], labels[:, 1::2]).mean()
+    grads = torch.autograd.grad(q, shared)
+    return float(q.detach()), {k: v.cpu() for k, v in tree_items(
+        tree_unflatten(params, grads))}
+
+
+def recorded_masks(tc, fn) -> tuple:
+    """Run ``fn`` with the ReLU mask (output > 0) of every ``FusedBlock``
+    call recorded, in call order -> (fn's result, masks)."""
+    masks, apply = [], tc.FusedBlock.apply
+
+    def recording(*args):
+        out = apply(*args)
+        masks.append(out.detach() > 0)
+        return out
+
+    tc.FusedBlock.apply = recording
+    try:
+        return fn(), masks
+    finally:
+        del tc.FusedBlock.apply     # the inherited Function.apply again
+
+
+def vision_second_order(torch, tc, gpu) -> dict:
+    """Phase 6, first part: one full-width meta-gradient (4 tasks, 5-way
+    5-shot, one inner step) through the fused kernels under second order,
+    in f32 against a float64 reference on the kernels' ReLU masks, the
+    direct path on the card and the CPU path; bf16 against f32; the launch
+    counters show the kernels ran."""
+    from exploring_meta_tpu_torch.adapt.maml import cast_compute
+    from exploring_meta_tpu_torch.adapt.vision import make_vision_fast_adapt
+    from exploring_meta_tpu_torch.models.cnn4 import init_cnn4, omniglot_spec
+    from exploring_meta_tpu_torch.models.layers import set_conv_impl
+    from exploring_meta_tpu_torch.tasks import datasets as td
+    from exploring_meta_tpu_torch.tasks import sampler as ts
+    from exploring_meta_tpu_torch.utils.tree import (
+        tree_items, tree_leaves, tree_map, tree_unflatten,
+    )
+
+    spec = omniglot_spec(WAYS)
+    base = init_cnn4(torch.Generator().manual_seed(SEED), spec, device="cpu")
+    train, _, _ = td.load_omniglot(seed=SEED, synthetic=True, device="cuda")
+    data, labels = ts.sample_task_batch(
+        torch.Generator(device="cuda").manual_seed(SEED + 5), train, WAYS,
+        SHOTS, SO_TASKS)
+
+    def meta_grad(impl, dev, dtype=None):
+        set_conv_impl(impl)
+        params = tree_map(lambda t: t.to(dev).requires_grad_(), base)
+        fa = make_vision_fast_adapt(spec, SO_LR, 1, SHOTS, WAYS)
+        if dtype is not None:
+            fa = cast_compute(fa, dtype)
+        torch.cuda.synchronize()
+        tc.reset_launch_counts()
+        (loss, grads), masks = recorded_masks(tc, lambda: (lambda l: (
+            l, torch.autograd.grad(l, tree_leaves(params))))(
+                fa(params, data.to(dev), labels.to(dev)).loss.mean()))
+        torch.cuda.synchronize()
+        counts = tc.launch_counts()
+        grads = {k: g.double().cpu()
+                 for k, g in tree_items(tree_unflatten(params, grads))}
+        return float(loss.detach()), grads, counts, masks
+
+    try:
+        runs = {"fused": meta_grad("fused", "cuda"),
+                "direct": meta_grad("direct", "cuda"),
+                "cpu": meta_grad("fused", "cpu"),
+                "fused_bf16": meta_grad("fused", "cuda", torch.bfloat16),
+                "direct_bf16": meta_grad("direct", "cuda", torch.bfloat16)}
+    finally:
+        set_conv_impl("fused")
+    counts = {k: r[2] for k, r in runs.items()}
+    print(f"second-order meta-gradient launches: {counts}", flush=True)
+    for name in ("fused", "fused_bf16"):
+        check(counts[name] == META_STEP_CALLS,
+              f"{name}: the kernels ran under create_graph=True "
+              f"{counts[name]} == {META_STEP_CALLS}")
+    for name in ("direct", "cpu", "direct_bf16"):
+        check(not any(counts[name].values()), f"{name}: no kernel launch")
+    loss, grads, _, masks = runs["fused"]
+    check(len(masks) == 8, f"8 fused block calls, got {len(masks)}")
+    ref_loss, ref = reference_meta_grad(torch, base, data, labels, masks,
+                                        SO_LR)
+    flips = sum(int((a.cpu() != b).sum())
+                for a, b in zip(masks, runs["cpu"][3]))
+    out = {"loss": {"reference_f64": ref_loss,
+                    **{k: r[0] for k, r in runs.items()}},
+           "launches": counts, "relu_flips_card_vs_cpu": flips,
+           "max_rel_err": {
+               "vs_reference_f64": held_meta_grads(
+                   torch, grads, ref, "fused vs float64 reference"),
+               "direct_vs_reference_f64": held_meta_grads(
+                   torch, runs["direct"][1], ref, "direct vs float64",
+                   loose=True),
+               "vs_direct": held_meta_grads(
+                   torch, grads, runs["direct"][1], "fused vs direct",
+                   loose=True),
+               "vs_cpu": held_meta_grads(
+                   torch, grads, runs["cpu"][1], "card vs CPU", loose=True)},
+           "bf16_rel_l2": {name: rel_l2(torch, runs[name][1], grads)
+                           for name in ("fused_bf16", "direct_bf16")}}
+    for name in ("direct", "cpu"):
+        check(abs(runs[name][0] - loss) <= 1e-5 * abs(loss),
+              f"{name} loss {runs[name][0]} vs fused {loss}")
+    check(abs(ref_loss - loss) <= 1e-5 * abs(loss),
+          f"float64 reference loss {ref_loss} vs fused {loss}")
+    check(abs(runs["fused_bf16"][0] - loss) <= BF16_LOSS_TOL * abs(loss),
+          f"fused bf16 loss {runs['fused_bf16'][0]} vs f32 {loss}")
+    b = out["bf16_rel_l2"]
+    check(b["fused_bf16"] <= BF16_GRAD_RATIO * b["direct_bf16"],
+          f"bf16 meta-gradient from f32: fused {b['fused_bf16']}, cuDNN "
+          f"{b['direct_bf16']}")
+    print(f"second order, full width, {SO_TASKS} tasks: {out} [{gpu}]",
+          flush=True)
+    return out
+
+
+def vision_trainer_phase(torch, tc, gpu, tmp) -> dict:
+    """Phase 6, second part: the main path of slice 6,
+    ``VisionTrainer.run()`` at maml_omni for VISION_ITERATIONS iterations,
+    with the launch counters zeroed just before; per-iteration counts from
+    the counters at each logged row."""
+    import math
+    from exploring_meta_tpu_torch.models.cnn4 import init_cnn4, omniglot_spec
+    from exploring_meta_tpu_torch.trainers.vision import VisionTrainer
+    from exploring_meta_tpu_torch.utils.experiment import load_params
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves
+
+    marks = []
+
+    class CountingTrainer(VisionTrainer):
+        """Marks the counters and the clock at each logged row."""
+
+        def log_metrics(self, metrics):
+            torch.cuda.synchronize()
+            marks.append((time.perf_counter(), tc.launch_counts()))
+            super().log_metrics(metrics)
+
+    trainer = CountingTrainer(vision_config(num_iterations=VISION_ITERATIONS),
+                              path=tmp + "/")
+    torch.cuda.synchronize()
+    tc.reset_launch_counts()
+    marks.append((time.perf_counter(), tc.launch_counts()))
+    test_acc = trainer.run()
+    torch.cuda.synchronize()
+    launches = tc.launch_counts()
+    steps = [{"s": t1 - t0, **{k: c1[k] - c0[k] for k in c1}}
+             for (t0, c0), (t1, c1) in zip(marks, marks[1:])]
+    print(f"vision trainer launches: {launches}; per logged row: {steps}",
+          flush=True)
+    check(len(steps) == VISION_ITERATIONS + 1, "every iteration ran")
+    per_iter = {k: META_STEP_CALLS[k] + META_EVAL_CALLS[k]
+                for k in META_STEP_CALLS}
+    for i, st in enumerate(steps[:-1]):
+        check({k: st[k] for k in per_iter} == per_iter,
+              f"iteration {i}: kernel calls {st} == {per_iter}")
+    check({k: steps[-1][k] for k in per_iter} == META_EVAL_CALLS,
+          f"final meta-test: kernel calls {steps[-1]}")
+
+    run = trainer.model_path
+    with open(os.path.join(run, "metrics.json")) as f:
+        metrics = json.load(f)
+    for key in ("train_loss", "train_acc", "valid_loss", "valid_acc"):
+        vals = metrics.get(key, [])
+        check(len(vals) == VISION_ITERATIONS
+              and all(v is not None and math.isfinite(v) for v in vals),
+              f"metrics.json {key}: {vals}")
+    check(math.isfinite(test_acc) and metrics["test_acc"] == [test_acc],
+          "test_acc is finite and logged")
+    template = init_cnn4(torch.Generator().manual_seed(0),
+                         omniglot_spec(WAYS), device="cpu")
+    for name in ("model.npz", os.path.join("model_checkpoints",
+                                           "model_0.npz")):
+        tree = load_params(os.path.join(run, name), template)
+        check(all(bool(torch.isfinite(t).all()) for t in tree_leaves(tree)),
+              f"{name} loads into the template and is finite")
+    s_iter = sum(st["s"] for st in steps[1:-1]) / (len(steps) - 2)
+    print(f"MAML-CNN4 Omniglot 5w5s, meta-batch {META_BATCH}, bf16: {s_iter} "
+          f"s per iteration (valid eval + meta-step; iterations 2-"
+          f"{VISION_ITERATIONS}), metrics {metrics} [{gpu}]", flush=True)
+    return {"launches": launches, "per_row": steps, "s_per_iteration": s_iter,
+            "metrics": metrics, "test_acc": test_acc}
+
+
+def is_kernel(torch, e) -> bool:
+    """A device event of the profiler that is work, not the span of a
+    profiler range (RANGES, or one PyTorch records itself)."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
+            and e.name not in RANGES)
+
+
+def union_us(kernels) -> float:
+    """µs of the device timeline that the kernels cover: cuDNN runs some
+    f32 kernels concurrently, so their durations may overlap."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted((k.time_range.start, k.time_range.end)
+                       for k in kernels):
+        total += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return total
+
+
+def range_profile(torch, fn) -> dict:
+    """Run ``fn`` once under the profiler -> kernel-busy µs (summed, and
+    the timeline they cover), kernel launches, the top kernels, the
+    device µs of each of RANGES (the timeline covered by the kernels
+    inside the range's span on the device: the launches are ordered, so
+    the span holds its own kernels only; the kernels launched through
+    ctypes are not tied to the CPU-side range), and, as a check of that
+    attribution, the device µs of the kernels of ``csrc/cnn4_block.cu``
+    by name."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    spans = [e for e in events if e.device_type == cuda and e.name in RANGES]
+    kernels = [e for e in events if is_kernel(torch, e)]
+    in_span = {name: [] for name in RANGES}
+    for k in kernels:
+        for a in spans:
+            if a.time_range.start <= k.time_range.start < a.time_range.end:
+                in_span[a.name].append(k)
+                break
+    top = {}
+    for k in kernels:
+        us, n = top.get(k.name, (0.0, 0))
+        top[k.name] = (us + k.time_range.elapsed_us(), n + 1)
+    return {"busy_us": sum(k.time_range.elapsed_us() for k in kernels),
+            "busy_union_us": union_us(kernels),
+            "profiled_wall_us": 1e6 * wall, "kernel_launches": len(kernels),
+            "ranges_us": {n: union_us(ks) for n, ks in in_span.items()},
+            "cnn4_kernels_us": sum(us for name, (us, _) in top.items()
+                                   if any(k in name
+                                          for k in CNN4_KERNEL_NAMES)),
+            "top": sorted(((name[:60], us, n) for name, (us, n)
+                           in top.items()), key=lambda t: -t[1])[:12]}
+
+
+def vision_timing(torch, gpu) -> dict:
+    """Phase 6, last part: tasks/s of maml_omni's meta-step in f32 and
+    bf16, on the fused kernels and on the direct path (cuDNN), timed in
+    turns; then one meta-step of each fused configuration profiled."""
+    from exploring_meta_tpu_torch.adapt.maml import (
+        adam, cast_compute, make_meta_step, make_train_scan,
+    )
+    from exploring_meta_tpu_torch.adapt.vision import make_vision_fast_adapt
+    from exploring_meta_tpu_torch.models.cnn4 import init_cnn4, omniglot_spec
+    from exploring_meta_tpu_torch.models.layers import set_conv_impl
+    from exploring_meta_tpu_torch.tasks.datasets import get_dataset
+    from exploring_meta_tpu_torch.tasks.sampler import sample_task_batch
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+
+    cfg = vision_config()
+    spec = omniglot_spec(WAYS)
+    train, _, _ = get_dataset("omni", seed=SEED, synthetic=True,
+                              synth_classes=cfg.synth_classes,
+                              synth_per_class=cfg.synth_per_class,
+                              device="cuda")
+
+    def sample(gen):
+        return sample_task_batch(gen, train, WAYS, SHOTS, META_BATCH)
+
+    def fast_adapt(dname):
+        fa = make_vision_fast_adapt(spec, cfg.inner_lr, cfg.adapt_steps,
+                                    SHOTS, WAYS)
+        return fa if dname == "float32" else cast_compute(fa)
+
+    configs = [(impl, dname) for dname in ("float32", "bfloat16")
+               for impl in ("fused", "direct")]
+    state, out = {}, {}
+    try:
+        for impl, dname in configs:
+            set_conv_impl(impl)
+            params = tree_map(lambda t: t.requires_grad_(), init_cnn4(
+                torch.Generator(device="cuda").manual_seed(SEED), spec,
+                device="cuda"))
+            opt = adam(params, cfg.outer_lr)
+            gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+            fa = fast_adapt(dname)
+            params, opt, m = make_train_scan(fa, sample, WARM_STEPS)(
+                params, opt, gen)
+            check(bool(torch.isfinite(m["loss"]).all()), f"{impl} {dname} "
+                                                          "warm-up finite")
+            state[impl, dname] = (params, opt, gen,
+                                  make_train_scan(fa, sample, TIMED_STEPS))
+            out[f"{impl}_{dname}"] = {"tasks_per_s": []}
+        for _ in range(WINDOWS):
+            for impl, dname in configs:
+                set_conv_impl(impl)
+                params, opt, gen, timed = state[impl, dname]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, opt, m = timed(params, opt, gen)
+                last = float(m["loss"][-1])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                check(bool(torch.isfinite(m["loss"]).all()),
+                      f"{impl} {dname}: finite losses, last {last}")
+                state[impl, dname] = (params, opt, gen, timed)
+                out[f"{impl}_{dname}"]["tasks_per_s"].append(
+                    META_BATCH * TIMED_STEPS / dt)
+        for key, r in out.items():
+            r["best_tasks_per_s"] = max(r["tasks_per_s"])
+            r["ms_per_step"] = 1e3 * META_BATCH / r["best_tasks_per_s"]
+            print(f"maml_omni {key}: {r['best_tasks_per_s']} tasks/s (best "
+                  f"of {r['tasks_per_s']}), {r['ms_per_step']} ms per "
+                  f"meta-step [{gpu}]", flush=True)
+
+        # one meta-step of each fused configuration: wall (mean of 3,
+        # synced), then once under the profiler
+        batch = sample(torch.Generator(device="cuda").manual_seed(SEED + 7))
+        set_conv_impl("fused")
+        for dname in ("float32", "bfloat16"):
+            params, opt, _, _ = state["fused", dname]
+            step = make_meta_step(fast_adapt(dname))
+            step(params, opt, *batch)
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                step(params, opt, *batch)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            prof = range_profile(torch, lambda: step(params, opt, *batch))
+            prof["wall_us"] = 1e6 * sum(walls) / len(walls)
+            # idle: the device time the kernels cover (profiled) against
+            # an unprofiled step's wall; the profiler slows the host
+            prof["idle_share"] = 1 - prof["busy_union_us"] / prof["wall_us"]
+            prof["rest_us"] = (prof["busy_union_us"]
+                               - sum(prof["ranges_us"].values()))
+            out[f"profile_fused_{dname}"] = prof
+            print(f"meta-step profile, fused {dname}: {prof['wall_us']} us "
+                  f"wall, profiled {prof['profiled_wall_us']} us wall with "
+                  f"kernels busy {prof['busy_us']} us (union "
+                  f"{prof['busy_union_us']} us, idle "
+                  f"{100 * prof['idle_share']:.1f} %), "
+                  f"{prof['kernel_launches']} kernel launches; device us by "
+                  f"range {prof['ranges_us']}, rest {prof['rest_us']}; the "
+                  f"CNN4 kernels by name {prof['cnn4_kernels_us']} us "
+                  f"[{gpu}]", flush=True)
+            for key, us, count in prof["top"]:
+                print(f"  {us:12.1f} us  x{count:5d}  {key}")
+    finally:
+        set_conv_impl("fused")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -866,12 +1374,18 @@ def main() -> int:
         trpo = trpo_phase(torch, gc, tc, gpu, tmp)
         outer = outer_step_phase(torch, trpo.pop("params"), gpu)
     prof = trpo_profile(torch, gpu)
+    second_order = vision_second_order(torch, tc, gpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        vision = vision_trainer_phase(torch, tc, gpu, tmp)
+    vision_times = vision_timing(torch, gpu)
 
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump({"gpu": gpu, "build_s": build_s, "ptxas": ptxas,
                    "kernels": {**res, **sweeps}, "serve": served,
-                   "trpo": trpo, "outer_step": outer, "trpo_profile": prof},
+                   "trpo": trpo, "outer_step": outer, "trpo_profile": prof,
+                   "vision_second_order": second_order,
+                   "vision_trainer": vision, "vision_timing": vision_times},
                   f, indent=1)
 
     replaces = {
@@ -882,6 +1396,10 @@ def main() -> int:
         "discount_sweep": "exploring_meta_tpu/pallas/gae_pallas.py:62",
     }
     launches = {**served["launches"], **trpo["launches"]}
+    # the CNN4 kernels run on two main paths: one served batch and the
+    # vision trainer's run
+    for name, n in vision["launches"].items():
+        launches[name] += n
     kernels = []
     for name, r in {**res, **sweeps}.items():
         source = "gae.cu" if name in sweeps else "cnn4_block.cu"

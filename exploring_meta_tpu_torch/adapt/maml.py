@@ -1,15 +1,24 @@
-"""Functional inner SGD (port of ``inner_sgd`` and ``tree_where`` from
+"""MAML/ANIL engine: functional inner loop and the meta-step (port of
 ``exploring_meta_tpu/adapt/maml.py``).
 
-For a batch of tasks the caller passes params with a leading ``[B]`` axis
-and a loss that sums the per-task mean losses: the gradient of that sum
+For a batch of tasks the task axis is written out where JAX used
+``vmap``: a task batch is ``[B, ...]``, params shared by the tasks are
+expanded to per-task ``[B, ...]`` copies (:func:`per_task`), and the inner
+loss is the sum of the per-task mean losses. The gradient of that sum
 with respect to task b's params is the gradient of task b's own loss, so
-each task adapts on its own support set only.
+each task adapts on its own support set only; autograd sums the per-task
+meta-gradients back into the shared leaves.
+
+A ``fast_adapt(params, *task_batch) -> TaskResult`` takes the shared
+params and a task batch and returns per-task ``[B]`` query losses and
+metrics. :func:`make_meta_step` differentiates their mean and takes an
+Adam step (:func:`adam`, ``torch.optim.Adam`` with ``optax.adam``'s
+defaults).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -25,6 +34,12 @@ def tree_where(mask, a, b):
         mask, a, b)
 
 
+def per_task(params, B: int):
+    """Shared params -> ``[B, ...]`` copies, one per task (or request)."""
+    return tree_map(lambda t: t.unsqueeze(0).expand((B,) + tuple(t.shape))
+                    .contiguous(), params)
+
+
 def inner_sgd(loss_fn: Callable, params, batch, inner_lr: float,
               adapt_steps: int, first_order: bool = False, trainable=None):
     """K steps of SGD on ``loss_fn(params, batch)`` (a scalar); returns the
@@ -32,10 +47,13 @@ def inner_sgd(loss_fn: Callable, params, batch, inner_lr: float,
 
     ``first_order=True`` takes the inner gradients without a graph
     (``create_graph=False``), the l2l ``first_order`` flag; otherwise the
-    result stays differentiable to second order. Leaves that do not
-    require grad are made leaves that do, so a serving caller may pass
+    result stays differentiable to second order. Under ``torch.no_grad()``
+    nothing can differentiate the result, so the gradients are taken
+    without a graph too: the adapted values are the same. Leaves that do
+    not require grad are made leaves that do, so a serving caller may pass
     plain tensors. ``trainable`` is an optional tree of bools matching
     ``params``: leaves marked False are frozen."""
+    create_graph = not first_order and torch.is_grad_enabled()
     for _ in range(adapt_steps):
         params = tree_map(
             lambda v: v if v.requires_grad else v.detach().requires_grad_(),
@@ -44,7 +62,7 @@ def inner_sgd(loss_fn: Callable, params, batch, inner_lr: float,
         with torch.enable_grad():
             grads = torch.autograd.grad(
                 loss_fn(params, batch), leaves,
-                create_graph=not first_order, allow_unused=True)
+                create_graph=create_graph, allow_unused=True)
         grads = tree_unflatten(params, [
             torch.zeros_like(v) if g is None else g
             for v, g in zip(leaves, grads)])
@@ -53,3 +71,141 @@ def inner_sgd(loss_fn: Callable, params, batch, inner_lr: float,
                                tree_map(torch.zeros_like, grads))
         params = tree_map(lambda p, g: p - inner_lr * g, params, grads)
     return params
+
+
+class TaskResult(NamedTuple):
+    loss: torch.Tensor    # [B] query losses, differentiable
+    metric: torch.Tensor  # [B] accuracy (vision) or reward (RL)
+
+
+def make_fast_adapt(loss_and_metric: Callable, inner_lr: float,
+                    adapt_steps: int, first_order: bool = False,
+                    trainable=None):
+    """Build ``fast_adapt`` (reference ``core_functions/vision.py:6-18``):
+    adapt on the support set, evaluate on the query set.
+
+    ``loss_and_metric(params, batch) -> (loss [B], metric [B])`` on a task
+    batch. Returns ``fast_adapt(params, support, query) -> TaskResult``,
+    where ``params`` are per task (``[B, ...]``, :func:`per_task`)."""
+    def support_loss(p, b):
+        return loss_and_metric(p, b)[0].sum()
+
+    def fast_adapt(params, support, query) -> TaskResult:
+        adapted = inner_sgd(support_loss, params, support, inner_lr,
+                            adapt_steps, first_order=first_order,
+                            trainable=trainable)
+        loss, metric = loss_and_metric(adapted, query)
+        return TaskResult(loss=loss, metric=metric)
+
+    return fast_adapt
+
+
+def cast_compute(fast_adapt: Callable, dtype=torch.bfloat16):
+    """Mixed precision: run the whole per-task graph (inner loops and the
+    second-order backward) in ``dtype`` while the params and the optimizer
+    state stay float32 master copies.
+
+    The cast happens inside the differentiated function, so autograd
+    carries the meta-gradients back to the float32 leaves. The returned
+    TaskResult is cast back to float32."""
+
+    def cast(tree):
+        return tree_map(lambda x: x.to(dtype)
+                        if torch.is_floating_point(x) else x, tree)
+
+    def fa(params, *batch) -> TaskResult:
+        res = fast_adapt(cast(params), *cast(list(batch)))
+        return TaskResult(loss=res.loss.float(), metric=res.metric.float())
+
+    return fa
+
+
+def adam(params, lr: float) -> torch.optim.Adam:
+    """The outer optimizer: ``torch.optim.Adam`` over the tree's leaves
+    with ``optax.adam``'s defaults (b1 0.9, b2 0.999, eps 1e-8 added
+    outside the square root, as torch does). It is the opt state that
+    :func:`make_meta_step` carries; the leaves must be leaf tensors that
+    require grad, and each step updates them in place."""
+    leaves = tree_leaves(params)
+    if not all(t.is_leaf and t.requires_grad for t in leaves):
+        raise ValueError("adam: every param must be a leaf tensor that "
+                         "requires grad")
+    return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def _batch_loss(fast_adapt, params, task_batch):
+    res = fast_adapt(params, *task_batch)
+    return res.loss.mean(), res.metric.mean()
+
+
+def make_meta_step(fast_adapt: Callable):
+    """Build the outer step: ``meta_step(params, opt, *task_batch) ->
+    (params, opt, {"loss", "metric"})``.
+
+    The mean query loss over the task batch (the reference's grad
+    accumulation and ``p.grad.mul_(1/B)``, ``vision/maml_vision.py:139-
+    141``) is differentiated through everything and ``opt`` (from
+    :func:`adam`) steps the params in place; the returned metrics are
+    detached scalars on the device (no host sync)."""
+
+    def meta_step(params, opt, *task_batch):
+        leaves = tree_leaves(params)
+        loss, metric = _batch_loss(fast_adapt, params, task_batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        for p, g in zip(leaves, grads):
+            p.grad = torch.zeros_like(p) if g is None else g
+        opt.step()
+        return params, opt, {"loss": loss.detach(), "metric": metric.detach()}
+
+    return meta_step
+
+
+def make_meta_eval(fast_adapt: Callable):
+    """Meta-evaluation over a task batch, no outer update (reference
+    ``core_functions/vision.py:26-42``): ``meta_eval(params, *task_batch)
+    -> {"loss", "metric"}``.
+
+    It runs ``fast_adapt`` under ``torch.no_grad()``: the inner loop then
+    adapts first order (:func:`inner_sgd`) and the query pass builds no
+    graph. The adapted params, and so the loss and metric, are the same as
+    with a second-order graph, which nothing here would differentiate."""
+
+    def meta_eval(params, *task_batch):
+        with torch.no_grad():
+            loss, metric = _batch_loss(fast_adapt, params, task_batch)
+        return {"loss": loss, "metric": metric}
+
+    return meta_eval
+
+
+def make_train_scan(fast_adapt: Callable, sample_fn: Callable, n_steps: int,
+                    eval_sample_fn: Callable | None = None):
+    """``n_steps`` whole meta-iterations in one call, as an eager loop (the
+    port of the JAX ``lax.scan``; no host sync inside).
+
+    ``sample_fn(gen) -> task_batch`` draws each step's training batch;
+    ``eval_sample_fn(gen)``, if given, a validation batch, which is
+    meta-evaluated on the step's pre-update params (the reference's valid
+    pass runs before ``opt.step()``, ``vision/maml_vision.py:117-141``) and
+    adds ``valid_loss`` / ``valid_metric``.
+
+    Returns ``train(params, opt, gen) -> (params, opt, metrics)`` with each
+    metric stacked ``[n_steps]``."""
+    meta_step = make_meta_step(fast_adapt)
+    meta_eval = make_meta_eval(fast_adapt)
+
+    def train(params, opt, gen):
+        rows = []
+        for _ in range(n_steps):
+            batch = sample_fn(gen)
+            row = {}
+            if eval_sample_fn is not None:
+                valid = meta_eval(params, *eval_sample_fn(gen))
+                row = {"valid_loss": valid["loss"],
+                       "valid_metric": valid["metric"]}
+            params, opt, out = meta_step(params, opt, *batch)
+            rows.append({**out, **row})
+        return params, opt, {k: torch.stack([r[k] for r in rows])
+                             for k in rows[0]}
+
+    return train

@@ -1,8 +1,10 @@
 """Console entry points of the port (counterparts of
 ``exploring_meta_tpu/cli.py``; the flag surface is the JAX package's).
 
+    python -m exploring_meta_tpu_torch.cli maml_vision --num_iterations 3
+    python -m exploring_meta_tpu_torch.cli anil_vision --dataset min ...
     python -m exploring_meta_tpu_torch.cli maml_trpo --num_iterations 3
-    EMT_FORCE_CPU=1 python -m exploring_meta_tpu_torch.cli maml_trpo ...
+    EMT_FORCE_CPU=1 python -m exploring_meta_tpu_torch.cli maml_vision ...
 
 Runs go to the card unless ``EMT_FORCE_CPU=1`` asks for the CPU.
 """
@@ -10,6 +12,19 @@ Runs go to the card unless ``EMT_FORCE_CPU=1`` asks for the CPU.
 from __future__ import annotations
 
 import sys
+
+
+def _vision_main(anil: bool, description: str, argv=None) -> float:
+    from exploring_meta_tpu_torch.trainers.vision import VisionTrainer
+    from exploring_meta_tpu_torch.utils.config import (
+        VisionConfig, anil_vision_defaults, requested_device,
+        vision_argparser,
+    )
+
+    defaults = anil_vision_defaults() if anil else VisionConfig()
+    args = vision_argparser(defaults, description).parse_args(argv)
+    return VisionTrainer(VisionConfig(**vars(args)), anil=anil,
+                         device=requested_device()).run()
 
 
 def _rl_main(algo: str, anil: bool, description: str, argv=None) -> dict:
@@ -24,13 +39,26 @@ def _rl_main(algo: str, anil: bool, description: str, argv=None) -> dict:
                      device=requested_device()).run()
 
 
+def maml_vision(argv=None) -> float:
+    """MAML few-shot vision meta-training (``emt-maml-vision``)."""
+    return _vision_main(False, "MAML on Vision", argv)
+
+
+def anil_vision(argv=None) -> float:
+    """ANIL few-shot vision meta-training (``emt-anil-vision``)."""
+    return _vision_main(True, "ANIL on Vision", argv)
+
+
 def maml_trpo(argv=None) -> dict:
     """MAML-TRPO meta-training (``emt-maml-trpo``)."""
     return _rl_main("trpo", False, "MAML-TRPO on Meta-RL", argv)
 
 
+COMMANDS = {"maml_vision": maml_vision, "anil_vision": anil_vision,
+            "maml_trpo": maml_trpo}
+
 if __name__ == "__main__":
-    if sys.argv[1:2] != ["maml_trpo"]:
-        sys.exit("usage: python -m exploring_meta_tpu_torch.cli maml_trpo "
-                 "[flags]")
-    maml_trpo(sys.argv[2:])
+    if len(sys.argv) < 2 or sys.argv[1] not in COMMANDS:
+        sys.exit("usage: python -m exploring_meta_tpu_torch.cli "
+                 "{maml_vision,anil_vision,maml_trpo} [flags]")
+    COMMANDS[sys.argv[1]](sys.argv[2:])

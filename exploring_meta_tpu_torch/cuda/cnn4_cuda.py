@@ -24,7 +24,9 @@ float32, outputs in that dtype).
 Each wrapper (:func:`block_fwd`, :func:`block_bwd_params`,
 :func:`block_bwd_input`) runs the plain PyTorch twin for CPU tensors and
 launches its kernel for CUDA tensors; there is no other path. Each counts
-the calls that launch its kernels in ``<wrapper>.launches``.
+the calls that launch its kernels in ``<wrapper>.launches`` and launches
+them inside a profiler range of the kernel's name, so that a trace
+attributes their device time to it.
 
 Beside the twins stand plain versions of the kernels' decompositions
 (:func:`tile_stats_plain`, :func:`combine_tile_stats_plain`,
@@ -359,7 +361,7 @@ def block_fwd(x, w, b, scale, bias) -> torch.Tensor:
                       device=x.device)
     ws = torch.empty(fwd_workspace_floats(B, N, H, W, co, x.dtype),
                      dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), torch.profiler.record_function("cnn4_block_fwd"):
         err = _load().cnn4_block_fwd(
             _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
             scale.data_ptr(), bias.data_ptr(), out.data_ptr(), ws.data_ptr(),
@@ -383,7 +385,7 @@ def block_bwd_params(x, w, b, scale, bias, g):
     dw, db, ds, dbe = (torch.empty_like(t) for t in (w, b, scale, bias))
     ws = torch.empty(bwd_params_workspace_floats(B, N, H, W, ci, co),
                      dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
+    with torch.cuda.device(x.device), torch.profiler.record_function("cnn4_block_bwd_params"):
         err = _load().cnn4_block_bwd_params(
             _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
             scale.data_ptr(), bias.data_ptr(), g.data_ptr(), dy.data_ptr(),
@@ -410,7 +412,7 @@ def block_bwd_input(dy, w, h: int, wd: int) -> torch.Tensor:
                          f"{dy.dtype}, w {tuple(w.shape)} {w.dtype} and "
                          f"input {h}x{wd} do not fit")
     dx = torch.empty(B, N, h, wd, ci, dtype=w.dtype, device=dy.device)
-    with torch.cuda.device(dy.device):
+    with torch.cuda.device(dy.device), torch.profiler.record_function("cnn4_block_bwd_input"):
         err = _load().cnn4_block_bwd_input(
             _DTYPES[w.dtype], dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
             B, N, h, wd, ci, co, _stream(dy))
@@ -441,12 +443,34 @@ def reset_launch_counts() -> None:
 # autograd
 # ---------------------------------------------------------------------------
 
-class FusedBlock(torch.autograd.Function):
-    """One fused block; first-order backward on the two bwd kernels.
+def _kernel_grads(need_dx: bool, x, w, b, scale, bias, g):
+    """The block's backward on the two bwd kernels -> (dx or None, dw, db,
+    dscale, dbias); dx only where ``need_dx``."""
+    dy, dw, db, ds, dbe = block_bwd_params(x, w, b, scale, bias,
+                                           g.contiguous())
+    dx = block_bwd_input(dy, w, x.shape[2], x.shape[3]) if need_dx else None
+    return dx, dw, db, ds, dbe
 
-    A second-order backward (``create_graph=True``) is not implemented
-    and raises: MAML meta-training needs it and brings it with the
-    meta-training port."""
+
+def _reference_block(x, w, b, scale, bias) -> torch.Tensor:
+    """The block in the port's per-op layers (grouped conv stride 2, pad 1
+    -> batch-stat BN -> ReLU, per task): the formulation the double
+    backward differentiates, as ``_pure_base`` is in JAX."""
+    from exploring_meta_tpu_torch.models.layers import (
+        _conv_nhwc, batch_norm, relu,
+    )
+    y = _conv_nhwc(x, w, 2, 1) + b[:, None, None, None, :]
+    return relu(batch_norm({"scale": scale, "bias": bias}, y, eps=EPS))
+
+
+class FusedBlock(torch.autograd.Function):
+    """One fused block: forward on ``cnn4_block_fwd``, backward on
+    ``cnn4_block_bwd_params`` and ``cnn4_block_bwd_input``.
+
+    Under ``create_graph=True`` (second-order MAML) the backward is
+    :class:`FusedBlockBackward`, whose own forward is the same kernel
+    backward and whose backward is plain PyTorch; otherwise the backward is
+    first order."""
 
     @staticmethod
     def forward(ctx, x, w, b, scale, bias):
@@ -456,21 +480,60 @@ class FusedBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         if torch.is_grad_enabled():
-            raise RuntimeError(
-                "the fused CNN4 block has a first-order backward only; "
-                "create_graph=True (second-order MAML) needs "
-                "set_conv_impl('direct')")
+            return FusedBlockBackward.apply(ctx.needs_input_grad[0],
+                                            *ctx.saved_tensors, g)
         return FusedBlock._backward(ctx, g)
 
     @staticmethod
     @once_differentiable
     def _backward(ctx, g):
-        x, w, b, scale, bias = ctx.saved_tensors
-        dy, dw, db, ds, dbe = block_bwd_params(x, w, b, scale, bias,
-                                               g.contiguous())
-        dx = (block_bwd_input(dy, w, x.shape[2], x.shape[3])
-              if ctx.needs_input_grad[0] else None)
-        return dx, dw, db, ds, dbe
+        return _kernel_grads(ctx.needs_input_grad[0], *ctx.saved_tensors, g)
+
+
+class FusedBlockBackward(torch.autograd.Function):
+    """The fused block's backward as a differentiable op (the port of
+    ``_bwd_op`` and its tangent ``_bwd_op_jvp``, ``cnn4_pallas.py:538-548``).
+
+    Forward: the primal backward on the kernels, ``(x, w, b, scale, bias,
+    g) -> (dx, dw, db, dscale, dbias)`` (dx is None unless ``need_dx``).
+    Backward: the VJP of that map, taken by plain autograd through the
+    per-op reference formulation (:func:`_reference_block`): its first
+    derivative rebuilt with ``create_graph=True``, then differentiated
+    against the incoming cotangents. It is once differentiable.
+
+    JAX also needs a forward tangent (``_fwd_op_jvp``) because its outer
+    ``grad`` linearises the whole staged graph, the kernel forward
+    included. Reverse over reverse in PyTorch does not: the outer pass
+    differentiates the forward through :meth:`FusedBlock.backward` itself,
+    which runs on the kernels, so no counterpart is written."""
+
+    @staticmethod
+    def forward(ctx, need_dx, x, w, b, scale, bias, g):
+        ctx.need_dx = need_dx
+        ctx.save_for_backward(x, w, b, scale, bias, g)
+        return _kernel_grads(need_dx, x, w, b, scale, bias, g)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, *cotangents):
+        need = ctx.needs_input_grad[1:]
+        ins = [t.detach() for t in ctx.saved_tensors]
+        # x needs a graph where the forward returned dx; the params always
+        # (the first derivative is taken wrt them); g where asked for
+        for t, on in zip(ins, (ctx.need_dx, True, True, True, True, need[5])):
+            t.requires_grad_(on)
+        first_wrt, cots = ((ins[:5], cotangents) if ctx.need_dx
+                           else (ins[1:5], cotangents[1:]))
+        targets = [t for t, n in zip(ins, need) if n]
+        with torch.enable_grad(), \
+                torch.profiler.record_function("cnn4_block_double_backward"):
+            first = torch.autograd.grad(_reference_block(*ins[:5]),
+                                        first_wrt, ins[5], create_graph=True)
+            pairs = [(f, c) for f, c in zip(first, cots) if c is not None]
+            grads = iter(torch.autograd.grad(
+                [f for f, _ in pairs], targets, [c for _, c in pairs],
+                allow_unused=True) if pairs and targets else ())
+        return (None, *(next(grads, None) if n else None for n in need))
 
 
 def _per_task(p: torch.Tensor, B: int, shared_ndim: int) -> torch.Tensor:

@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from exploring_meta_tpu_torch.device import resolve_device
 from exploring_meta_tpu_torch.models import init as pinit
@@ -103,10 +104,16 @@ def conv_block_apply(p: dict, x: torch.Tensor, max_pool: bool) -> torch.Tensor:
 
 
 def base_apply(base: list, x: torch.Tensor, max_pool: bool,
-               n_blocks: int | None = None) -> torch.Tensor:
-    """The first ``n_blocks`` conv blocks (all by default), per-op path."""
+               n_blocks: int | None = None,
+               remat: bool = False) -> torch.Tensor:
+    """The first ``n_blocks`` conv blocks (all by default), per-op path.
+
+    ``remat=True`` checkpoints each block (``torch.utils.checkpoint``): the
+    backward recomputes a block's internals from its input instead of
+    keeping them, trading FLOPs for memory."""
     for p in (base if n_blocks is None else base[:n_blocks]):
-        x = conv_block_apply(p, x, max_pool)
+        x = (checkpoint(conv_block_apply, p, x, max_pool, use_reentrant=False)
+             if remat else conv_block_apply(p, x, max_pool))
     return x
 
 
@@ -118,12 +125,15 @@ def uses_fused_base(spec: CNN4Spec) -> bool:
             and not spec.max_pool and spec.layers == 4)
 
 
-def cnn4_features(params: dict, spec: CNN4Spec, x: torch.Tensor) -> torch.Tensor:
-    """Base output flattened to the head input: ``[..., N, head_in]``."""
+def cnn4_features(params: dict, spec: CNN4Spec, x: torch.Tensor,
+                  remat: bool = False) -> torch.Tensor:
+    """Base output flattened to the head input: ``[..., N, head_in]``.
+    ``remat`` checkpoints the per-op blocks (:func:`base_apply`); the fused
+    base keeps nothing inside a block and ignores it, as in JAX."""
     if uses_fused_base(spec):
         from exploring_meta_tpu_torch.cuda.cnn4_cuda import fused_omni_base
         return fused_omni_base(params["base"], x)
-    x = base_apply(params["base"], x, spec.max_pool)
+    x = base_apply(params["base"], x, spec.max_pool, remat=remat)
     if spec.global_pool:
         return x.mean(dim=(-3, -2))
     return x.reshape(x.shape[:-3] + (-1,))

@@ -19,19 +19,13 @@ from __future__ import annotations
 
 import torch
 
-from exploring_meta_tpu_torch.adapt.maml import inner_sgd
+from exploring_meta_tpu_torch.adapt.maml import inner_sgd, per_task
 from exploring_meta_tpu_torch.device import resolve_device
 from exploring_meta_tpu_torch.models.cnn4 import (
     CNN4Spec, cnn4_apply, cnn4_features, cnn4_head_apply, init_cnn4,
 )
 from exploring_meta_tpu_torch.ops.losses import cross_entropy
 from exploring_meta_tpu_torch.utils.tree import tree_map
-
-
-def _per_request(params, B: int):
-    """Shared params -> ``[B, ...]`` copies, one per request."""
-    return tree_map(lambda t: t.unsqueeze(0).expand((B,) + tuple(t.shape))
-                    .contiguous(), params)
 
 
 class VisionServer:
@@ -94,7 +88,7 @@ class VisionServer:
                 return cross_entropy(cnn4_head_apply({"head": head}, f),
                                      y).sum()
 
-            head = inner_sgd(head_loss, _per_request(p["head"], B), (f_s, sy),
+            head = inner_sgd(head_loss, per_task(p["head"], B), (f_s, sy),
                              self.inner_lr, self.adapt_steps, first_order=True)
             with torch.no_grad():
                 logits = cnn4_head_apply({"head": head}, f_q)
@@ -103,7 +97,7 @@ class VisionServer:
                 x, y = batch
                 return cross_entropy(cnn4_apply(pp, spec, x), y).sum()
 
-            adapted = inner_sgd(loss, _per_request(p, B), (sx, sy),
+            adapted = inner_sgd(loss, per_task(p, B), (sx, sy),
                                 self.inner_lr, self.adapt_steps,
                                 first_order=True)
             with torch.no_grad():

@@ -1,12 +1,12 @@
 """Packed few-shot datasets on the device (port of
-``exploring_meta_tpu/tasks/datasets.py``, Omniglot part).
+``exploring_meta_tpu/tasks/datasets.py``).
 
 A split is one uint8 tensor ``[n_classes, n_per_class, H, W, C]`` on the
-device. Real Omniglot is read from a packed ``omniglot.npz`` when one is
-present (``scripts/pack_datasets.py`` writes it; nothing is downloaded);
-otherwise a deterministic synthetic dataset of the same shape is made by
-the same numpy code as the JAX package, so both packages see the same
-bytes for the same seed.
+device. Real Omniglot and Mini-ImageNet are read from packed ``.npz``
+files when present (``scripts/pack_datasets.py`` writes them; nothing is
+downloaded); otherwise a deterministic synthetic dataset of the same
+shape is made by the same numpy code as the JAX package, so both
+packages see the same bytes for the same seed.
 """
 
 from __future__ import annotations
@@ -67,22 +67,31 @@ def _load_packed(path: str) -> np.ndarray | None:
     return None
 
 
-def load_omniglot(seed: int = 42, synthetic: bool | None = None,
-                  synthetic_classes: int = 160, synthetic_per_class: int = 20,
-                  device=None):
-    """-> (train, valid, test) PackedDatasets with the 1100/100/423
-    shuffled-class split (scaled proportionally when synthetic).
-
-    ``synthetic``: True -> synthetic; None -> the packed file if present,
-    else synthetic; False -> the packed file is required."""
-    dev = resolve_device(device)
-    path = os.path.join(DATA_DIR, "omniglot.npz")
-    packed = None if synthetic else _load_packed(path)
+def _resolve_packed(synthetic: bool | None, path: str) -> np.ndarray | None:
+    """``synthetic``: True -> None (synthetic); None -> the packed file if
+    present, else None; False -> the packed file is required."""
+    if synthetic:
+        return None
+    packed = _load_packed(path)
     if packed is None and synthetic is False:
         raise FileNotFoundError(
             f"synthetic=False but no packed dataset at {path}; run "
             "scripts/pack_datasets.py (or pass synthetic=None to allow the "
             "synthetic fallback)")
+    return packed
+
+
+def _on(dev, packed: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(packed)).to(dev)
+
+
+def load_omniglot(seed: int = 42, synthetic: bool | None = None,
+                  synthetic_classes: int = 160, synthetic_per_class: int = 20,
+                  device=None):
+    """-> (train, valid, test) PackedDatasets with the 1100/100/423
+    shuffled-class split (scaled proportionally when synthetic)."""
+    dev = resolve_device(device)
+    packed = _resolve_packed(synthetic, os.path.join(DATA_DIR, "omniglot.npz"))
     if packed is None:
         n = synthetic_classes
         packed = _synthetic_classes(seed, n, synthetic_per_class, 28, 28, 1)
@@ -97,9 +106,61 @@ def load_omniglot(seed: int = 42, synthetic: bool | None = None,
     order = np.random.default_rng(seed).permutation(packed.shape[0])
 
     def mk(cls_ids):
-        return PackedDataset(
-            images=torch.from_numpy(np.ascontiguousarray(packed[cls_ids])).to(dev),
-            name="omni", invert=True, rotations=True)
+        return PackedDataset(images=_on(dev, packed[cls_ids]), name="omni",
+                             invert=True, rotations=True)
 
     return (mk(order[:splits[0]]), mk(order[splits[0]:splits[1]]),
             mk(order[splits[1]:]))
+
+
+def load_mini_imagenet(seed: int = 42, synthetic: bool | None = None,
+                       synthetic_per_class: int = 64, device=None):
+    """-> (train, valid, test) PackedDatasets; the 64/16/20 class splits
+    are fixed by the dataset, not reshuffled. The three splits resolve
+    together: a partial pack raises rather than mixing real and synthetic
+    splits."""
+    dev = resolve_device(device)
+    sizes = {"train": 64, "validation": 16, "test": 20}
+    paths = {m: os.path.join(DATA_DIR, f"mini_imagenet_{m}.npz")
+             for m in sizes}
+    if synthetic is not True:
+        present = {m: os.path.exists(p) for m, p in paths.items()}
+        if any(present.values()) and not all(present.values()):
+            missing = [paths[m] for m, ok in present.items() if not ok]
+            raise ValueError(
+                f"partially packed mini-ImageNet: missing {missing}; re-run "
+                "scripts/pack_datasets.py for every split, or use "
+                "synthetic=True")
+    out = []
+    for i, (mode, n_cls) in enumerate(sizes.items()):
+        packed = _resolve_packed(synthetic, paths[mode])
+        if packed is None:
+            packed = _synthetic_classes(seed + i, n_cls, synthetic_per_class,
+                                        84, 84, 3)
+        out.append(PackedDataset(images=_on(dev, packed), name="min",
+                                 invert=False, rotations=False))
+    return tuple(out)
+
+
+def get_dataset(name: str, seed: int = 42, synthetic: bool | None = None,
+                synth_classes: int = 0, synth_per_class: int = 0,
+                device=None):
+    """Name-routed factory: ``omni`` | ``min`` (and their long names).
+
+    ``synth_classes`` / ``synth_per_class`` (0: the small defaults) size
+    the synthetic fallback; the real shapes are ``omni`` 1623 classes x 20
+    and ``min`` 64/16/20 classes x 600."""
+    kw = {"synthetic_per_class": synth_per_class} if synth_per_class else {}
+    if name in ("omni", "omniglot"):
+        if synth_classes:
+            kw["synthetic_classes"] = synth_classes
+        return load_omniglot(seed=seed, synthetic=synthetic, device=device,
+                             **kw)
+    if name in ("min", "mini-imagenet", "mini_imagenet"):
+        if synth_classes:
+            raise ValueError("mini-ImageNet class counts are fixed by the "
+                             "dataset (64/16/20); only synth_per_class is "
+                             "tunable (real shape: 600)")
+        return load_mini_imagenet(seed=seed, synthetic=synthetic,
+                                  device=device, **kw)
+    raise ValueError(f"unknown dataset {name!r}")

@@ -65,11 +65,12 @@ def sample_task_batch(gen: torch.Generator, dataset: PackedDataset,
 
 def split_support_query(data: torch.Tensor, labels: torch.Tensor,
                         shots: int, ways: int):
-    """Even/odd interleave split along the example axis (``[N, ...]`` or
-    ``[B, N, ...]`` images with ``[N]`` or ``[B, N]`` labels): even indices
-    are the support set, odd ones the query set."""
+    """Even/odd interleave split along the example axis, the last axis of
+    the labels (``[N]`` or ``[B, N]``; data ``[N, ...]`` or ``[B, N, ...]``,
+    images or features): even indices are the support set, odd ones the
+    query set."""
     idx = torch.arange(shots * ways, device=data.device) * 2
-    ax, lax = data.ndim - 4, labels.ndim - 1
-    support = (data.index_select(ax, idx), labels.index_select(lax, idx))
-    query = (data.index_select(ax, idx + 1), labels.index_select(lax, idx + 1))
+    ax = labels.ndim - 1
+    support = (data.index_select(ax, idx), labels.index_select(ax, idx))
+    query = (data.index_select(ax, idx + 1), labels.index_select(ax, idx + 1))
     return support, query

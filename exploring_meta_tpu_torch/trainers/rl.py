@@ -27,12 +27,12 @@ from exploring_meta_tpu_torch.rl.rollout import make_rollout
 from exploring_meta_tpu_torch.rl.trpo_meta import (
     TRPOConfig, make_trpo_meta_step,
 )
-from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+from exploring_meta_tpu_torch.utils.config import (
+    RLScriptConfig, raise_unported,
+)
 from exploring_meta_tpu_torch.utils.experiment import (
     DivergenceError, Experiment,
 )
-
-_LATER = "is not ported yet (ROADMAP Queue 1, later slices: {})"
 
 
 def _check_ported(cfg: RLScriptConfig, algo: str, anil: bool) -> None:
@@ -53,9 +53,7 @@ def _check_ported(cfg: RLScriptConfig, algo: str, anil: bool) -> None:
         (bool(cfg.trace), "trace", "run utilities"),
         (bool(cfg.compile_cache), "compile_cache", "run utilities"),
     ]
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(f"RLTrainer: {what} " + _LATER.format(item))
+    raise_unported("RLTrainer", unported)
 
 
 class RLTrainer(Experiment):

@@ -1,0 +1,142 @@
+"""MAML/ANIL few-shot vision trainer (port of
+``exploring_meta_tpu/trainers/vision.py``; reference
+``vision/maml_vision.py`` / ``vision/anil_vision.py``).
+
+Each iteration samples a training and a validation meta-batch,
+meta-evaluates the validation batch on the pre-update params, then takes
+one second-order meta-step (Adam) on the training batch, and logs
+``train_loss``, ``train_acc``, ``valid_loss`` and ``valid_acc``. After the
+last iteration (or a KeyboardInterrupt, or a diverged loss) it saves the
+model and meta-tests it on the test split. On the Omniglot spec under
+``conv_impl="fused"`` (the default) the base runs on the fused CNN4 CUDA
+kernels, forward and backward, under a backward that is itself
+differentiable (``cuda/cnn4_cuda.py:FusedBlockBackward``).
+
+Every option the JAX trainer has and the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from exploring_meta_tpu_torch.adapt.maml import (
+    adam, cast_compute, make_meta_eval, make_meta_step,
+)
+from exploring_meta_tpu_torch.adapt.vision import make_vision_fast_adapt
+from exploring_meta_tpu_torch.device import resolve_device
+from exploring_meta_tpu_torch.models import cnn4
+from exploring_meta_tpu_torch.models.layers import set_conv_impl
+from exploring_meta_tpu_torch.tasks.datasets import get_dataset
+from exploring_meta_tpu_torch.tasks.sampler import sample_task_batch
+from exploring_meta_tpu_torch.utils.config import (
+    CONV_IMPLS, VisionConfig, raise_unported,
+)
+from exploring_meta_tpu_torch.utils.experiment import (
+    DivergenceError, Experiment,
+)
+from exploring_meta_tpu_torch.utils.tree import tree_map
+
+
+def _build_spec(cfg: VisionConfig, anil: bool) -> cnn4.CNN4Spec:
+    if cfg.dataset == "omni":
+        return (cnn4.anil_omniglot_spec(cfg.ways) if anil
+                else cnn4.omniglot_spec(cfg.ways))
+    if cfg.dataset == "min":
+        return (cnn4.anil_mini_imagenet_spec(cfg.ways) if anil
+                else cnn4.mini_imagenet_spec(cfg.ways))
+    raise SystemExit(f"Dataset not supported: {cfg.dataset}")
+
+
+def _check_ported(cfg: VisionConfig) -> None:
+    raise_unported("VisionTrainer", [
+        (cfg.fuse > 1, "fuse > 1", "Fused iterations and CUDA graphs"),
+        (cfg.mesh > 1, "mesh > 1", "Scale-out"),
+        (bool(cfg.resume), "resume", "Run utilities"),
+        (cfg.async_ckpt, "async_ckpt", "Run utilities"),
+        (cfg.ckpt_backend != "npz", "ckpt_backend='orbax'", "Run utilities"),
+        (cfg.use_wandb, "wandb", "Run utilities"),
+        (cfg.profile, "profile", "Run utilities"),
+        (bool(cfg.trace), "trace", "Run utilities"),
+        (bool(cfg.compile_cache), "compile_cache", "Run utilities"),
+    ])
+
+
+class VisionTrainer(Experiment):
+    """The meta-training loop of MAML or ANIL vision.
+
+    ``device`` defaults to the card; pass ``device="cpu"`` to train on the
+    CPU. Without a card the default raises before any run dir is made."""
+
+    def __init__(self, cfg: VisionConfig, anil: bool = False,
+                 path: str = "results/", device=None):
+        _check_ported(cfg)
+        self.device = resolve_device(device)
+        algo = "anil" if anil else "maml"
+        super().__init__(f"{algo}_{cfg.ways}w{cfg.shots}s", cfg.dataset,
+                         cfg.to_params(), path=path)
+        self.cfg = cfg
+        self.anil = anil
+
+    def run(self) -> float:
+        cfg, dev = self.cfg, self.device
+        train_ds, valid_ds, test_ds = get_dataset(
+            cfg.dataset, seed=cfg.seed, synthetic=cfg.synthetic or None,
+            synth_classes=cfg.synth_classes,
+            synth_per_class=cfg.synth_per_class, device=dev)
+        # Always set it: an earlier trainer in this process may have left
+        # the module default on another lowering.
+        set_conv_impl(CONV_IMPLS.get(cfg.conv_impl, cfg.conv_impl))
+
+        spec = _build_spec(cfg, self.anil)
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed)
+        params = tree_map(lambda t: t.requires_grad_(),
+                          cnn4.init_cnn4(gen, spec, device=dev))
+        self.log_model(params)
+        fast_adapt = make_vision_fast_adapt(
+            spec, inner_lr=cfg.inner_lr, adapt_steps=cfg.adapt_steps,
+            shots=cfg.shots, ways=cfg.ways, anil=self.anil,
+            remat_body=cfg.remat_body)
+        if cfg.bf16:
+            # bf16 compute graph, f32 master params and Adam state
+            fast_adapt = cast_compute(fast_adapt)
+        opt = adam(params, cfg.outer_lr)
+        meta_step = make_meta_step(fast_adapt)
+        meta_eval = make_meta_eval(fast_adapt)
+
+        def sample(ds):
+            return sample_task_batch(gen, ds, cfg.ways, cfg.shots,
+                                     cfg.meta_batch_size)
+
+        start = time.perf_counter()
+        iteration = 0
+        try:
+            for iteration in range(cfg.num_iterations):
+                batch = sample(train_ds)
+                # PRE-update params: the reference's valid pass runs
+                # before opt.step() (maml_vision.py:117-141)
+                valid_m = meta_eval(params, *sample(valid_ds))
+                params, opt, train_m = meta_step(params, opt, *batch)
+                metrics = {"train_loss": float(train_m["loss"]),
+                           "train_acc": float(train_m["metric"]),
+                           "valid_loss": float(valid_m["loss"]),
+                           "valid_acc": float(valid_m["metric"])}
+                print(f"iteration {iteration}: {metrics}", flush=True)
+                self.log_metrics(metrics)
+                if iteration % cfg.save_every == 0:
+                    self.save_model_checkpoint(params, iteration)
+        except (KeyboardInterrupt, DivergenceError) as stop:
+            self.mark_stopped(stop, iteration)
+
+        self.save_model(params)
+        self.logger["elapsed_time"] = (
+            f"{round(time.perf_counter() - start, 2)} sec")
+
+        test_acc = float(meta_eval(params, *sample(test_ds))["metric"])
+        print("Meta Test Accuracy", test_acc)
+        self.logger["test_acc"] = test_acc
+        self.log_metrics({"test_acc": test_acc})
+        self.save_logs_to_file()
+        return test_acc

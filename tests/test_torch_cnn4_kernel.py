@@ -18,6 +18,8 @@ import torch
 
 from exploring_meta_tpu.pallas import cnn4_pallas as jp
 from exploring_meta_tpu_torch.cuda import cnn4_cuda as tc
+from exploring_meta_tpu_torch.models.cnn4 import base_apply
+from exploring_meta_tpu_torch.utils.tree import tree_items
 
 HIDDEN = 8
 N = 3
@@ -154,13 +156,55 @@ def test_fused_omni_base_per_task_params_match_jax_vmap():
     _close(got, want, 2e-5, 2e-5)
 
 
-def test_create_graph_on_fused_path_raises():
-    blocks, _, x = _base_params(2)
-    tb = _torch_tree(blocks, requires_grad=True)
-    loss = tc.fused_omni_base(tb, torch.from_numpy(x)).square().sum()
-    with pytest.raises(RuntimeError, match="first-order backward only"):
-        torch.autograd.grad(loss, jax.tree_util.tree_leaves(tb),
-                            create_graph=True)
+def test_create_graph_on_fused_path_matches_direct():
+    """Second order through ``FusedBlock`` (its backward under
+    ``create_graph=True`` is ``FusedBlockBackward``): one inner SGD step on
+    the base, then the gradient of a loss at the adapted params, against
+    the port's per-op base and JAX's plain ``_pure_base``. rtol 3e-4 / atol
+    3e-5 x max|grad| (inner_lr 0.05); the conv-bias grads by magnitude."""
+    blocks, head_w, x = _base_params(2)
+    y = np.arange(5) % 5
+    xq = x[::-1].copy()
+
+    def jce(logits):
+        return -jnp.mean(jax.nn.log_softmax(logits)[jnp.arange(5), y])
+
+    def jmeta(bl):
+        g = jax.grad(lambda b: jce(jp._pure_base(b, jnp.asarray(x)) @ head_w))(bl)
+        fast = jax.tree_util.tree_map(lambda p, d: p - 0.05 * d, bl, g)
+        return jce(jp._pure_base(fast, jnp.asarray(xq)) @ head_w)
+
+    want = jax.jit(jax.grad(jmeta))(jax.tree_util.tree_map(jnp.asarray,
+                                                           blocks))
+
+    def tmeta(base):
+        tb = _torch_tree(blocks, requires_grad=True)
+        leaves = jax.tree_util.tree_leaves(tb)
+        hw = torch.from_numpy(head_w)
+
+        def ce(bl, im):
+            return torch.nn.functional.cross_entropy(base(bl, im) @ hw,
+                                                     torch.from_numpy(y))
+        g = torch.autograd.grad(ce(tb, torch.from_numpy(x)), leaves,
+                                create_graph=True)
+        fast = jax.tree_util.tree_unflatten(
+            jax.tree_util.tree_structure(blocks),
+            [p - 0.05 * d for p, d in zip(leaves, g)])
+        return torch.autograd.grad(ce(fast, torch.from_numpy(xq)), leaves)
+
+    got = tmeta(tc.fused_omni_base)
+    direct = tmeta(lambda bl, im: base_apply(bl, im, False).mean(dim=(1, 2)))
+    keys = [k for k, _ in tree_items(blocks)]
+    for key, a, d, w in zip(keys, got, direct,
+                            jax.tree_util.tree_leaves(want)):
+        w = np.asarray(w)
+        if key.endswith("conv/b"):  # zero in exact arithmetic
+            for t in (a.numpy(), d.numpy(), w):
+                assert np.abs(t).max() < 1e-5, key
+            continue
+        lim = dict(rtol=3e-4, atol=3e-5 * np.abs(w).max())
+        _close(a, w, **lim)
+        _close(a, d.numpy(), **lim)
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

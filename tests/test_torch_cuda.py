@@ -7,10 +7,16 @@ installed:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                os.pardir))
+import chip_smoke  # noqa: E402  (the float64 reference meta-gradient)
 from exploring_meta_tpu_torch.cuda import cnn4_cuda as tc
 from exploring_meta_tpu_torch.cuda import gae_cuda as gc
 from exploring_meta_tpu_torch.models.cnn4 import init_cnn4, omniglot_spec
@@ -203,3 +209,136 @@ def test_trpo_iteration_runs_the_sweeps(cuda_device, tmp_path):
     # collection 3 + two surrogate evaluations or more 2 each, + meta-test 3
     assert counts["gae_sweep"] >= 10 and counts["discount_sweep"] >= 10
     assert np.isfinite(final["mean_reward"])
+
+
+def _meta_grad(impl, dev, dtype=None, tasks=4, steps=1):
+    """One full-width second-order meta-gradient (5-way 5-shot, inner_lr
+    0.05) -> (loss, {leaf path: grad f64 on the CPU}, kernel calls, the
+    fused blocks' ReLU masks, the base params, data, labels)."""
+    from exploring_meta_tpu_torch.adapt.maml import cast_compute
+    from exploring_meta_tpu_torch.adapt.vision import make_vision_fast_adapt
+    from exploring_meta_tpu_torch.models.layers import (
+        get_conv_impl, set_conv_impl,
+    )
+    from exploring_meta_tpu_torch.utils.tree import (
+        tree_items, tree_leaves, tree_map, tree_unflatten,
+    )
+    spec = omniglot_spec(5)
+    rng = np.random.default_rng(0)
+    data = torch.tensor(rng.uniform(size=(tasks, 50, 28, 28, 1)),
+                        dtype=torch.float32, device=dev)
+    labels = torch.arange(5, device=dev).repeat_interleave(10).expand(
+        tasks, -1)
+    base = init_cnn4(torch.Generator().manual_seed(0), spec, device="cpu")
+    params = tree_map(lambda t: t.to(dev).requires_grad_(), base)
+    fa = make_vision_fast_adapt(spec, 0.05, steps, 5, 5)
+    if dtype is not None:
+        fa = cast_compute(fa, dtype)
+    prev = get_conv_impl()
+    set_conv_impl(impl)
+    try:
+        tc.reset_launch_counts()
+
+        def run():
+            loss = fa(params, data, labels).loss.mean()
+            return loss, torch.autograd.grad(loss, tree_leaves(params))
+        (loss, grads), masks = chip_smoke.recorded_masks(tc, run)
+        torch.cuda.synchronize()
+    finally:
+        set_conv_impl(prev)
+    grads = {k: g.double().cpu()
+             for k, g in tree_items(tree_unflatten(params, grads))}
+    return (float(loss.detach()), grads, tc.launch_counts(), masks, base,
+            data, labels)
+
+
+@pytest.mark.cuda
+def test_second_order_fused_matches_direct_f32(cuda_device):
+    """Against a float64 plain reference on the kernels' own ReLU masks,
+    rtol 3e-4 / atol 3e-5 x max|grad| per leaf; against the direct path
+    (cuDNN), which makes its own masks, within 1e-2 x max|grad| (a ReLU
+    input within f32 rounding of the kink may fall on either side,
+    chip_smoke.py); the conv-bias grads (zero in exact arithmetic) within
+    1e-4 of the block's BN-bias grads."""
+    loss, got, counts, masks, base, data, labels = _meta_grad("fused",
+                                                              cuda_device)
+    assert counts == {"cnn4_block_fwd": 8, "cnn4_block_bwd_params": 12,
+                      "cnn4_block_bwd_input": 9}
+    ref_loss, ref = chip_smoke.reference_meta_grad(torch, base, data,
+                                                   labels, masks, 0.05)
+    direct_loss, direct, direct_counts, *_ = _meta_grad("direct",
+                                                        cuda_device)
+    assert not any(direct_counts.values())
+    for want_loss, want, rtol, atol in ((ref_loss, ref, 3e-4, 3e-5),
+                                        (direct_loss, direct, 0.0, 1e-2)):
+        assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
+        for key, w in want.items():
+            if key.endswith("conv/b"):
+                scale = float(want[key[:-6] + "bn/bias"].abs().max())
+                assert float(got[key].abs().max()) <= 1e-4 * scale, key
+                continue
+            torch.testing.assert_close(got[key], w, rtol=rtol,
+                                       atol=atol * float(w.abs().max()),
+                                       msg=f"{key} (atol {atol})")
+
+
+def _rel_l2(grads, ref):
+    """Distance of a meta-gradient from ``ref`` over every leaf but the
+    conv biases (zero in exact arithmetic), relative to |ref|."""
+    keys = [k for k in ref if not k.endswith("conv/b")]
+    d = torch.cat([(grads[k] - ref[k]).reshape(-1) for k in keys])
+    return float(d.norm() / torch.cat([ref[k].reshape(-1) for k in keys])
+                 .norm())
+
+
+@pytest.mark.cuda
+def test_second_order_fused_bf16_near_f32(cuda_device):
+    """bf16 through cast_compute on the kernels, every call in bf16 on the
+    card: the loss within 2e-2 of f32's. A bf16 meta-gradient lies tens
+    of per cent (relative L2) from the f32 one on either path, the kernels
+    and cuDNN alike (chip_smoke.py, "bf16_rel_l2"), so it is held against
+    cuDNN's bf16 meta-gradient: no farther from f32 than 1.5x cuDNN's
+    distance."""
+    loss, grads, *_ = _meta_grad("fused", cuda_device)
+    bloss, bgrads, counts, *_ = _meta_grad("fused", cuda_device,
+                                           torch.bfloat16)
+    dgrads = _meta_grad("direct", cuda_device, torch.bfloat16)[1]
+    assert counts == {"cnn4_block_fwd": 8, "cnn4_block_bwd_params": 12,
+                      "cnn4_block_bwd_input": 9}
+    assert abs(bloss - loss) <= 2e-2 * abs(loss)
+    assert all(bool(torch.isfinite(g).all()) for g in bgrads.values())
+    assert _rel_l2(bgrads, grads) <= 1.5 * _rel_l2(dgrads, grads)
+
+
+@pytest.mark.cuda
+def test_meta_step_kernel_counts(cuda_device):
+    """One Adam meta-step at full width: 8 / 12 / 9 calls; a meta-eval
+    (first order, no query graph): 8 / 4 / 3; a second inner step adds a
+    support forward (4), its second-order backward (4 + 3) and that
+    forward's backward in the outer pass (4 + 3)."""
+    from exploring_meta_tpu_torch.adapt.maml import (
+        adam, make_meta_eval, make_meta_step,
+    )
+    from exploring_meta_tpu_torch.adapt.vision import make_vision_fast_adapt
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+    spec = omniglot_spec(5)
+    params = tree_map(lambda t: t.requires_grad_(), init_cnn4(
+        torch.Generator(device=cuda_device).manual_seed(1), spec))
+    data = torch.rand(2, 50, 28, 28, 1, device=cuda_device)
+    labels = torch.arange(5, device=cuda_device).repeat_interleave(10)
+    labels = labels.expand(2, -1)
+    fa = make_vision_fast_adapt(spec, 0.5, 1, 5, 5)
+    tc.reset_launch_counts()
+    _, _, m = make_meta_step(fa)(params, adam(params, 3e-3), data, labels)
+    assert np.isfinite(float(m["loss"]))
+    assert tc.launch_counts() == {"cnn4_block_fwd": 8,
+                                  "cnn4_block_bwd_params": 12,
+                                  "cnn4_block_bwd_input": 9}
+    tc.reset_launch_counts()
+    make_meta_eval(fa)(params, data, labels)
+    assert tc.launch_counts() == {"cnn4_block_fwd": 8,
+                                  "cnn4_block_bwd_params": 4,
+                                  "cnn4_block_bwd_input": 3}
+    counts = _meta_grad("fused", cuda_device, tasks=2, steps=2)[2]
+    assert counts == {"cnn4_block_fwd": 12, "cnn4_block_bwd_params": 20,
+                      "cnn4_block_bwd_input": 15}

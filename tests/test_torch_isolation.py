@@ -30,7 +30,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, bad = (out.stdout.split("\n") + [""])[:2]
-    assert int(n) >= 33
+    assert int(n) >= 35
     assert bad == "", bad
 
 
@@ -49,7 +49,9 @@ def test_port_module_list_is_complete():
                 "rl.trpo_meta", "rl.evaluate", "utils.config",
                 "trainers.rl", "cli",
                 # slice 5: the sweeps' redesign
-                "cuda.compare_sweeps"):
+                "cuda.compare_sweeps",
+                # slice 6: vision meta-training
+                "adapt.vision", "trainers.vision"):
         assert f"exploring_meta_tpu_torch.{mod}" in names
 
 
