@@ -26,8 +26,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    ``__call__`` and with the CPU path, and that the support set is
    labelled above chance; time and profile it;
 4. the GAE / discount sweeps (slice 2; a segmented affine scan over
-   time): at ``[20, 100, 20]``, ``[40, 150, 20]``, ``[100, 400]`` and
-   ``[100]`` (timed), and at T = 1, T = 129 (one past a slab) and T = 1000
+   time): at ``[20, 100, 20]``, ``[64, 50, 10]`` (a served policy
+   batch), ``[40, 150, 20]``, ``[100, 400]`` and ``[100]`` (timed), and at
+   T = 1, T = 129 (one past a slab) and T = 1000
    (checked only), with dones mid-column, all zero and all one, hold each
    kernel against its twin and a float64 CPU reference, forward and
    backward, and each twice at ``[20, 100, 20]`` with bitwise equal
@@ -52,7 +53,27 @@ Phases, each of which fails the run (non-zero exit) on any error:
    fused and direct, timed in turns; one meta-step profiled (idle share,
    launches, device time of the CNN4 kernels, of the plain double backward
    and of the rest);
-7. print one ``{"kernels": [...]}`` line, the card line again, and last
+7. meta-RL policy serving (slice 7), at ``bench.py``'s ``serve_rl``:
+   a full-width ``DiagNormalPolicy`` (100, 100) with random weights, 64
+   Particles2D support trajectories of 10 episodes x 50 steps collected on
+   the card; for each of vpg, ppo and trpo, ``PolicyServer.adapt_batched``
+   with the sweep counters zeroed just before and checked just after
+   (each sweep once per inner step), the adapted params held against the
+   CPU path on the same stack (on the card's baseline fits, with the
+   discounted returns each fit was given held against the CPU's) and
+   against per-request ``adapt``, and ``act_batched`` against per-task
+   ``act``; an ANIL policy once, its body unchanged; the batch timed
+   (requests/s, wall) and profiled;
+8. Adam meta-RL training (slice 7): 4 full-width ``RLTrainer`` iterations
+   of maml_ppo and of anil_vpg (the ``RLScriptConfig`` defaults) in
+   temporary run dirs, with the counters zeroed just before; check the
+   sweeps ran once per support batch and once for the query in every
+   iteration, finite metrics, run dirs that load and a finite meta-test;
+   s per iteration (iterations 2-3), and the fourth profiled (idle share,
+   launches, the sweeps' device time); one ``make_replay_meta_loss("ppo")``
+   value and meta-gradient on identical replays on the card and on the
+   CPU, with every PPO ratio recorded;
+9. print one ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports neither
@@ -98,12 +119,14 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 # removes dy's mean); both sides hold rounding noise, bounded relative to
 # sum(|dy|) per (request, channel).
 DB_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
-# GAE / discount sweeps, timed: the main path's [B, T, E]; the JAX
-# reference's own maml_trpo scale (40 tasks x 20 episodes x horizon 150,
-# exploring_meta_tpu/utils/config.py:170-171); the [T, lanes] form; a
+# GAE / discount sweeps, timed: the main path's [B, T, E]; a served
+# policy batch's (64 requests x horizon 50 x 10 episodes, SERVE_RL_*); the
+# JAX reference's own maml_trpo scale (40 tasks x 20 episodes x horizon
+# 150, exploring_meta_tpu/utils/config.py:170-171); the [T, lanes] form; a
 # single column. Checked only: T = 1, one step past a 128-step slab (one
 # lane and 20 lanes of 4 tasks) and a long T.
-SWEEP_SHAPES = [(20, 100, 20), (40, 150, 20), (100, 400), (100,)]
+SWEEP_SHAPES = [(20, 100, 20), (64, 50, 10), (40, 150, 20), (100, 400),
+                (100,)]
 SWEEP_CHECK_SHAPES = [(1,), (129,), (4, 129, 5), (1000,)]
 GAMMA, TAU = 0.99, 1.0
 # A sweep output is a discounted sum of up to T float32 terms, each rounded
@@ -165,6 +188,40 @@ CNN4_KERNEL_NAMES = ("fwd_conv_stats_kernel", "fwd_combine_kernel",
                      "fwd_norm_kernel", "bwd_input_kernel",
                      "bwd_tile_sums_kernel", "bwd_combine_kernel",
                      "bwd_dw_kernel", "bwd_dw_reduce_kernel")
+# Meta-RL serving (slice 7), bench.py's serve_rl (bench.py:625-683): 64
+# requests, each a support batch of 10 episodes x 50 steps on Particles2D,
+# one first-order inner step at inner_lr 0.05; the batch timed as the mean
+# of 5 calls after a warm one, ended by a sync.
+SERVE_RL_REQUESTS, SERVE_RL_EPISODES, SERVE_RL_HORIZON = 64, 10, 50
+SERVE_RL_CFG = dict(inner_lr=0.05, adapt_steps=1,
+                    adapt_batch_size=SERVE_RL_EPISODES,
+                    max_path_length=SERVE_RL_HORIZON)
+# Card vs CPU, both on the card's linear-baseline fits (with_baseline_fits):
+# the fit is a float32 ridge solve of condition ~1e5 on Particles2D's
+# features, so each device's own fit of the same data may differ by ~1e-3
+# of itself, and that moves the PPO meta-gradient by ~1e-3 of max|grad|;
+# the error on each device's own fits is reported, not held. The
+# discounted returns each fit is given (the discount sweep's output, which
+# reaches nothing else) are held against the CPU twin's within SWEEP_TOL.
+# Adapted params, card vs CPU and batch vs one request: within 1e-5 of
+# max|params| over the tree, the CPU tests' bound against JAX
+# (tests/test_torch_policy_serve.py).
+ADAPT_TOL = 1e-5
+# Adam trainer runs: ADAM_ITERATIONS timed iterations, then one more under
+# the profiler
+ADAM_ITERATIONS = 3
+# The PPO replay meta-gradient, card vs CPU on the card's fits, per leaf
+# within 1e-5 of max|grad|: the two f32 paths differ only in summation
+# order (read: 5.1e-7 at full width). A sample whose ratio lies within
+# CLIP_MARGIN of a clip bound (1 -/+ 0.3) in the second or third inner
+# epoch may fall on either side in the two paths and move the gradient by
+# ~1e-4 of max|grad|; only then is it held within REPLAY_FLIP_TOL. The
+# loss within 1e-5 of the query's mean |ratio x advantage|, the size of
+# its terms: they cancel to ~0 (ratio 1 against zero-mean normalized
+# advantages), so the loss cannot see an error in the advantages; the
+# gradient and the returns can.
+REPLAY_GRAD_TOL, REPLAY_FLIP_TOL, CLIP_MARGIN = 1e-5, 1e-3, 1e-3
+REPLAY_LOSS_TOL = 1e-5
 
 
 def check(ok: bool, what: str) -> None:
@@ -683,18 +740,10 @@ def sweep_phase(torch, gc, gpu) -> dict:
 
 def trpo_configs():
     """The full-width MAML-TRPO configuration: the trainer's defaults."""
-    from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
-    from exploring_meta_tpu_torch.rl.trpo_meta import TRPOConfig
+    from exploring_meta_tpu_torch.trainers.rl import rl_config, trpo_config
     from exploring_meta_tpu_torch.utils.config import RLScriptConfig
     cfg = RLScriptConfig(num_iterations=TRPO_ITERATIONS)
-    rl_cfg = RLConfig(inner_lr=cfg.inner_lr, gamma=cfg.gamma, tau=cfg.tau,
-                      adapt_steps=cfg.adapt_steps,
-                      adapt_batch_size=cfg.adapt_batch_size,
-                      max_path_length=cfg.max_path_length)
-    trpo_cfg = TRPOConfig(outer_lr=cfg.outer_lr, max_kl=cfg.max_kl,
-                          ls_max_steps=cfg.ls_max_steps,
-                          backtrack_factor=cfg.backtrack_factor)
-    return cfg, rl_cfg, trpo_cfg
+    return cfg, rl_config(cfg), trpo_config(cfg)
 
 
 def trpo_phase(torch, gc, tc, gpu, tmp) -> dict:
@@ -1185,7 +1234,10 @@ def range_profile(torch, fn) -> dict:
     the span holds its own kernels only; the kernels launched through
     ctypes are not tied to the CPU-side range), and, as a check of that
     attribution, the device µs of the kernels of ``csrc/cnn4_block.cu``
-    by name."""
+    by name; the device µs of the sweep kernels by name; and the host µs
+    spent inside profiled ops (their self CPU time summed: aten ops and
+    CUDA runtime calls; the rest of the wall is Python between them) with
+    the top ops by it."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1203,6 +1255,9 @@ def range_profile(torch, fn) -> dict:
             if a.time_range.start <= k.time_range.start < a.time_range.end:
                 in_span[a.name].append(k)
                 break
+    host = sorted(((a.key[:60], a.self_cpu_time_total, a.count)
+                   for a in prof.key_averages()
+                   if a.self_cpu_time_total > 0), key=lambda t: -t[1])
     top = {}
     for k in kernels:
         us, n = top.get(k.name, (0.0, 0))
@@ -1214,8 +1269,13 @@ def range_profile(torch, fn) -> dict:
             "cnn4_kernels_us": sum(us for name, (us, _) in top.items()
                                    if any(k in name
                                           for k in CNN4_KERNEL_NAMES)),
+            "sweep_kernels_us": sum(us for name, (us, _) in top.items()
+                                    if any(k in name
+                                           for k in KERNEL_NAMES.values())),
             "top": sorted(((name[:60], us, n) for name, (us, n)
-                           in top.items()), key=lambda t: -t[1])[:12]}
+                           in top.items()), key=lambda t: -t[1])[:12],
+            "host_op_us": sum(us for _, us, _ in host),
+            "host_top": host[:8]}
 
 
 def vision_timing(torch, gpu) -> dict:
@@ -1327,6 +1387,423 @@ def vision_timing(torch, gpu) -> dict:
     return out
 
 
+def tree_err(torch, got, want, what: str) -> float:
+    """The largest ``|got - want|`` over every leaf of the tree, relative
+    to the max of ``|want|`` over the tree (a zero-initialized bias holds
+    only its step); fails unless ``got`` is finite and of ``want``'s
+    shapes."""
+    from exploring_meta_tpu_torch.utils.tree import tree_items
+    want = {k: w.detach().cpu().double() for k, w in tree_items(want)}
+    top = max(float(w.abs().max()) for w in want.values())
+    worst = 0.0
+    for key, g in tree_items(got):
+        g = g.detach().cpu().double()
+        check(tuple(g.shape) == tuple(want[key].shape)
+              and bool(torch.isfinite(g).all()), f"{what} {key}: finite, "
+                                                 f"shape {tuple(g.shape)}")
+        worst = max(worst, float((g - want[key]).abs().max()) / top)
+    return worst
+
+
+def tree_close(torch, got, want, tol: float, what: str) -> float:
+    """:func:`tree_err` within ``tol`` -> that error."""
+    worst = tree_err(torch, got, want, what)
+    check(worst <= tol, f"{what}: max |err| {worst} of max|params|, limit "
+                        f"{tol}")
+    return worst
+
+
+def with_baseline_fits(fn, fits=None) -> tuple:
+    """Run ``fn`` with every linear-baseline fit of ``rl/adapt_rl.py``
+    recorded in call order, each as (weights, the discounted returns
+    fitted) -> (fn's result, the fits). Given ``fits`` (another run's,
+    from any device), ``fn`` takes their weights instead, in order, so
+    that two runs differ only in the arithmetic around the fit: a float32
+    ridge solve of condition ~1e5 on Particles2D's features, whose result
+    two devices agree on only to ~1e-3 (ADAPT_TOL). The returns, the
+    discount sweep's output, are then held against the given run's within
+    SWEEP_TOL of their max: taking the fit removes only the solve from the
+    comparison, not the sweep."""
+    from exploring_meta_tpu_torch.rl import adapt_rl
+    fit, got = adapt_rl.fit_linear_value, []
+    given = None if fits is None else iter(fits)
+
+    def recording(states, timesteps, returns, *args, **kwargs):
+        if given is None:
+            w = fit(states, timesteps, returns, *args, **kwargs)
+        else:
+            w, want = (t.to(states.device) for t in next(given))
+            err = float((returns - want).abs().max())
+            lim = SWEEP_TOL * float(want.abs().max())
+            check(err <= lim, f"discounted returns vs the given run's: "
+                              f"|err| {err}, limit {lim}")
+        got.append((w, returns))
+        return w
+
+    adapt_rl.fit_linear_value = recording
+    try:
+        res = fn()
+    finally:
+        adapt_rl.fit_linear_value = fit
+    check(fits is None or len(got) == len(fits),
+          f"the replayed run took {len(got)} of {len(fits or ())} fits")
+    return res, got
+
+
+def fits_err(a: list, b: list, part: int = 0) -> float:
+    """The largest disagreement of two runs' fits (``part`` 0: the
+    weights; 1: the returns fitted), each relative to the max of its
+    ``b`` fit."""
+    return max(float((x[part].cpu().double() - y[part].cpu().double())
+                     .abs().max() / y[part].abs().max())
+               for x, y in zip(a, b))
+
+
+def profiled(torch, fn, wall_s: float) -> dict:
+    """One call of ``fn`` under the profiler (range_profile) with the idle
+    share against an unprofiled wall time."""
+    prof = range_profile(torch, fn)
+    prof["wall_us"] = 1e6 * wall_s
+    prof["idle_share"] = 1 - prof["busy_union_us"] / prof["wall_us"]
+    return prof
+
+
+def print_host(prof: dict) -> None:
+    """Print a profile's top kernels, then its host time inside ops and
+    the top ops by self CPU time."""
+    for key, us, count in prof["top"]:
+        print(f"  {us:12.1f} us  x{count:5d}  {key}")
+    print(f"  host: {prof['host_op_us']} us inside ops of "
+          f"{prof['profiled_wall_us']} us profiled wall")
+    for key, us, count in prof["host_top"]:
+        print(f"  {us:12.1f} us  x{count:5d}  {key} (host)")
+
+
+def policy_serve_phase(torch, gc, gpu) -> dict:
+    """Phase 7: the main path of slice 7, ``PolicyServer.adapt_batched``,
+    for each adaptation algorithm, and once for an ANIL policy."""
+    from exploring_meta_tpu_torch.envs.particles2d import Particles2D
+    from exploring_meta_tpu_torch.models.policies import (
+        DiagNormalPolicy, DiagNormalPolicyANIL,
+    )
+    from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
+    from exploring_meta_tpu_torch.rl.rollout import make_rollout
+    from exploring_meta_tpu_torch.serve import PolicyServer
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    env, n = Particles2D(), SERVE_RL_REQUESTS
+    cfg = RLConfig(**SERVE_RL_CFG)
+    policy = DiagNormalPolicy(env.obs_size, env.action_size)
+    params = policy.init(torch.Generator().manual_seed(SEED), device="cpu")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    roll = make_rollout(env, policy.sample, SERVE_RL_EPISODES,
+                        SERVE_RL_HORIZON)
+    stack = roll(tree_map(lambda t: t.cuda(), params),
+                 env.sample_tasks(gen, n), gen)
+    check(tuple(stack.reward.shape) == (n, SERVE_RL_HORIZON,
+                                        SERVE_RL_EPISODES),
+          f"support stack {tuple(stack.reward.shape)}")
+    cpu_stack = stack.map(lambda t: t.cpu())
+    obs = stack.state[:, 0]                       # [n, E, obs]
+    out = {"launches": {k: 0 for k in gc.KERNELS}}
+
+    def serve(name, pol, p, c, algo):
+        """One served batch on the card with the counters zeroed just
+        before; held against the CPU path on the card's baseline fits
+        -> (server, adapted, record, the card's fits)."""
+        server = PolicyServer(pol, p, c, algo=algo)
+        torch.cuda.synchronize()
+        gc.reset_launch_counts()
+        adapted, fits = with_baseline_fits(
+            lambda: server.adapt_batched(stack))
+        torch.cuda.synchronize()
+        launches = gc.launch_counts()
+        print(f"{name}: launches in one served batch {launches}", flush=True)
+        check(launches == {k: c.adapt_steps for k in gc.KERNELS},
+              f"{name}: each sweep once per inner step, {launches}")
+        for k, v in launches.items():
+            out["launches"][k] += v
+        cpu = PolicyServer(pol, p, c, algo=algo, device="cpu")
+        want, replayed = with_baseline_fits(
+            lambda: cpu.adapt_batched(cpu_stack), fits)
+        own, cpu_fits = with_baseline_fits(
+            lambda: cpu.adapt_batched(cpu_stack))
+        return server, adapted, {
+            "launches": launches,
+            "vs_cpu": tree_close(torch, adapted, want, ADAPT_TOL,
+                                 f"{name} card vs CPU"),
+            "returns_err": fits_err(fits, replayed, 1),
+            "vs_cpu_own_fits": tree_err(torch, adapted, own,
+                                        f"{name} card vs CPU, own fits"),
+            "fits_err": fits_err(fits, cpu_fits)}, fits
+
+    for algo in ("vpg", "ppo", "trpo"):
+        server, adapted, r, fits = serve(algo, policy, params, cfg, algo)
+        r["vs_request"] = max(tree_close(
+            torch, with_baseline_fits(
+                lambda: server.adapt(stack.map(lambda t: t[i])),
+                [(w[i:i + 1], r[i:i + 1]) for w, r in fits])[0],
+            tree_map(lambda t: t[i], adapted), ADAPT_TOL,
+            f"{algo} request {i} vs batch") for i in range(4))
+        check(all(bool((x[0] != y).any()) for x, y in zip(
+            tree_leaves(adapted), tree_leaves(server.params))),
+              f"{algo}: the inner step moved every leaf")
+        acts = server.act_batched(adapted, obs)
+        per = torch.stack([server.act(tree_map(lambda t: t[i], adapted),
+                                      obs[i]) for i in range(4)])
+        r["act_err"] = float((acts[:4] - per).abs().max())
+        check(tuple(acts.shape) == (n, SERVE_RL_EPISODES, env.action_size)
+              and r["act_err"] <= 1e-5 * float(per.abs().max()),
+              f"{algo}: act_batched vs act, |err| {r['act_err']}")
+        check(tuple(server.sample_batched(adapted, gen, obs).shape)
+              == tuple(acts.shape), f"{algo}: sample_batched shape")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            server.adapt_batched(stack)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 5
+        prof = profiled(torch, lambda: server.adapt_batched(stack), wall)
+        r.update(batch_wall_s=wall, requests_per_s=n / wall, profile=prof)
+        out[algo] = r
+        print(f"serve_rl {algo}: {n / wall} adaptation requests/s, "
+              f"{1e3 * wall} ms per batch of {n}; card vs CPU "
+              f"{r['vs_cpu']}, returns {r['returns_err']} "
+              f"({r['vs_cpu_own_fits']} on each device's own "
+              f"baseline fits, which differ by {r['fits_err']}), batch vs "
+              f"request {r['vs_request']} of max|params|; profiled: kernels busy {prof['busy_union_us']} "
+              f"us of {prof['wall_us']} us (idle "
+              f"{100 * prof['idle_share']:.1f} %), {prof['kernel_launches']}"
+              f" kernel launches, sweeps {prof['sweep_kernels_us']} us "
+              f"[{gpu}]", flush=True)
+        print_host(prof)
+
+    anil = DiagNormalPolicyANIL(env.obs_size, env.action_size)
+    aparams = anil.init(torch.Generator().manual_seed(SEED + 1), device="cpu")
+    server, adapted, r, _ = serve("anil vpg", anil, aparams,
+                               cfg._replace(anil=True), "vpg")
+    for layer, base in zip(adapted["body"], server.params["body"]):
+        for key in base:
+            check(torch.equal(layer[key], base[key].expand_as(layer[key])),
+                  f"anil: body {key} unchanged")
+    check(bool((adapted["head"]["w"][0] != server.params["head"]["w"]).any()),
+          "anil: the head moved")
+    out["anil_vpg"] = r
+    print(f"serve_rl anil vpg: body unchanged, card vs CPU {r['vs_cpu']} "
+          f"({r['vs_cpu_own_fits']} on own fits) "
+          f"[{gpu}]", flush=True)
+    return out
+
+
+def adam_rl_phase(torch, gc, gpu, tmp) -> dict:
+    """Phase 8: the Adam main paths of slice 7, ``RLTrainer.run()`` for
+    maml_ppo and anil_vpg at the trainer's defaults: ADAM_ITERATIONS
+    timed iterations each, then one more under the profiler."""
+    import math
+    from exploring_meta_tpu_torch.envs.particles2d import Particles2D
+    from exploring_meta_tpu_torch.trainers.rl import RLTrainer, build_policy
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+    from exploring_meta_tpu_torch.utils.experiment import load_params
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves
+
+    out = {"launches": {k: 0 for k in gc.KERNELS}}
+    for algo, anil in (("ppo", False), ("vpg", True)):
+        name = f"{'anil' if anil else 'maml'}_{algo}"
+        per_iter, prof = [], {}
+
+        class CountingTrainer(RLTrainer):
+            """Records each iteration's wall time and sweep launches, and
+            profiles the last iteration against the mean wall of the timed
+            ones after the first."""
+
+            def _make_adam_iteration(self, *args):
+                step = super()._make_adam_iteration(*args)
+
+                def counted(params, opt, gen):
+                    res = []
+                    torch.cuda.synchronize()
+                    before, t0 = gc.launch_counts(), time.perf_counter()
+                    if len(per_iter) < ADAM_ITERATIONS:
+                        res.append(step(params, opt, gen))
+                        torch.cuda.synchronize()
+                    else:
+                        wall = sum(it["s"] for it in per_iter[1:]) / (
+                            len(per_iter) - 1)
+                        prof.update(profiled(torch, lambda: res.append(
+                            step(params, opt, gen)), wall))
+                    after = gc.launch_counts()
+                    per_iter.append({"s": time.perf_counter() - t0, **{
+                        k: after[k] - before[k] for k in after}})
+                    return res[0]
+                return counted
+
+        cfg = RLScriptConfig(num_iterations=ADAM_ITERATIONS + 1)
+        trainer = CountingTrainer(cfg, algo=algo, anil=anil, path=tmp + "/")
+        torch.cuda.synchronize()
+        gc.reset_launch_counts()
+        final = trainer.run()
+        torch.cuda.synchronize()
+        launches = gc.launch_counts()
+        print(f"{name}: launches in {cfg.num_iterations} meta-iterations "
+              f"and the meta-test {launches}; per iteration {per_iter}",
+              flush=True)
+        for k, v in launches.items():
+            out["launches"][k] += v
+        check(len(per_iter) == cfg.num_iterations and prof,
+              f"{name}: every iteration, the last profiled")
+        for i, it in enumerate(per_iter):
+            for k in gc.KERNELS:
+                check(it[k] == cfg.adapt_steps + 1, f"{name} iteration {i}: "
+                      f"{k} once per support batch and once for the query, "
+                      f"{it[k]}")
+        run = trainer.model_path
+        with open(os.path.join(run, "metrics.json")) as f:
+            metrics = json.load(f)
+        for key in ("meta_loss", "adapt_reward", "adapt_success"):
+            vals = metrics.get(key, [])
+            check(len(vals) == cfg.num_iterations
+                  and all(v is not None and math.isfinite(v) for v in vals),
+                  f"{name} metrics.json {key}: {vals}")
+        check(math.isfinite(final["mean_reward"])
+              and metrics["eval_reward"] == [final["mean_reward"]],
+              f"{name}: the meta-test is finite and logged")
+        template = build_policy(Particles2D(), anil, cfg.fc_neurons,
+                                cfg.activation).init(
+            torch.Generator().manual_seed(0), device="cpu")
+        for file in ("model.npz", os.path.join("model_checkpoints",
+                                               "model_0.npz")):
+            tree = load_params(os.path.join(run, file), template)
+            check(all(bool(torch.isfinite(t).all())
+                      for t in tree_leaves(tree)),
+                  f"{name}: {file} loads into the template and is finite")
+        s_iter = sum(it["s"] for it in per_iter[1:ADAM_ITERATIONS]) / (
+            ADAM_ITERATIONS - 1)
+        prof["rest_us"] = prof["busy_union_us"] - prof["sweep_kernels_us"]
+        out[name] = {"launches": launches, "per_iteration": per_iter,
+                     "s_per_iteration": s_iter, "metrics": metrics,
+                     "final_eval": final, "profile": prof}
+        print(f"{name} Particles2D, full width: {s_iter} s per "
+              f"meta-iteration (mean of iterations 2-{ADAM_ITERATIONS}), "
+              f"metrics {metrics} [{gpu}]", flush=True)
+        print(f"{name} iteration profile: {prof['wall_us']} us wall; "
+              f"profiled {prof['profiled_wall_us']} us with kernels busy "
+              f"{prof['busy_union_us']} us (idle "
+              f"{100 * prof['idle_share']:.1f} %), "
+              f"{prof['kernel_launches']} kernel launches; sweeps "
+              f"{prof['sweep_kernels_us']} us, the rest {prof['rest_us']} us "
+              f"[{gpu}]", flush=True)
+        print_host(prof)
+    return out
+
+
+def replay_meta_grad(torch, meta_loss, params, replays, dev: str,
+                     fits=None) -> tuple:
+    """``meta_loss(params, replays)`` and its gradient on ``dev``, on the
+    given baseline fits if any (:func:`with_baseline_fits`) -> (loss,
+    {leaf: gradient in float64 on the CPU}, the fits)."""
+    from exploring_meta_tpu_torch.utils.tree import tree_items, tree_map
+    p = tree_map(lambda t: t.to(dev).requires_grad_(), params)
+    loss, fits = with_baseline_fits(
+        lambda: meta_loss(p, replays.map(lambda t: t.to(dev))), fits)
+    keys, leaves = zip(*tree_items(p))
+    grads = torch.autograd.grad(loss, leaves)
+    return (float(loss.detach()),
+            {k: g.double().cpu() for k, g in zip(keys, grads)}, fits)
+
+
+def grads_err(torch, got: dict, want: dict, what: str) -> float:
+    """The largest ``|got - want|`` of any leaf relative to that leaf's
+    max ``|want|``; fails unless ``got`` is finite."""
+    worst = 0.0
+    for key, w in want.items():
+        check(bool(torch.isfinite(got[key]).all()), f"{what} {key}: finite")
+        worst = max(worst, float((got[key] - w).abs().max()
+                                 / w.abs().max()))
+    return worst
+
+
+def ppo_replay_card_vs_cpu(torch, meta_loss, params, replays,
+                           clip: float) -> dict:
+    """A PPO replay meta-loss and meta-gradient on the card, held against
+    the CPU on the card's baseline fits and reported against the CPU on
+    its own. Every ratio of the card's run is recorded: the gradient is
+    held within REPLAY_GRAD_TOL unless one lies within CLIP_MARGIN of a
+    clip bound (then REPLAY_FLIP_TOL); the loss within REPLAY_LOSS_TOL of
+    the query's (the last call's) mean |ratio x advantage|."""
+    from exploring_meta_tpu_torch.rl import adapt_rl
+    ratios, scales, plain = [], [], adapt_rl.ppo_policy_loss
+
+    def recording(new, old, adv, clip, valid):
+        ratio, keep = torch.exp(new - old).detach(), valid > 0
+        ratios.append(ratio[keep])
+        scales.append(float((ratio * adv)[keep].abs().mean()))
+        return plain(new, old, adv, clip=clip, valid=valid)
+
+    adapt_rl.ppo_policy_loss = recording
+    try:
+        loss, grads, fits = replay_meta_grad(torch, meta_loss, params,
+                                             replays, "cuda")
+    finally:
+        adapt_rl.ppo_policy_loss = plain
+    r = torch.cat(ratios)
+    nearest = float((r[:, None] - r.new_tensor([1 - clip, 1 + clip]))
+                    .abs().min())
+    cpu_loss, cpu_grads, replayed = replay_meta_grad(
+        torch, meta_loss, params, replays, "cpu", fits)
+    own_loss, own_grads, own_fits = replay_meta_grad(torch, meta_loss,
+                                                     params, replays, "cpu")
+    loss_err = abs(loss - cpu_loss)
+    check(loss_err <= REPLAY_LOSS_TOL * scales[-1],
+          f"replay meta-loss card {loss} vs CPU {cpu_loss}, terms of mean "
+          f"size {scales[-1]}")
+    worst = grads_err(torch, grads, cpu_grads, "replay meta-gradient")
+    tol = REPLAY_GRAD_TOL if nearest > CLIP_MARGIN else REPLAY_FLIP_TOL
+    check(worst <= tol, f"replay meta-gradient: |card - CPU| {worst} of "
+                        f"max|grad|, limit {tol} (nearest ratio to a clip "
+                        f"bound {nearest})")
+    return {"loss": {"cuda": loss, "cpu": cpu_loss, "cpu_own_fits": own_loss},
+            "loss_abs_err": loss_err, "loss_terms_mean": scales[-1],
+            "grad_max_rel_err": worst, "grad_tol": tol,
+            "returns_err": fits_err(fits, replayed, 1),
+            "grad_max_rel_err_own_fits": grads_err(
+                torch, grads, own_grads, "replay meta-gradient, own fits"),
+            "fits_err": fits_err(fits, own_fits),
+            "ratio_range": [float(r.min()), float(r.max())],
+            "nearest_ratio_to_clip": nearest}
+
+
+def replay_grad_phase(torch, gpu) -> dict:
+    """Phase 8, second part: one ``make_replay_meta_loss("ppo")`` value and
+    meta-gradient (20 tasks x 20 episodes x 100 steps, 3 inner epochs) on
+    identical replays, card vs CPU (:func:`ppo_replay_card_vs_cpu`)."""
+    from exploring_meta_tpu_torch.envs.particles2d import Particles2D
+    from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
+    from exploring_meta_tpu_torch.rl.replay_meta import (
+        collect_replays, make_replay_meta_loss,
+    )
+    from exploring_meta_tpu_torch.rl.rollout import make_rollout
+    from exploring_meta_tpu_torch.trainers.rl import rl_config
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+
+    cfg = RLScriptConfig()
+    rl_cfg = rl_config(cfg)
+    env, policy = Particles2D(), DiagNormalPolicy(2, 2)
+    params = policy.init(torch.Generator().manual_seed(SEED + 9),
+                         device="cpu")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    roll = make_rollout(env, policy.sample, cfg.adapt_batch_size,
+                        cfg.max_path_length)
+    replays, _ = collect_replays(
+        "ppo", policy, tree_map(lambda t: t.cuda(), params), roll,
+        env.sample_tasks(gen, cfg.meta_batch_size), gen, rl_cfg)
+    res = ppo_replay_card_vs_cpu(torch,
+                                 make_replay_meta_loss("ppo", policy, rl_cfg),
+                                 params, replays, rl_cfg.ppo_clip_ratio)
+    print(f"PPO replay meta-gradient, card vs CPU: {res} [{gpu}]", flush=True)
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1378,6 +1855,10 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         vision = vision_trainer_phase(torch, tc, gpu, tmp)
     vision_times = vision_timing(torch, gpu)
+    policy_serve = policy_serve_phase(torch, gc, gpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        adam_rl = adam_rl_phase(torch, gc, gpu, tmp)
+    replay_grad = replay_grad_phase(torch, gpu)
 
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1385,7 +1866,9 @@ def main() -> int:
                    "kernels": {**res, **sweeps}, "serve": served,
                    "trpo": trpo, "outer_step": outer, "trpo_profile": prof,
                    "vision_second_order": second_order,
-                   "vision_trainer": vision, "vision_timing": vision_times},
+                   "vision_trainer": vision, "vision_timing": vision_times,
+                   "policy_serve": policy_serve, "adam_rl": adam_rl,
+                   "replay_meta_grad": replay_grad},
                   f, indent=1)
 
     replaces = {
@@ -1396,10 +1879,13 @@ def main() -> int:
         "discount_sweep": "exploring_meta_tpu/pallas/gae_pallas.py:62",
     }
     launches = {**served["launches"], **trpo["launches"]}
-    # the CNN4 kernels run on two main paths: one served batch and the
-    # vision trainer's run
-    for name, n in vision["launches"].items():
-        launches[name] += n
+    # the CNN4 kernels run on two main paths, one served batch and the
+    # vision trainer's run; the sweeps on four, the MAML-TRPO trainer's
+    # run, the served policy batches and the two Adam trainers' runs
+    for paths in (vision["launches"], policy_serve["launches"],
+                  adam_rl["launches"]):
+        for name, n in paths.items():
+            launches[name] += n
     kernels = []
     for name, r in {**res, **sweeps}.items():
         source = "gae.cu" if name in sweeps else "cnn4_block.cu"

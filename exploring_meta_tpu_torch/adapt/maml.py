@@ -133,6 +133,18 @@ def adam(params, lr: float) -> torch.optim.Adam:
     return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
 
 
+def apply_meta_gradient(opt: torch.optim.Adam, loss: torch.Tensor,
+                        params) -> None:
+    """Differentiate ``loss`` with respect to the leaves of ``params`` (a
+    leaf it does not reach gets a zero gradient) and step ``opt`` (from
+    :func:`adam`), which updates them in place."""
+    leaves = tree_leaves(params)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    for p, g in zip(leaves, grads):
+        p.grad = torch.zeros_like(p) if g is None else g
+    opt.step()
+
+
 def _batch_loss(fast_adapt, params, task_batch):
     res = fast_adapt(params, *task_batch)
     return res.loss.mean(), res.metric.mean()
@@ -149,12 +161,8 @@ def make_meta_step(fast_adapt: Callable):
     detached scalars on the device (no host sync)."""
 
     def meta_step(params, opt, *task_batch):
-        leaves = tree_leaves(params)
         loss, metric = _batch_loss(fast_adapt, params, task_batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        for p, g in zip(leaves, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
-        opt.step()
+        apply_meta_gradient(opt, loss, params)
         return params, opt, {"loss": loss.detach(), "metric": metric.detach()}
 
     return meta_step

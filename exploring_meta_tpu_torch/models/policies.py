@@ -1,12 +1,14 @@
-"""Gaussian MLP policy (port of ``DiagNormalPolicy`` from
-``exploring_meta_tpu/models/policies.py``; reference
-``core_functions/policies.py:30-67``).
+"""Gaussian MLP policies (port of ``DiagNormalPolicy`` and
+``DiagNormalPolicyANIL`` from ``exploring_meta_tpu/models/policies.py``;
+reference ``core_functions/policies.py:30-126``).
 
-Params are the JAX tree ``{"mean": [{"w": [in, out], "b": [out]}, ...],
-"sigma": [act]}``: a relu (or tanh) MLP for the mean and a learned,
-state-independent log-sigma clamped at ``log(1e-6)``. Per-task params
-carry a leading ``[B]`` on every leaf; with them the state is ``[B, N,
-obs]`` and the MLP runs as a batched matmul.
+``DiagNormalPolicy`` params are the JAX tree ``{"mean": [{"w": [in,
+out], "b": [out]}, ...], "sigma": [act]}``: a relu (or tanh) MLP for the
+mean and a learned, state-independent log-sigma clamped at ``log(1e-6)``.
+``DiagNormalPolicyANIL`` splits the mean into a tanh ``body`` and a linear
+``head`` (``{"body": [...], "head": {...}, "sigma": [act]}``). Per-task
+params carry a leading ``[B]`` on every leaf; with them the state is
+``[B, N, obs]`` and the MLP runs as a batched matmul.
 
 ``log_prob`` keeps the reference's quirk of *averaging* (not summing) the
 per-dimension log density over the action axis (``policies.py:54-56``).
@@ -21,7 +23,9 @@ import torch
 
 from exploring_meta_tpu_torch.models import distributions as dist
 from exploring_meta_tpu_torch.models import init as pinit
-from exploring_meta_tpu_torch.models.layers import mlp_apply, task_param
+from exploring_meta_tpu_torch.models.layers import (
+    linear, mlp_apply, task_param,
+)
 
 EPSILON = 1e-6
 MIN_LOG_SIGMA = math.log(EPSILON)
@@ -42,6 +46,34 @@ def _sigma(params) -> torch.Tensor:
                                  min=MIN_LOG_SIGMA))
 
 
+def _init_mlp(gen, sizes, device) -> list:
+    return [pinit.linear_params(gen, i, o, init="xavier", device=device)
+            for i, o in zip(sizes[:-1], sizes[1:])]
+
+
+def _module_sliced_rep(layer_params, act, x, layer: int,
+                       trailing_act: bool):
+    """The reference's ``get_representation``: walk the torch Sequential's
+    modules (Linear and activation modules counted separately) and apply
+    ``modules[1:layer]``, the first ``layer - 1`` of them; ``layer == -1``
+    applies all but the last. ``trailing_act``: the Sequential ends with
+    an activation (the ANIL body), not a Linear (the mean net)."""
+    mods: list = []
+    n = len(layer_params)
+    for i, p in enumerate(layer_params):
+        mods.append(p)
+        if i < n - 1 or trailing_act:
+            mods.append(None)  # activation module
+    sel = mods[:-1] if layer == -1 else mods[:max(layer - 1, 0)]
+    for m in sel:
+        x = linear(m, x) if m is not None else act(x)
+    return x
+
+
+def _mean_log_prob(loc, scale, action) -> torch.Tensor:
+    return dist.normal_log_prob(loc, scale, action).mean(dim=-1, keepdim=True)
+
+
 class DiagNormalPolicy(NamedTuple):
     """Static spec; params are a separate tree."""
     input_size: int
@@ -54,9 +86,7 @@ class DiagNormalPolicy(NamedTuple):
         ``fill_(log 1)``)."""
         sizes = (self.input_size,) + tuple(self.hiddens) + (self.output_size,)
         dev = device or gen.device
-        return {"mean": [pinit.linear_params(gen, i, o, init="xavier",
-                                             device=dev)
-                         for i, o in zip(sizes[:-1], sizes[1:])],
+        return {"mean": _init_mlp(gen, sizes, dev),
                 "sigma": torch.zeros(self.output_size, device=dev)}
 
     def _act(self):
@@ -69,10 +99,76 @@ class DiagNormalPolicy(NamedTuple):
 
     def log_prob(self, params, state, action) -> torch.Tensor:
         """-> ``[..., 1]``: the mean over action dims of the log density."""
-        loc, scale = self.density(params, state)
-        return dist.normal_log_prob(loc, scale, action).mean(dim=-1,
-                                                             keepdim=True)
+        return _mean_log_prob(*self.density(params, state), action)
 
     def sample(self, params, gen: torch.Generator, state) -> torch.Tensor:
         loc, scale = self.density(params, state)
         return dist.normal_sample(gen, loc, scale)
+
+    def get_representation(self, params, x, layer: int = -1):
+        """Activation tap with the reference's module-counted index
+        (``policies.py:63-67``): 1 is the identity, 2 the first Linear's
+        output, 3 adds its activation, ...; -1 applies all but the last
+        Linear."""
+        return _module_sliced_rep(params["mean"], self._act(), x, layer,
+                                  trailing_act=False)
+
+
+class DiagNormalPolicyANIL(NamedTuple):
+    """Tanh body, linear head; the ANIL inner loop adapts the head and
+    sigma on detached body features (``stop_body_grad``, the reference's
+    ``turn_off_body_grads``, ``policies.py:94-106``)."""
+    input_size: int
+    output_size: int
+    fc_neurons: int = 100
+    hiddens: tuple = (100, 100)
+
+    def init(self, gen: torch.Generator, device=None) -> dict:
+        """Xavier-uniform body and head, zero biases, ``sigma = 0``."""
+        if self.fc_neurons != self.hiddens[-1]:
+            # the reference's Linear(fc_neurons, out) head fails in the
+            # first forward for any other width; fail at init instead
+            raise ValueError(
+                f"fc_neurons={self.fc_neurons} must equal the body's "
+                f"output width hiddens[-1]={self.hiddens[-1]} "
+                f"(pass hiddens=(100, fc_neurons))")
+        dev = device or gen.device
+        sizes = (self.input_size,) + tuple(self.hiddens)
+        body = _init_mlp(gen, sizes, dev)
+        return {"body": body,
+                "head": pinit.linear_params(gen, self.fc_neurons,
+                                            self.output_size, init="xavier",
+                                            device=dev),
+                "sigma": torch.zeros(self.output_size, device=dev)}
+
+    def features(self, params, state):
+        """Tanh body, an activation after every layer (reference
+        ``:79-85``)."""
+        x = state
+        for p in params["body"]:
+            x = torch.tanh(linear(p, x))
+        return x
+
+    def density(self, params, state, stop_body_grad: bool = False):
+        """-> (loc, scale); ``stop_body_grad`` detaches the features."""
+        feats = self.features(params, state)
+        if stop_body_grad:
+            feats = feats.detach()
+        loc = linear(params["head"], feats)
+        return loc, _sigma(params).expand(loc.shape)
+
+    def log_prob(self, params, state, action,
+                 stop_body_grad: bool = False) -> torch.Tensor:
+        return _mean_log_prob(*self.density(params, state, stop_body_grad),
+                              action)
+
+    def sample(self, params, gen: torch.Generator, state) -> torch.Tensor:
+        loc, scale = self.density(params, state)
+        return dist.normal_sample(gen, loc, scale)
+
+    def get_representation(self, params, x, layer: int = -1):
+        """Module-counted tap over the body (reference ``:122-126``); the
+        body ends with an activation, so -1 is the last hidden layer's
+        pre-activation output."""
+        return _module_sliced_rep(params["body"], torch.tanh, x, layer,
+                                  trailing_act=True)

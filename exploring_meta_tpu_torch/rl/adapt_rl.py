@@ -1,5 +1,6 @@
-"""Meta-RL fast adaptation, the TRPO part (port of
-``exploring_meta_tpu/rl/adapt_rl.py``; reference ``core_functions/rl.py``).
+"""Meta-RL fast adaptation: VPG, PPO and TRPO (port of
+``exploring_meta_tpu/rl/adapt_rl.py``; reference
+``core_functions/rl.py:199-406``).
 
 JAX ``vmap``-s these functions over tasks. Here the task axis is written
 out: every trajectory is a task batch ``[B, T, E, ...]``, per-task params
@@ -10,7 +11,13 @@ adapts on its own data only.
 
 Masking: trajectories are fixed-shape with a ``valid`` mask, and every
 reduction is valid-weighted (PARITY D7). Sampled actions are data
-(rollout.py), so no reparameterization path reaches the meta-gradient.
+(rollout.py), so no reparameterization path reaches the meta-gradient,
+and neither do the advantages: they are functions of the trajectory
+alone, so the sweep kernels never see a tensor that requires grad.
+
+ANIL (reference ``turn_off_body_grads``, ``policies.py:94-106``): inner
+losses detach the body features and the inner update moves only the
+``head`` and ``sigma`` leaves; query losses keep the full graph.
 """
 
 from __future__ import annotations
@@ -19,9 +26,12 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from exploring_meta_tpu_torch.adapt.maml import inner_sgd
+from exploring_meta_tpu_torch.adapt.maml import inner_sgd, per_task
+from exploring_meta_tpu_torch.models.policies import DiagNormalPolicyANIL
 from exploring_meta_tpu_torch.ops.gae import compute_advantages, discount
-from exploring_meta_tpu_torch.ops.losses import a2c_policy_loss
+from exploring_meta_tpu_torch.ops.losses import (
+    a2c_policy_loss, magic_box, ppo_policy_loss, weighted_cumsum,
+)
 from exploring_meta_tpu_torch.ops.value import fit_linear_value, linear_value
 from exploring_meta_tpu_torch.rl.rollout import Trajectory, stack_trajectories
 from exploring_meta_tpu_torch.utils.tree import tree_map
@@ -36,6 +46,9 @@ class RLConfig(NamedTuple):
     adapt_steps: int = 1
     adapt_batch_size: int = 20    # episodes per rollout
     max_path_length: int = 100    # horizon
+    ppo_epochs: int = 3
+    ppo_clip_ratio: float = 0.3
+    anil: bool = False
     first_order: bool = False
     flat_timestep: bool = False   # True: cherry's LinearValue time feature,
                                   # the row index of the flat concatenated
@@ -44,13 +57,6 @@ class RLConfig(NamedTuple):
     value_reg: float = 1e-5       # LinearValue ridge; the reference passes
                                   # the action size here by accident (2.0
                                   # on Particles2D, PARITY D9)
-
-
-def per_task(params, B: int):
-    """Shared params -> ``[B, ...]`` copies, one per task (differentiable
-    with respect to the shared params)."""
-    return tree_map(lambda t: t.unsqueeze(0).expand((B,) + tuple(t.shape))
-                    .contiguous(), params)
 
 
 def _per_task_sum(x: torch.Tensor) -> torch.Tensor:
@@ -104,19 +110,35 @@ def traj_advantages(traj: Trajectory, cfg: RLConfig, update_vf: bool = True,
     return adv, baseline_w
 
 
-def _log_prob(policy, params, traj: Trajectory) -> torch.Tensor:
-    """``[B, T*E, 1]`` action log-probs (the mean over action dims)."""
-    return policy.log_prob(params, traj.flat(traj.state),
-                           traj.flat(traj.action))
+def _log_prob(policy, params, traj: Trajectory,
+              inner_anil: bool = False) -> torch.Tensor:
+    """``[B, T*E, 1]`` action log-probs (the mean over action dims);
+    ``inner_anil`` detaches an ANIL policy's body features."""
+    s, a = traj.flat(traj.state), traj.flat(traj.action)
+    if inner_anil and isinstance(policy, DiagNormalPolicyANIL):
+        return policy.log_prob(params, s, a, stop_body_grad=True)
+    return policy.log_prob(params, s, a)
+
+
+def policy_anil_mask(params, _trainable: bool = False):
+    """Trainable mask for ANIL: True on every leaf under a ``head`` or
+    ``sigma`` key, False on the body."""
+    if isinstance(params, dict):
+        return {k: policy_anil_mask(v, _trainable or k in ("head", "sigma"))
+                for k, v in params.items()}
+    if isinstance(params, (list, tuple)):
+        return type(params)(policy_anil_mask(v, _trainable) for v in params)
+    return _trainable
 
 
 def _inner_update(policy, params, loss_fn, cfg: RLConfig):
     """One MAML inner step ``p' = p - inner_lr * g`` on per-task params;
     ``loss_fn(params) -> [B]``. ``cfg.first_order`` takes ``g`` without a
     graph (JAX ``stop_gradient``); otherwise ``p'`` stays differentiable
-    to second order."""
+    to second order. ``cfg.anil`` freezes the body."""
     return inner_sgd(lambda p, _: loss_fn(p).sum(), params, None,
-                     cfg.inner_lr, 1, first_order=cfg.first_order)
+                     cfg.inner_lr, 1, first_order=cfg.first_order,
+                     trainable=policy_anil_mask(params) if cfg.anil else None)
 
 
 def _query_metrics(query: Trajectory) -> dict:
@@ -124,18 +146,145 @@ def _query_metrics(query: Trajectory) -> dict:
     return {"reward": rew, "success": query.episode_successes().mean(dim=-1)}
 
 
+def _normalized_advantages(traj: Trajectory, cfg: RLConfig,
+                           **kw) -> torch.Tensor:
+    """``[B, T*E, 1]`` GAE advantages normalized over each task's valid
+    steps, detached."""
+    adv, _ = traj_advantages(traj, cfg, **kw)
+    return masked_normalize(traj.flat(adv),
+                            traj.flat(traj.valid)).detach().unsqueeze(-1)
+
+
+# --------------------------------------------------------------------------
+# A2C / VPG
+# --------------------------------------------------------------------------
+
+def vpg_a2c_loss(policy, params, traj: Trajectory, cfg: RLConfig,
+                 inner_anil: bool = False, dice: bool = False) -> torch.Tensor:
+    """``[B]`` masked ``-(log pi * A).mean()`` with GAE advantages
+    (reference ``vpg_a2c_loss``, ``rl.py:208-226``; DiCE variant
+    ``:219-224``)."""
+    log_probs = _log_prob(policy, params, traj, inner_anil)
+    adv, _ = traj_advantages(traj, cfg)
+    adv = traj.flat(adv).unsqueeze(-1)
+    valid = traj.flat(traj.valid).unsqueeze(-1)
+    if dice:
+        # The DiCE recurrence runs over time within each episode, on the
+        # [B, T, E] layout. Terminal flags count only on valid steps: the
+        # filler after termination repeats done=1 but is no boundary (the
+        # reference's dones.sum() is the episode count, rl.py:219-222).
+        B, T, E = traj.reward.shape
+        lp = log_probs.reshape(B, T, E)
+        dones = traj.done * traj.valid
+        weights = torch.ones_like(dones)
+        weights[:, 1:] -= dones[:, :-1]
+        weights = weights / dones.flatten(1).sum(dim=1).clamp(
+            min=1.0).view(B, 1, 1)
+        lp = magic_box(weighted_cumsum(lp, weights, dim=1))
+        log_probs = lp.reshape(B, T * E, 1)
+    return a2c_policy_loss(log_probs, adv, valid=valid)
+
+
+def fast_adapt_vpg(policy, params, rollout_fn: Callable, tasks,
+                   gen: torch.Generator, cfg: RLConfig, dice: bool = False):
+    """VPG inner loop for a task batch ``tasks [B, ...]`` from the shared
+    ``params`` -> (adapted per-task params, differentiable query losses
+    ``[B]``, query metrics) (reference ``fast_adapt_vpg``,
+    ``rl.py:229-254``)."""
+    params = per_task(params, tasks.shape[0])
+    for _ in range(cfg.adapt_steps):
+        support = rollout_fn(params, tasks, gen)
+        params = _inner_update(
+            policy, params, lambda p: vpg_a2c_loss(
+                policy, p, support, cfg, inner_anil=cfg.anil, dice=dice),
+            cfg)
+    query = rollout_fn(params, tasks, gen)
+    return (params, vpg_a2c_loss(policy, params, query, cfg),
+            _query_metrics(query))
+
+
+# --------------------------------------------------------------------------
+# PPO
+# --------------------------------------------------------------------------
+
+def _ppo_clip_loss(policy, params, traj, adv_flat, old_log_probs,
+                   cfg: RLConfig, inner_anil: bool) -> torch.Tensor:
+    new_lp = _log_prob(policy, params, traj, inner_anil)
+    return ppo_policy_loss(new_lp, old_log_probs, adv_flat,
+                           clip=cfg.ppo_clip_ratio,
+                           valid=traj.flat(traj.valid).unsqueeze(-1))
+
+
+def _ppo_updates(policy, params, support: Trajectory, cfg: RLConfig,
+                 epochs: int):
+    """``epochs`` clipped updates on one support batch, against its
+    detached log-probs and normalized advantages."""
+    adv = _normalized_advantages(support, cfg)
+    old_lp = _log_prob(policy, params, support, cfg.anil).detach()
+    for _ in range(epochs):
+        params = _inner_update(
+            policy, params, lambda p: _ppo_clip_loss(
+                policy, p, support, adv, old_lp, cfg, cfg.anil), cfg)
+    return params
+
+
+def fast_adapt_ppo(policy, params, rollout_fn: Callable, tasks,
+                   gen: torch.Generator, cfg: RLConfig):
+    """PPO inner loop with differentiable query losses ``[B]`` (reference
+    ``fast_adapt_ppo``, ``rl.py:264-316``): ``cfg.ppo_epochs`` clipped
+    updates per support batch, each kept to second order unless
+    ``cfg.first_order`` (the outer step differentiates through all of
+    them, ``maml_ppo.py:128-130``) -> (adapted per-task params, query
+    losses, query metrics)."""
+    params = per_task(params, tasks.shape[0])
+    for _ in range(cfg.adapt_steps):
+        support = rollout_fn(params, tasks, gen)
+        params = _ppo_updates(policy, params, support, cfg, cfg.ppo_epochs)
+    query = rollout_fn(params, tasks, gen)
+    old_lp = _log_prob(policy, params, query).detach()
+    valid_loss = _ppo_clip_loss(policy, params, query,
+                                _normalized_advantages(query, cfg), old_lp,
+                                cfg, False)
+    return params, valid_loss, _query_metrics(query)
+
+
+# --------------------------------------------------------------------------
+# TRPO inner loop (outer step in trpo_meta.py)
+# --------------------------------------------------------------------------
+
 def trpo_a2c_loss(policy, params, traj: Trajectory, cfg: RLConfig,
-                  update_vf: bool = True, baseline_w=None) -> torch.Tensor:
+                  update_vf: bool = True, inner_anil: bool = False,
+                  baseline_w=None) -> torch.Tensor:
     """``[B]`` A2C surrogates with normalized, detached advantages
     (reference ``trpo_a2c_loss``, ``rl.py:346-358``). ``update_vf=False``
     reuses ``baseline_w``; without one it fits on this trajectory."""
-    log_probs = _log_prob(policy, params, traj)
-    adv, _ = traj_advantages(traj, cfg, update_vf=update_vf,
-                             baseline_w=baseline_w)
-    valid = traj.flat(traj.valid)
-    adv = masked_normalize(traj.flat(adv), valid).detach()
-    return a2c_policy_loss(log_probs, adv.unsqueeze(-1),
-                           valid=valid.unsqueeze(-1))
+    log_probs = _log_prob(policy, params, traj, inner_anil)
+    adv = _normalized_advantages(traj, cfg, update_vf=update_vf,
+                                 baseline_w=baseline_w)
+    return a2c_policy_loss(log_probs, adv,
+                           valid=traj.flat(traj.valid).unsqueeze(-1))
+
+
+def single_adapt_step(algo: str, policy, params, support: Trajectory,
+                      cfg: RLConfig, ppo_epochs: int = 1):
+    """One first-order inner step of per-task ``params`` on a collected
+    support batch ``[B, T, E, ...]``, by algorithm (the reference's
+    analysis-side updates, ``cl_rl.py:70-87``: vpg ``adapt``,
+    ``single_ppo_update``, ``trpo_update``).
+
+    ``ppo_epochs``: clipped updates per call for ``algo="ppo"``. The
+    reference's ``single_ppo_update`` makes one (``rl.py:319-336``), its
+    training ``fast_adapt_ppo`` ``params['ppo_epochs']``; the default 1 is
+    the analysis semantics."""
+    step_cfg = cfg._replace(first_order=True)
+    if algo == "trpo":
+        return trpo_update(policy, params, support, step_cfg)
+    if algo == "vpg":
+        return _inner_update(policy, params, lambda p: vpg_a2c_loss(
+            policy, p, support, cfg, inner_anil=cfg.anil), step_cfg)
+    if algo == "ppo":
+        return _ppo_updates(policy, params, support, step_cfg, ppo_epochs)
+    raise ValueError(f"unknown algo {algo!r}")
 
 
 def trpo_update(policy, params, traj: Trajectory, cfg: RLConfig,
@@ -148,6 +297,7 @@ def trpo_update(policy, params, traj: Trajectory, cfg: RLConfig,
         first_order=first_order)
     loss_fn = lambda p: trpo_a2c_loss(policy, p, traj, step_cfg,
                                       update_vf=baseline_w is None,
+                                      inner_anil=step_cfg.anil,
                                       baseline_w=baseline_w)
     return _inner_update(policy, params, loss_fn, step_cfg)
 

@@ -3,6 +3,10 @@
 ``core_functions/rl.py:142-196``): adapt to fresh tasks, then measure a
 fresh rollout of each adapted policy. Host envs, ``each3``, explicit ML10
 tasks and ``test_on_train`` are not ported yet.
+
+Evaluation takes no meta-gradient, so VPG and PPO adapt under
+``torch.no_grad()``: the inner steps then run first order
+(``adapt/maml.py:inner_sgd``) to the same adapted values.
 """
 
 from __future__ import annotations
@@ -11,7 +15,7 @@ import torch
 
 from exploring_meta_tpu_torch.envs.factory import make_env
 from exploring_meta_tpu_torch.rl.adapt_rl import (
-    RLConfig, _query_metrics, fast_adapt_trpo,
+    RLConfig, _query_metrics, fast_adapt_ppo, fast_adapt_trpo, fast_adapt_vpg,
 )
 from exploring_meta_tpu_torch.rl.rollout import make_rollout
 
@@ -21,13 +25,13 @@ def evaluate(algo: str, policy, params, env, rollout_fn, cfg: RLConfig,
     """Adapt ``params`` to ``n_tasks`` fresh tasks, all at once, and roll
     each adapted policy out once more -> metrics dict (per-task rewards
     and success rates, their means, empty ``rewards_per_task``)."""
-    if algo != "trpo":
-        raise NotImplementedError(
-            f"evaluate: algo {algo!r} is not ported yet (ROADMAP Queue 1, "
-            "later slices: the Adam outer paths)")
+    fast_adapt = {"vpg": fast_adapt_vpg, "ppo": fast_adapt_ppo,
+                  "trpo": fast_adapt_trpo}.get(algo)
+    if fast_adapt is None:
+        raise ValueError(f"unknown algo {algo!r}")
     tasks = env.sample_tasks(gen, n_tasks)
-    adapted, _, _, _ = fast_adapt_trpo(policy, params, rollout_fn, tasks,
-                                       gen, cfg)
+    with torch.no_grad():
+        adapted = fast_adapt(policy, params, rollout_fn, tasks, gen, cfg)[0]
     m = _query_metrics(rollout_fn(adapted, tasks, gen))
     rewards, successes = m["reward"].cpu(), m["success"].cpu()
     return {

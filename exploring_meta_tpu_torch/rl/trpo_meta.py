@@ -3,7 +3,8 @@
 ``meta_surrogate_loss``, ``core_functions/rl.py:409-473``).
 
 The surrogate re-runs every task's inner adaptation from the stored
-replays with a second-order graph; the step direction is a
+replays with a second-order graph (on the head and sigma only, on
+detached body features, when ``cfg.anil``); the step direction is a
 conjugate-gradient solve against the Fisher (the Hessian of the mean KL),
 scaled to the trust region, then accepted by a backtracking line search.
 
@@ -21,6 +22,7 @@ from typing import NamedTuple
 
 import torch
 
+from exploring_meta_tpu_torch.adapt.maml import per_task
 from exploring_meta_tpu_torch.models.distributions import (
     normal_kl, normal_log_prob,
 )
@@ -29,8 +31,7 @@ from exploring_meta_tpu_torch.ops.cg import (
 )
 from exploring_meta_tpu_torch.ops.losses import trpo_policy_loss
 from exploring_meta_tpu_torch.rl.adapt_rl import (
-    RLConfig, masked_mean, masked_normalize, per_task, traj_advantages,
-    trpo_update,
+    RLConfig, masked_mean, masked_normalize, traj_advantages, trpo_update,
 )
 from exploring_meta_tpu_torch.rl.rollout import Trajectory, stack_trajectories
 from exploring_meta_tpu_torch.utils.tree import (

@@ -1,10 +1,13 @@
-"""Meta-RL trainer, MAML-TRPO on device envs (port of the device-env TRPO
-path of ``exploring_meta_tpu/trainers/rl.py``; reference
-``rl/maml_trpo.py``).
+"""Meta-RL trainer on device envs: MAML/ANIL x TRPO/PPO/VPG (port of the
+device-env paths of ``exploring_meta_tpu/trainers/rl.py``; reference
+``rl/maml_trpo.py``, ``rl/anil_trpo.py``, ``rl/maml_ppo.py``,
+``rl/anil_ppo.py``, ``rl/maml_vpg.py``).
 
-One iteration samples a meta-batch of tasks, collects each task's support
-and query rollouts around a first-order inner step, then takes the
-second-order TRPO outer step on the stored replays. After the last
+One iteration samples a meta-batch of tasks. TRPO collects each task's
+support and query rollouts around a first-order inner step, then takes
+the second-order natural-gradient step on the stored replays. PPO and VPG
+adapt every task to second order (a rollout keeps no graph: its actions
+are data) and take one Adam step on the mean query loss. After the last
 iteration (or a KeyboardInterrupt, or a diverged loss) the trainer saves
 the model and meta-tests it on fresh tasks.
 
@@ -18,10 +21,15 @@ import time
 
 import torch
 
+from exploring_meta_tpu_torch.adapt.maml import adam, apply_meta_gradient
 from exploring_meta_tpu_torch.device import resolve_device
 from exploring_meta_tpu_torch.envs.factory import make_env
-from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
-from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig, make_trpo_collect
+from exploring_meta_tpu_torch.models.policies import (
+    DiagNormalPolicy, DiagNormalPolicyANIL,
+)
+from exploring_meta_tpu_torch.rl.adapt_rl import (
+    RLConfig, fast_adapt_ppo, fast_adapt_vpg, make_trpo_collect,
+)
 from exploring_meta_tpu_torch.rl.evaluate import meta_test
 from exploring_meta_tpu_torch.rl.rollout import make_rollout
 from exploring_meta_tpu_torch.rl.trpo_meta import (
@@ -33,12 +41,45 @@ from exploring_meta_tpu_torch.utils.config import (
 from exploring_meta_tpu_torch.utils.experiment import (
     DivergenceError, Experiment,
 )
+from exploring_meta_tpu_torch.utils.tree import tree_map
+
+ALGOS = ("trpo", "ppo", "vpg")
 
 
-def _check_ported(cfg: RLScriptConfig, algo: str, anil: bool) -> None:
+def build_policy(env, anil: bool, fc_neurons: int = 100,
+                 activation: str = "relu"):
+    """The policy of a run. ANIL's body is tanh by construction, with its
+    output width tied to the head's input (``hiddens=(100, fc_neurons)``;
+    the reference's body is [100, 100] whatever ``fc_neurons``);
+    ``activation`` applies to ``DiagNormalPolicy`` only (the reference
+    carries it but never passes it on)."""
+    if anil:
+        return DiagNormalPolicyANIL(env.obs_size, env.action_size,
+                                    fc_neurons=fc_neurons,
+                                    hiddens=(100, fc_neurons))
+    return DiagNormalPolicy(env.obs_size, env.action_size,
+                            activation=activation)
+
+
+def rl_config(cfg: RLScriptConfig, anil: bool = False) -> RLConfig:
+    """The fast-adapt hyperparameters of a run's script config."""
+    return RLConfig(inner_lr=cfg.inner_lr, gamma=cfg.gamma, tau=cfg.tau,
+                    adapt_steps=cfg.adapt_steps,
+                    adapt_batch_size=cfg.adapt_batch_size,
+                    max_path_length=cfg.max_path_length,
+                    ppo_epochs=cfg.ppo_epochs,
+                    ppo_clip_ratio=cfg.ppo_clip_ratio, anil=anil)
+
+
+def trpo_config(cfg: RLScriptConfig) -> TRPOConfig:
+    """The TRPO outer step's hyperparameters of a run's script config."""
+    return TRPOConfig(outer_lr=cfg.outer_lr, max_kl=cfg.max_kl,
+                      ls_max_steps=cfg.ls_max_steps,
+                      backtrack_factor=cfg.backtrack_factor)
+
+
+def _check_ported(cfg: RLScriptConfig) -> None:
     unported = [
-        (anil, "anil", "ANIL and the Adam outer paths"),
-        (algo != "trpo", f"algo={algo!r}", "ANIL and the Adam outer paths"),
         (not cfg.env.startswith("Particles2D"), f"env={cfg.env!r}",
          "host envs"),
         (cfg.task_batch, "task_batch", "host envs"),
@@ -57,30 +98,28 @@ def _check_ported(cfg: RLScriptConfig, algo: str, anil: bool) -> None:
 
 
 class RLTrainer(Experiment):
-    """MAML-TRPO meta-training loop for device envs.
+    """Meta-RL training loop for device envs; ``algo`` is ``"trpo"``,
+    ``"ppo"`` or ``"vpg"``.
 
     ``device`` defaults to the card; pass ``device="cpu"`` to train on the
     CPU. Without a card the default raises before any run dir is made."""
 
     def __init__(self, cfg: RLScriptConfig, algo: str = "trpo",
                  anil: bool = False, path: str = "results/", device=None):
-        _check_ported(cfg, algo, anil)
+        if algo not in ALGOS:
+            raise ValueError(f"unknown algo {algo!r} (one of {ALGOS})")
+        _check_ported(cfg)
         self.device = resolve_device(device)
         super().__init__(f"{'anil' if anil else 'maml'}_{algo}", cfg.env,
                          cfg.to_params(), path=path)
         self.cfg = cfg
         self.algo = algo
-
-    def _trpo_cfg(self) -> TRPOConfig:
-        cfg = self.cfg
-        return TRPOConfig(outer_lr=cfg.outer_lr, max_kl=cfg.max_kl,
-                          ls_max_steps=cfg.ls_max_steps,
-                          backtrack_factor=cfg.backtrack_factor)
+        self.anil = anil
 
     def _make_trpo_iteration(self, env, policy, roll, rl_cfg: RLConfig):
         """``(params, None, gen) -> (params, None, metrics)``."""
         cfg = self.cfg
-        meta_step = make_trpo_meta_step(policy, rl_cfg, self._trpo_cfg(),
+        meta_step = make_trpo_meta_step(policy, rl_cfg, trpo_config(cfg),
                                         adapt_steps=cfg.adapt_steps)
         collect = make_trpo_collect(policy, roll, rl_cfg)
 
@@ -97,28 +136,54 @@ class RLTrainer(Experiment):
 
         return iteration
 
+    def _make_adam_iteration(self, env, policy, roll, rl_cfg: RLConfig):
+        """``(params, opt, gen) -> (params, opt, metrics)``: second-order
+        PPO or VPG adaptation of a meta-batch and one Adam step on the mean
+        query loss."""
+        cfg = self.cfg
+        fast_adapt = {"ppo": fast_adapt_ppo, "vpg": fast_adapt_vpg}[self.algo]
+
+        def iteration(params, opt, gen):
+            tasks = env.sample_tasks(gen, cfg.meta_batch_size)
+            _, losses, metrics = fast_adapt(policy, params, roll, tasks, gen,
+                                            rl_cfg)
+            loss = losses.mean()
+            apply_meta_gradient(opt, loss, params)
+            return params, opt, {
+                "meta_loss": float(loss.detach()),
+                "adapt_reward": float(metrics["reward"].mean()),
+                "adapt_success": float(metrics["success"].mean()),
+            }
+
+        return iteration
+
     def run(self) -> dict:
         cfg = self.cfg
         env = make_env(cfg.env)
-        policy = DiagNormalPolicy(env.obs_size, env.action_size,
-                                  activation=cfg.activation)
+        policy = build_policy(env, self.anil, fc_neurons=cfg.fc_neurons,
+                              activation=cfg.activation)
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         params = policy.init(gen)
         self.log_model(params)
-        rl_cfg = RLConfig(inner_lr=cfg.inner_lr, gamma=cfg.gamma,
-                          tau=cfg.tau, adapt_steps=cfg.adapt_steps,
-                          adapt_batch_size=cfg.adapt_batch_size,
-                          max_path_length=cfg.max_path_length)
+        rl_cfg = rl_config(cfg, self.anil)
         roll = make_rollout(env, policy.sample,
                             episodes=cfg.adapt_batch_size,
                             horizon=cfg.max_path_length)
-        step_fn = self._make_trpo_iteration(env, policy, roll, rl_cfg)
+        if self.algo == "trpo":
+            # TRPO's natural-gradient step is stateless
+            state = None
+            step_fn = self._make_trpo_iteration(env, policy, roll, rl_cfg)
+        else:
+            # the Adam leaves, stepped in place
+            params = tree_map(torch.Tensor.requires_grad_, params)
+            state = adam(params, cfg.outer_lr)
+            step_fn = self._make_adam_iteration(env, policy, roll, rl_cfg)
 
         start = time.perf_counter()
         iteration = 0
         try:
             for iteration in range(cfg.num_iterations):
-                params, _, metrics = step_fn(params, None, gen)
+                params, state, metrics = step_fn(params, state, gen)
                 print(f"iteration {iteration}: {metrics}", flush=True)
                 self.log_metrics(metrics)
                 if iteration % cfg.save_every == 0:

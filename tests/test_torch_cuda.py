@@ -144,9 +144,9 @@ def test_served_batch_runs_every_kernel(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(20, 100, 20), (40, 150, 20), (100, 400),
-                                   (100,), (1,), (129,), (4, 129, 5),
-                                   (1000,)])
+@pytest.mark.parametrize("shape", [(20, 100, 20), (64, 50, 10), (40, 150, 20),
+                                   (100, 400), (100,), (1,), (129,),
+                                   (4, 129, 5), (1000,)])
 @pytest.mark.parametrize("dones", ["mid", "zeros", "ones"])
 def test_sweep_kernels_match_plain_twins(cuda_device, shape, dones):
     """The main path's shape, the reference's maml_trpo scale, the [T,
@@ -209,6 +209,84 @@ def test_trpo_iteration_runs_the_sweeps(cuda_device, tmp_path):
     # collection 3 + two surrogate evaluations or more 2 each, + meta-test 3
     assert counts["gae_sweep"] >= 10 and counts["discount_sweep"] >= 10
     assert np.isfinite(final["mean_reward"])
+
+
+def _policy_supports(n, dev, seed=1):
+    """A DiagNormalPolicy (100, 100), its params (CPU) and ``n`` support
+    batches of 10 episodes x 50 steps collected on ``dev``."""
+    from exploring_meta_tpu_torch.envs.particles2d import Particles2D
+    from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
+    from exploring_meta_tpu_torch.rl.rollout import make_rollout
+    env = Particles2D()
+    policy = DiagNormalPolicy(2, 2)
+    params = policy.init(torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    roll = make_rollout(env, policy.sample, 10, 50)
+    return policy, params, roll(_to(params, dev), env.sample_tasks(gen, n),
+                                gen)
+
+
+def _to(tree, dev):
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["vpg", "ppo", "trpo"])
+def test_policy_server_runs_the_sweeps_and_matches_the_cpu(cuda_device,
+                                                           algo):
+    from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
+    from exploring_meta_tpu_torch.serve import PolicyServer
+    policy, params, stack = _policy_supports(8, cuda_device)
+    cfg = RLConfig(**chip_smoke.SERVE_RL_CFG)
+    gc.reset_launch_counts()
+    server = PolicyServer(policy, params, cfg, algo=algo)
+    got, fits = chip_smoke.with_baseline_fits(
+        lambda: server.adapt_batched(stack))
+    torch.cuda.synchronize()
+    assert gc.launch_counts() == {"gae_sweep": 1, "discount_sweep": 1}
+    cpu = PolicyServer(policy, params, cfg, algo=algo, device="cpu")
+    # on the card's baseline fits (chip_smoke.ADAPT_TOL says why)
+    want, _ = chip_smoke.with_baseline_fits(
+        lambda: cpu.adapt_batched(stack.map(torch.Tensor.cpu)), fits)
+    chip_smoke.tree_close(torch, got, want, chip_smoke.ADAPT_TOL,
+                          f"{algo} card vs CPU")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo,anil", [("ppo", False), ("vpg", True)])
+def test_adam_iteration_runs_the_sweeps(cuda_device, tmp_path, algo, anil):
+    from exploring_meta_tpu_torch.trainers.rl import RLTrainer
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+    # Adam at the reference maml_ppo's 0.01: at the default 0.1 (TRPO's
+    # step size) this small run diverges to NaN within 3 iterations, as
+    # the JAX trainer's does
+    cfg = RLScriptConfig(num_iterations=2, meta_batch_size=4,
+                         adapt_batch_size=5, max_path_length=20,
+                         n_eval_tasks=2, outer_lr=0.01)
+    gc.reset_launch_counts()
+    final = RLTrainer(cfg, algo=algo, anil=anil,
+                      path=str(tmp_path) + "/").run()
+    # per iteration: one support batch and the query; the meta-test too
+    assert gc.launch_counts() == {"gae_sweep": 6, "discount_sweep": 6}
+    assert np.isfinite(final["mean_reward"])
+
+
+@pytest.mark.cuda
+def test_ppo_replay_meta_gradient_card_vs_cpu(cuda_device):
+    from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
+    from exploring_meta_tpu_torch.rl.replay_meta import make_replay_meta_loss
+    from exploring_meta_tpu_torch.rl.rollout import stack_trajectories
+    policy, params, support = _policy_supports(4, cuda_device)
+    _, _, query = _policy_supports(4, cuda_device, seed=2)
+    replays = stack_trajectories([support, query], dim=1)
+    cfg = RLConfig(inner_lr=0.05, adapt_batch_size=10, max_path_length=50)
+    # held on the card's baseline fits (chip_smoke.ADAPT_TOL says why),
+    # within chip_smoke.REPLAY_*; fails inside on any disagreement
+    res = chip_smoke.ppo_replay_card_vs_cpu(
+        torch, make_replay_meta_loss("ppo", policy, cfg), params, replays,
+        cfg.ppo_clip_ratio)
+    assert res["grad_max_rel_err"] <= res["grad_tol"]
 
 
 def _meta_grad(impl, dev, dtype=None, tasks=4, steps=1):

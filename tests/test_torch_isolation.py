@@ -51,7 +51,9 @@ def test_port_module_list_is_complete():
                 # slice 5: the sweeps' redesign
                 "cuda.compare_sweeps",
                 # slice 6: vision meta-training
-                "adapt.vision", "trainers.vision"):
+                "adapt.vision", "trainers.vision",
+                # slice 7: policy serving and the Adam outer paths
+                "rl.replay_meta"):
         assert f"exploring_meta_tpu_torch.{mod}" in names
 
 

@@ -1,4 +1,5 @@
-"""MAML-TRPO trainer, config and CLI of the PyTorch port, on the CPU.
+"""The meta-RL trainer (MAML/ANIL x TRPO/PPO/VPG), config and CLI of the
+PyTorch port, on the CPU.
 
 The run directory must keep the JAX package's contract (its
 ``utils/experiment.py``): the same files, JSON keys and ``.npz`` key
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from exploring_meta_tpu.models.policies import DiagNormalPolicy as JPolicy
+from exploring_meta_tpu.models.policies import DiagNormalPolicyANIL as JANIL
 from exploring_meta_tpu.utils import config as jconfig
 from exploring_meta_tpu.utils.experiment import load_checkpoint as jload_ckpt
 from exploring_meta_tpu.utils.experiment import load_params as jload_params
@@ -109,7 +111,8 @@ def test_default_device_is_the_card_never_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    {"anil": True}, {"algo": "ppo"}, {"algo": "vpg"},
+    {"anil": True, "fuse": 2}, {"algo": "ppo", "bf16": True},
+    {"algo": "vpg", "env": "AntDirection-v1"},
     {"env": "AntDirection-v1"}, {"task_batch": True}, {"fuse": 2},
     {"mesh": 2}, {"bf16": True}, {"resume": "model.npz"},
     {"async_ckpt": True}, {"ckpt_backend": "orbax"}, {"use_wandb": True},
@@ -217,7 +220,51 @@ def test_evaluate_device_env():
     assert out["mean_reward"] == pytest.approx(np.mean(out["tasks_rewards"]))
     assert all(-10.0 <= r < 0 for r in out["tasks_rewards"])
     assert 0.0 <= out["mean_success"] <= 1.0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate("ppo", policy, params, env, roll, cfg, 4, gen)
+    with pytest.raises(ValueError, match="sgd"):
+        evaluate("sgd", policy, params, env, roll, cfg, 4, gen)
+    for algo in ("ppo", "vpg"):
+        out = evaluate(algo, policy, params, env, roll, cfg, 2, gen)
+        assert all(-10.0 <= r < 0 for r in out["tasks_rewards"])
     with pytest.raises(NotImplementedError, match="host envs"):
         meta_test("trpo", "ML10", policy, params, cfg, 4, gen)
+
+
+@pytest.mark.parametrize("command", ["anil_trpo", "maml_ppo", "anil_ppo",
+                                     "maml_vpg", "anil_vpg"])
+def test_rl_cli_entries_run_on_the_cpu_only_when_asked(tmp_path, monkeypatch,
+                                                       command):
+    """One tiny iteration of each entry with ``EMT_FORCE_CPU=1``; its model
+    and checkpoint load in the JAX package (the ANIL tree: ``body/...``,
+    ``head/...``, ``sigma``)."""
+    monkeypatch.chdir(tmp_path)
+    argv = ["--num_iterations", "1", "--meta_batch_size", "2",
+            "--adapt_batch_size", "3", "--max_path_length", "8",
+            "--n_eval_tasks", "2", "--fc_neurons", "16"]
+    monkeypatch.delenv("EMT_FORCE_CPU", raising=False)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.COMMANDS[command](argv)
+        assert not os.path.exists(tmp_path / "results")
+    monkeypatch.setenv("EMT_FORCE_CPU", "1")
+    final = cli.COMMANDS[command](argv)
+    assert math.isfinite(final["mean_reward"])
+    run = _run_dir(str(tmp_path / "results"))
+    assert os.path.basename(run).startswith(f"{command}_Particles2D-v1_")
+    with open(os.path.join(run, "metrics.json")) as f:
+        metrics = json.load(f)
+    assert all(v is not None and math.isfinite(v)
+               for vals in metrics.values() for v in vals)
+    assert {"meta_loss", "adapt_reward", "adapt_success"} <= set(metrics)
+    import jax
+    jtemplate = (JANIL(2, 2, fc_neurons=16, hiddens=(100, 16))
+                 if command.startswith("anil") else JPolicy(2, 2)).init(
+                     jax.random.key(0))
+    jparams = jload_params(os.path.join(run, "model.npz"), jtemplate)
+    ckpt, _, _, iteration = jload_ckpt(
+        os.path.join(run, "model_checkpoints", "model_0.npz"), jtemplate)
+    assert iteration == 0
+    for tree in (jparams, ckpt):
+        assert all(np.isfinite(np.asarray(x)).all()
+                   for x in jax.tree_util.tree_leaves(tree))
+    if command.startswith("anil"):
+        assert np.asarray(jparams["head"]["w"]).shape == (16, 2)
