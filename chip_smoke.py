@@ -50,7 +50,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    temporary run dir, with the counters zeroed just before and checked per
    iteration, finite metrics, the saved model and checkpoint loading back
    and a finite meta-test; tasks/s of the meta-step in f32 and bf16,
-   fused and direct, timed in turns; one meta-step profiled (idle share,
+   fused and direct, timed in turns (CUDA-graph replays of
+   ``make_train_scan``, as ``bench.py`` times one XLA program); one
+   eager meta-step profiled (idle share,
    launches, device time of the CNN4 kernels, of the plain double backward
    and of the rest);
 7. meta-RL policy serving (slice 7), at ``bench.py``'s ``serve_rl``:
@@ -73,8 +75,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
    launches, the sweeps' device time); one ``make_replay_meta_loss("ppo")``
    value and meta-gradient on identical replays on the card and on the
    CPU, with every PPO ratio recorded;
-9. print one ``{"kernels": [...]}`` line, the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+9. fused meta-iterations (slice 8, ``--fuse 10``) as CUDA-graph replays:
+   for MAML-TRPO at ``bench.py``'s ``trpo_particles``, maml_ppo and
+   ``maml_omni`` (bf16, meta-batch 32), 20 iterations through the trainer
+   (two chunks, the first with the eager warm-up) with the counters zeroed
+   just before: one capture and 19 replays, each kernel of the path
+   launched by the warm-up and recorded in the graph; the final params
+   against the same run at ``fuse 1`` (Adam within 1e-5 of max|params|,
+   TRPO within 2e-2 of the step), and ``fuse 1`` against itself; then,
+   on the same objects built outside the trainer, one replay against one
+   eager iteration from the same generator state, s per iteration of the
+   graph and eager in turns, and a chunk of replays and one eager
+   iteration profiled (host launches per iteration, idle share, the
+   kernels inside the replays); phase 5 also profiles the TRPO line
+   search, stopping early and host-free;
+10. print one ``{"kernels": [...]}`` line, the card line again, and last
+    ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports neither
 JAX nor the JAX package. Without a card it exits 1 and prints no result.
@@ -177,11 +193,12 @@ SO_TOL, SO_DB_TOL, SO_FLIP_TOL = (3e-4, 3e-5), 1e-4, 1e-2
 BF16_LOSS_TOL, BF16_GRAD_RATIO = 2e-2, 1.5
 # tasks/s as bench.py measures it: 32 x steps / wall time of make_train_scan
 # over TIMED_STEPS steps (ended by a sync), after WARM_STEPS; best of
-# WINDOWS windows, the configurations timed in turns
+# WINDOWS windows, the configurations timed in turns. Since slice 8 the
+# timed steps are CUDA-graph replays, as bench.py's are one XLA program.
 TIMED_STEPS, WARM_STEPS, WINDOWS = 10, 2, 3
 # profiler ranges: the kernel wrappers' and the plain double backward's
 RANGES = ("cnn4_block_fwd", "cnn4_block_bwd_params", "cnn4_block_bwd_input",
-          "cnn4_block_double_backward")
+          "cnn4_block_double_backward", "trpo_line_search")
 # the kernels of csrc/cnn4_block.cu (the profiler prefixes their
 # namespace and suffixes their template arguments)
 CNN4_KERNEL_NAMES = ("fwd_conv_stats_kernel", "fwd_combine_kernel",
@@ -222,6 +239,16 @@ ADAM_ITERATIONS = 3
 # gradient and the returns can.
 REPLAY_GRAD_TOL, REPLAY_FLIP_TOL, CLIP_MARGIN = 1e-5, 1e-3, 1e-3
 REPLAY_LOSS_TOL = 1e-5
+# Fused meta-iterations (slice 8): --fuse FUSE, FUSED_ITERATIONS iterations
+# through each trainer (two chunks, the first with the eager warm-up).
+# Graph vs eager (the same seed at fuse 1), and one replay vs one eager
+# iteration from the same state: the Adam paths within 1e-5 of
+# max|params|; TRPO within ROADMAP Queue 3's 2e-2 of the step, since f32
+# CG on a Fisher damped by 1e-5 amplifies last-bit differences. Both run
+# the same kernels on the same numbers, so far less is expected.
+# FUSED_EAGER eager iterations a timing turn.
+FUSE, FUSED_ITERATIONS, FUSED_EAGER = 10, 20, 3
+FUSED_ADAM_TOL, FUSED_TRPO_TOL = 1e-5, 2e-2
 
 
 def check(ok: bool, what: str) -> None:
@@ -930,6 +957,27 @@ def trpo_profile(torch, gpu) -> dict:
               f"launches [{gpu}]")
         for key, us, count in top:
             print(f"  {us:12.1f} us  x{count:5d}  {key}")
+    # the line search's device time (its range's span on the device
+    # timeline) at the fused configuration's TRPO settings: stopping at
+    # the first accepted candidate, and host-free (every candidate)
+    from exploring_meta_tpu_torch.trainers.rl import trpo_config
+    fused_trpo = trpo_config(fused_configs()["maml_trpo"][2])
+    for name, host_free in (("line_search_early_exit", False),
+                            ("line_search_host_free", True)):
+        step = make_trpo_meta_step(policy, rl_cfg, fused_trpo,
+                                   cfg.adapt_steps, host_free=host_free)
+        step(params, old, replays)
+        torch.cuda.synchronize()
+        prof = range_profile(torch, lambda: step(params, old, replays))
+        out[name] = {"device_us": prof["ranges_us"]["trpo_line_search"],
+                     "meta_step_busy_us": prof["busy_union_us"],
+                     "meta_step_kernel_launches": prof["kernel_launches"],
+                     "profiled_wall_us": prof["profiled_wall_us"]}
+        print(f"{name} (outer_lr {fused_trpo.outer_lr}, "
+              f"{fused_trpo.ls_max_steps} steps): line search "
+              f"{out[name]['device_us']} us on the device of a meta-step "
+              f"busy {prof['busy_union_us']} us, {prof['kernel_launches']} "
+              f"kernel launches [{gpu}]", flush=True)
     return out
 
 
@@ -1318,13 +1366,12 @@ def vision_timing(torch, gpu) -> dict:
                 device="cuda"))
             opt = adam(params, cfg.outer_lr)
             gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
-            fa = fast_adapt(dname)
-            params, opt, m = make_train_scan(fa, sample, WARM_STEPS)(
-                params, opt, gen)
+            timed = make_train_scan(fast_adapt(dname), sample, TIMED_STEPS)
+            # the eager warm-up, the capture and a replay
+            params, opt, m = timed(params, opt, gen, WARM_STEPS)
             check(bool(torch.isfinite(m["loss"]).all()), f"{impl} {dname} "
                                                           "warm-up finite")
-            state[impl, dname] = (params, opt, gen,
-                                  make_train_scan(fa, sample, TIMED_STEPS))
+            state[impl, dname] = (params, opt, gen, timed)
             out[f"{impl}_{dname}"] = {"tasks_per_s": []}
         for _ in range(WINDOWS):
             for impl, dname in configs:
@@ -1804,6 +1851,330 @@ def replay_grad_phase(torch, gpu) -> dict:
     return res
 
 
+
+def fused_configs() -> dict:
+    """The fused configurations at full width -> {name: (trainer kind,
+    its keyword arguments, config)}: MAML-TRPO at ``bench.py``'s
+    ``trpo_particles`` (outer_lr 1.0, ``bench.py:475-493``), maml_ppo at
+    the ``RLScriptConfig`` defaults with Adam 0.01, and ``maml_omni``
+    (:func:`vision_config`) through ``VisionTrainer``."""
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+    return {"maml_trpo": ("rl", {"algo": "trpo"},
+                          RLScriptConfig(outer_lr=1.0, seed=SEED)),
+            "maml_ppo": ("rl", {"algo": "ppo"},
+                         RLScriptConfig(outer_lr=0.01, seed=SEED)),
+            "maml_vision": ("vision", {}, vision_config())}
+
+
+def fused_trainer_run(torch, gc, tc, kind: str, kw: dict, cfg, fuse: int,
+                      tmp: str) -> dict:
+    """One trainer run of FUSED_ITERATIONS iterations at ``fuse``, with
+    every counter zeroed just before -> its counters, wall time, metrics
+    and final params."""
+    import dataclasses
+    import math
+    from exploring_meta_tpu_torch.trainers.rl import RLTrainer
+    from exploring_meta_tpu_torch.trainers.vision import VisionTrainer
+    import numpy as np
+    from exploring_meta_tpu_torch.utils import graphs
+
+    cfg = dataclasses.replace(cfg, fuse=fuse,
+                              num_iterations=FUSED_ITERATIONS)
+    trainer = (RLTrainer(cfg, path=tmp + "/", **kw) if kind == "rl"
+               else VisionTrainer(cfg, path=tmp + "/", **kw))
+    torch.cuda.synchronize()
+    graphs.reset_counts()
+    gc.reset_launch_counts()
+    tc.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = trainer.model_path
+    with open(os.path.join(run, "metrics.json")) as f:
+        metrics = json.load(f)
+    loss = "meta_loss" if kind == "rl" else "train_loss"
+    check(len(metrics[loss]) == FUSED_ITERATIONS
+          and all(v is not None and math.isfinite(v)
+                  for vals in metrics.values() for v in vals),
+          f"fuse {fuse}: {FUSED_ITERATIONS} finite rows, {metrics}")
+    with np.load(os.path.join(run, "model.npz")) as z:
+        params = {k: torch.from_numpy(z[k]) for k in z.files}
+    return {"counts": dict(graphs.COUNTS),
+            "launches": {**gc.launch_counts(), **tc.launch_counts()},
+            "captured": {**gc.captured_counts(), **tc.captured_counts()},
+            "wall_s": wall, "metrics": metrics, "params": params}
+
+
+def fused_setup(torch, kind: str, kw: dict, cfg):
+    """The objects a trainer's fused loop runs on, built as the trainer
+    builds them -> (train function, params, optimizer or None, generator);
+    ``train`` is bound to them at its first call."""
+    import dataclasses
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+    cfg = dataclasses.replace(cfg, fuse=FUSE)
+    gen = torch.Generator(device="cuda").manual_seed(cfg.seed + 10)
+    if kind == "rl":
+        from exploring_meta_tpu_torch.adapt.maml import adam
+        from exploring_meta_tpu_torch.envs.factory import make_env
+        from exploring_meta_tpu_torch.rl.rollout import make_rollout
+        from exploring_meta_tpu_torch.rl.train_scan import (
+            make_adam_train_scan, make_trpo_train_scan,
+        )
+        from exploring_meta_tpu_torch.trainers.rl import (
+            build_policy, rl_config, trpo_config,
+        )
+        env = make_env(cfg.env)
+        policy = build_policy(env, False, cfg.fc_neurons, cfg.activation)
+        params = policy.init(gen)
+        roll = make_rollout(env, policy.sample, cfg.adapt_batch_size,
+                            cfg.max_path_length)
+        if kw["algo"] == "trpo":
+            return (make_trpo_train_scan(env, policy, roll, rl_config(cfg),
+                                         trpo_config(cfg),
+                                         cfg.meta_batch_size, FUSE),
+                    params, None, gen)
+        params = tree_map(torch.Tensor.requires_grad_, params)
+        return (make_adam_train_scan(env, policy, roll, rl_config(cfg),
+                                     kw["algo"], cfg.meta_batch_size, FUSE),
+                params, adam(params, cfg.outer_lr), gen)
+    from exploring_meta_tpu_torch.adapt.maml import (
+        adam, cast_compute, make_train_scan,
+    )
+    from exploring_meta_tpu_torch.adapt.vision import make_vision_fast_adapt
+    from exploring_meta_tpu_torch.models.cnn4 import init_cnn4, omniglot_spec
+    from exploring_meta_tpu_torch.tasks.datasets import get_dataset
+    from exploring_meta_tpu_torch.tasks.sampler import sample_task_batch
+    train_ds, valid_ds, _ = get_dataset(
+        "omni", seed=cfg.seed, synthetic=True,
+        synth_classes=cfg.synth_classes, synth_per_class=cfg.synth_per_class,
+        device="cuda")
+    spec = omniglot_spec(cfg.ways)
+    params = tree_map(lambda t: t.requires_grad_(),
+                      init_cnn4(gen, spec, device="cuda"))
+    fa = cast_compute(make_vision_fast_adapt(spec, cfg.inner_lr,
+                                             cfg.adapt_steps, cfg.shots,
+                                             cfg.ways))
+
+    def sampler(ds):
+        return lambda g: sample_task_batch(g, ds, cfg.ways, cfg.shots,
+                                           cfg.meta_batch_size)
+
+    return (make_train_scan(fa, sampler(train_ds), FUSE,
+                            eval_sample_fn=sampler(valid_ds)),
+            params, adam(params, cfg.outer_lr), gen)
+
+
+def state_tensors(params, opt) -> list:
+    """The tensors an iteration updates in place: the params' leaves and
+    the optimizer's state."""
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves
+    out = list(tree_leaves(params))
+    if opt is not None:
+        for st in opt.state.values():
+            out += [v for v in st.values() if hasattr(v, "copy_")]
+    return out
+
+
+def replay_vs_eager(torch, loop, params, opt, gen) -> tuple:
+    """One replay against one eager iteration started from the same params,
+    optimizer state and generator state -> (the largest |difference| of
+    the params relative to max|params| over the tree, the L2 difference
+    relative to the eager iteration's step)."""
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves
+    tensors = state_tensors(params, opt)
+    with torch.no_grad():
+        saved = [t.detach().clone() for t in tensors]
+    loop.row.zero_()                # the metrics row a replay writes
+    rng, row = gen.get_state(), loop.row.clone()
+    loop.graph.replay()
+    torch.cuda.synchronize()
+    replayed = [t.detach().clone() for t in tree_leaves(params)]
+    with torch.no_grad():
+        for t, v in zip(tensors, saved):
+            t.copy_(v)
+    gen.set_state(rng)
+    loop.row.copy_(row)
+    loop.step()
+    torch.cuda.synchronize()
+    eager = [t.detach() for t in tree_leaves(params)]
+    top = max(float(e.abs().max()) for e in eager)
+    l2 = lambda xs, ys: sum(float((x - y).norm()) ** 2
+                            for x, y in zip(xs, ys)) ** 0.5
+    return (max(float((a - b).abs().max()) for a, b in zip(replayed, eager))
+            / top, l2(replayed, eager) / l2(eager, saved))
+
+
+# CUDA runtime calls by which the host starts device work
+LAUNCH_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
+                "cuLaunchKernel", "cuLaunchKernelEx", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
+def launch_profile(torch, fn, iterations: int, names: tuple) -> dict:
+    """``fn`` (``iterations`` iterations) once under the profiler -> the
+    device kernels (count, the timeline they cover), the host's CUDA
+    runtime calls that start device work (LAUNCH_CALLS, each counted), and
+    the launches of the kernels whose names hold one of ``names``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.events()
+    kernels = [e for e in events if is_kernel(torch, e)]
+    calls, top = {}, {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                and e.name in LAUNCH_CALLS:
+            calls[e.name] = calls.get(e.name, 0) + 1
+    for k in kernels:
+        us, n = top.get(k.name, (0.0, 0))
+        top[k.name] = (us + k.time_range.elapsed_us(), n + 1)
+    return {"profiled_wall_us": 1e6 * wall, "iterations": iterations,
+            "top_per_iteration": sorted(
+                ((name[:60], us / iterations, n / iterations)
+                 for name, (us, n) in top.items()), key=lambda t: -t[1])[:10],
+            "kernel_launches": len(kernels),
+            "busy_union_us": union_us(kernels),
+            "host_launch_calls": calls,
+            "host_launches_per_iteration": sum(calls.values()) / iterations,
+            "named_kernels": {n: sum(1 for k in kernels if n in k.name)
+                              for n in names}}
+
+
+def fused_phase(torch, gc, tc, gpu, tmp) -> dict:
+    """Phase 9: the main path of slice 8, fused meta-iterations (``--fuse
+    10``) as CUDA-graph replays, in three full-width configurations
+    (:func:`fused_configs`), each through its trainer for FUSED_ITERATIONS
+    iterations (two chunks, the first with the eager warm-up) with the
+    counters zeroed just before: one capture and FUSED_ITERATIONS - 1
+    replays, the path's kernels launched by the warm-up and recorded in
+    the graph; the same run at ``fuse 1`` (twice) against it; then, on the
+    same objects built outside the trainer, one replay against one eager
+    iteration from the same state, s per iteration of graph and eager in
+    turns, and a chunk of replays and one eager iteration profiled."""
+    from exploring_meta_tpu_torch.envs.particles2d import Particles2D
+    from exploring_meta_tpu_torch.trainers.fused import fetch
+    from exploring_meta_tpu_torch.trainers.rl import build_policy
+    from exploring_meta_tpu_torch.utils.tree import tree_items
+    out = {}
+    for name, (kind, kw, cfg) in fused_configs().items():
+        path_kernels = (gc.KERNELS if kind == "rl" else tc.KERNELS)
+        names = (tuple(KERNEL_NAMES.values()) if kind == "rl"
+                 else CNN4_KERNEL_NAMES)
+        runs = {f: fused_trainer_run(torch, gc, tc, kind, kw, cfg, f,
+                                     os.path.join(tmp, f"{name}_{i}"))
+                for i, f in enumerate((FUSE, 1))}
+        again = fused_trainer_run(torch, gc, tc, kind, kw, cfg, 1,
+                                  os.path.join(tmp, f"{name}_again"))
+        g, e = runs[FUSE], runs[1]
+        check(g["counts"] == {"captures": 1,
+                              "replays": FUSED_ITERATIONS - 1},
+              f"{name}: one capture and {FUSED_ITERATIONS - 1} replays, "
+              f"{g['counts']}")
+        check(e["counts"] == {"captures": 0, "replays": 0},
+              f"{name} at fuse 1: no graph, {e['counts']}")
+        for k in path_kernels:
+            check(g["launches"][k] > 0 and g["captured"][k] > 0,
+                  f"{name}: {k} launched by the warm-up and recorded in the "
+                  f"graph, {g['launches']}, {g['captured']}")
+        replayed = {k: g["counts"]["replays"] * g["captured"][k]
+                    for k in path_kernels}
+        eager_err = tree_err(torch, g["params"], e["params"],
+                             f"{name} graph vs eager")
+        spread = tree_err(torch, again["params"], e["params"],
+                          f"{name} eager vs eager")
+        if kw.get("algo") == "trpo":
+            # ROADMAP Queue 3: f32 CG on a Fisher damped by 1e-5 holds an
+            # outer step to 2e-2 of itself; the step here is the whole
+            # run's move from the initial params, in L2
+            init = dict(tree_items(build_policy(
+                Particles2D(), False, cfg.fc_neurons, cfg.activation).init(
+                    torch.Generator(device="cuda").manual_seed(cfg.seed))))
+            l2 = lambda a, b: sum(float((a[k].cpu() - b[k].cpu()).norm())
+                                  ** 2 for k in b) ** 0.5
+            err = l2(g["params"], e["params"]) / l2(e["params"], init)
+            tol_desc = "2e-2 of the step"
+            check(err <= FUSED_TRPO_TOL, f"{name}: graph vs eager {err} of "
+                                         f"the step, limit {FUSED_TRPO_TOL}")
+        else:
+            tol_desc = "1e-5 of max|params|"
+            err = eager_err
+            check(err <= FUSED_ADAM_TOL, f"{name}: graph vs eager {err} of "
+                                         f"max|params|, limit "
+                                         f"{FUSED_ADAM_TOL}")
+        print(f"{name} fused x{FUSE}, {FUSED_ITERATIONS} iterations: "
+              f"{g['counts']}; kernel launches eager {g['launches']}, "
+              f"recorded a replay {g['captured']}, replayed {replayed}; "
+              f"graph vs eager {err} ({tol_desc}; max |err| {eager_err} of "
+              f"max|params|), eager vs eager {spread}; trainer wall graph "
+              f"{g['wall_s']} s, eager {e['wall_s']} s [{gpu}]", flush=True)
+
+        train, params, opt, gen = fused_setup(torch, kind, kw, cfg)
+        args = (params, gen) if opt is None else (params, opt, gen)
+        fetch(train(*args)[-1])                 # warm-up, capture, replays
+        loop = train.fused.bound()
+        one, one_step = replay_vs_eager(torch, loop, params, opt, gen)
+        check(one_step <= FUSED_TRPO_TOL if opt is None
+              else one <= FUSED_ADAM_TOL,
+              f"{name}: one replay vs one eager iteration {one} of "
+              f"max|params|, {one_step} of the step")
+        graph_s, eager_s = [], []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fetch(train(*args)[-1])
+            graph_s.append((time.perf_counter() - t0) / FUSE)
+            loop.row.zero_()
+            t0 = time.perf_counter()
+            for _ in range(FUSED_EAGER):
+                loop.step()
+            torch.cuda.synchronize()
+            eager_s.append((time.perf_counter() - t0) / FUSED_EAGER)
+        gprof = launch_profile(torch, lambda: fetch(train(*args)[-1]), FUSE,
+                               names)
+        loop.row.zero_()
+        eprof = launch_profile(torch, loop.step, 1, names)
+        for prof, wall in ((gprof, FUSE * min(graph_s)),
+                           (eprof, min(eager_s))):
+            prof["wall_us"] = 1e6 * wall
+            prof["idle_share"] = 1 - prof["busy_union_us"] / prof["wall_us"]
+        # a kernel of each wrapper of the path ran inside the replays
+        for n in (names if kind == "rl" else (
+                "fwd_conv_stats_kernel", "bwd_dw_kernel", "bwd_input_kernel")):
+            check(gprof["named_kernels"][n] > 0,
+                  f"{name}: {n} ran inside the replays, "
+                  f"{gprof['named_kernels']}")
+        out[name] = {
+            "counts": g["counts"], "launches": g["launches"],
+            "captured": g["captured"], "replayed": replayed,
+            "graph_vs_eager": err, "graph_vs_eager_max_rel": eager_err,
+            "eager_vs_eager": spread, "one_replay_vs_eager": one,
+            "one_replay_vs_eager_of_step": one_step,
+            "trainer_wall_s": {"graph": g["wall_s"], "eager": e["wall_s"]},
+            "s_per_iteration": {"graph": graph_s, "eager": eager_s},
+            "profile": {"graph": gprof, "eager": eprof},
+            "metrics": {"graph": g["metrics"], "eager": e["metrics"]}}
+        print(f"{name}: one replay vs one eager iteration {one} of "
+              f"max|params| ({one_step} of its step); s per iteration "
+              f"graph {graph_s}, eager {eager_s}; host launches per "
+              f"iteration graph "
+              f"{gprof['host_launches_per_iteration']} "
+              f"{gprof['host_launch_calls']}, eager "
+              f"{eprof['host_launches_per_iteration']}; idle graph "
+              f"{100 * gprof['idle_share']:.1f} %, eager "
+              f"{100 * eprof['idle_share']:.1f} %; kernels a replayed "
+              f"iteration {gprof['kernel_launches'] / FUSE}, busy "
+              f"{gprof['busy_union_us'] / FUSE} us; in the replays "
+              f"{gprof['named_kernels']} [{gpu}]", flush=True)
+        for key, us, count in gprof["top_per_iteration"]:
+            print(f"  {us:12.1f} us  x{count:7.1f}  {key} (a replay)")
+        del train, params, opt, gen, loop
+    return out
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1859,6 +2230,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         adam_rl = adam_rl_phase(torch, gc, gpu, tmp)
     replay_grad = replay_grad_phase(torch, gpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        fused = fused_phase(torch, gc, tc, gpu, tmp)
 
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -1868,7 +2241,7 @@ def main() -> int:
                    "vision_second_order": second_order,
                    "vision_trainer": vision, "vision_timing": vision_times,
                    "policy_serve": policy_serve, "adam_rl": adam_rl,
-                   "replay_meta_grad": replay_grad},
+                   "replay_meta_grad": replay_grad, "fused": fused},
                   f, indent=1)
 
     replaces = {
@@ -1881,9 +2254,12 @@ def main() -> int:
     launches = {**served["launches"], **trpo["launches"]}
     # the CNN4 kernels run on two main paths, one served batch and the
     # vision trainer's run; the sweeps on four, the MAML-TRPO trainer's
-    # run, the served policy batches and the two Adam trainers' runs
+    # run, the served policy batches and the two Adam trainers' runs; and
+    # each on the fused trainers' runs (the eager warm-up and meta-test:
+    # a replay runs the kernels recorded in its graph, no wrapper)
     for paths in (vision["launches"], policy_serve["launches"],
-                  adam_rl["launches"]):
+                  adam_rl["launches"],
+                  *(r["launches"] for r in fused.values())):
         for name, n in paths.items():
             launches[name] += n
     kernels = []

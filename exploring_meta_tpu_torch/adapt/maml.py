@@ -22,16 +22,18 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from exploring_meta_tpu_torch.utils.graphs import FusedIterations, bind_once
 from exploring_meta_tpu_torch.utils.tree import (
     tree_leaves, tree_map, tree_unflatten,
 )
 
 
 def tree_where(mask, a, b):
-    """Per-leaf select: mask leaves are booleans (or 0/1 tensors)."""
+    """Per-leaf select: mask leaves are Python bools (a whole leaf is taken,
+    with no host-to-device copy of the flag) or boolean tensors."""
     return tree_map(
-        lambda m, x, y: torch.where(torch.as_tensor(m, device=x.device), x, y),
-        mask, a, b)
+        lambda m, x, y: (x if m else y) if isinstance(m, bool)
+        else torch.where(m, x, y), mask, a, b)
 
 
 def per_task(params, B: int):
@@ -125,23 +127,35 @@ def adam(params, lr: float) -> torch.optim.Adam:
     with ``optax.adam``'s defaults (b1 0.9, b2 0.999, eps 1e-8 added
     outside the square root, as torch does). It is the opt state that
     :func:`make_meta_step` carries; the leaves must be leaf tensors that
-    require grad, and each step updates them in place."""
+    require grad, and each step updates them in place. On the card it is
+    ``capturable``: its step count lives on the device, so a step can be
+    captured in a CUDA graph (``--fuse``), and every step, eager or
+    replayed, runs the same device arithmetic."""
     leaves = tree_leaves(params)
     if not all(t.is_leaf and t.requires_grad for t in leaves):
         raise ValueError("adam: every param must be a leaf tensor that "
                          "requires grad")
-    return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    return torch.optim.Adam(leaves, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=leaves[0].device.type == "cuda")
 
 
 def apply_meta_gradient(opt: torch.optim.Adam, loss: torch.Tensor,
                         params) -> None:
     """Differentiate ``loss`` with respect to the leaves of ``params`` (a
     leaf it does not reach gets a zero gradient) and step ``opt`` (from
-    :func:`adam`), which updates them in place."""
+    :func:`adam`), which updates them in place. The gradients are written
+    into each leaf's ``.grad`` where it has one, so they stay at the
+    addresses that a captured step reads."""
     leaves = tree_leaves(params)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    for p, g in zip(leaves, grads):
-        p.grad = torch.zeros_like(p) if g is None else g
+    with torch.no_grad():
+        for p, g in zip(leaves, grads):
+            if p.grad is None:
+                p.grad = torch.zeros_like(p) if g is None else g
+            elif g is None:
+                p.grad.zero_()
+            else:
+                p.grad.copy_(g)
     opt.step()
 
 
@@ -188,8 +202,11 @@ def make_meta_eval(fast_adapt: Callable):
 
 def make_train_scan(fast_adapt: Callable, sample_fn: Callable, n_steps: int,
                     eval_sample_fn: Callable | None = None):
-    """``n_steps`` whole meta-iterations in one call, as an eager loop (the
-    port of the JAX ``lax.scan``; no host sync inside).
+    """``n_steps`` whole meta-iterations in one call (the port of the JAX
+    ``lax.scan``): on the card the first iteration runs eagerly, then one
+    iteration is captured as a CUDA graph and each later one is a replay;
+    on the CPU each runs eagerly (``utils/graphs.py:FusedIterations``). No
+    host sync inside.
 
     ``sample_fn(gen) -> task_batch`` draws each step's training batch;
     ``eval_sample_fn(gen)``, if given, a validation batch, which is
@@ -197,23 +214,29 @@ def make_train_scan(fast_adapt: Callable, sample_fn: Callable, n_steps: int,
     pass runs before ``opt.step()``, ``vision/maml_vision.py:117-141``) and
     adds ``valid_loss`` / ``valid_metric``.
 
-    Returns ``train(params, opt, gen) -> (params, opt, metrics)`` with each
-    metric stacked ``[n_steps]``."""
+    Returns ``train(params, opt, gen, n=n_steps) -> (params, opt,
+    metrics)``, ``n <= n_steps`` iterations with each metric stacked
+    ``[n]``; the params are stepped in place. ``train`` is bound to the
+    params, optimizer and generator of its first call."""
     meta_step = make_meta_step(fast_adapt)
     meta_eval = make_meta_eval(fast_adapt)
 
-    def train(params, opt, gen):
-        rows = []
-        for _ in range(n_steps):
+    def make(params, opt, gen):
+        def step():
             batch = sample_fn(gen)
             row = {}
             if eval_sample_fn is not None:
                 valid = meta_eval(params, *eval_sample_fn(gen))
                 row = {"valid_loss": valid["loss"],
                        "valid_metric": valid["metric"]}
-            params, opt, out = meta_step(params, opt, *batch)
-            rows.append({**out, **row})
-        return params, opt, {k: torch.stack([r[k] for r in rows])
-                             for k in rows[0]}
+            _, _, out = meta_step(params, opt, *batch)
+            return {**out, **row}
+        return FusedIterations(step, n_steps, gen.device, (gen,))
 
+    loop = bind_once(make)
+
+    def train(params, opt, gen, n=None):
+        return params, opt, loop(params, opt, gen)(n)
+
+    train.fused = loop     # its FusedIterations: train.fused.bound()
     return train

@@ -24,9 +24,10 @@ float32, outputs in that dtype).
 Each wrapper (:func:`block_fwd`, :func:`block_bwd_params`,
 :func:`block_bwd_input`) runs the plain PyTorch twin for CPU tensors and
 launches its kernel for CUDA tensors; there is no other path. Each counts
-the calls that launch its kernels in ``<wrapper>.launches`` and launches
-them inside a profiler range of the kernel's name, so that a trace
-attributes their device time to it.
+the calls that launch its kernels in ``<wrapper>.launches`` (a call
+recorded into a CUDA graph in ``<wrapper>.captured``) and launches them
+inside a profiler range of the kernel's name, so that a trace attributes
+their device time to it.
 
 Beside the twins stand plain versions of the kernels' decompositions
 (:func:`tile_stats_plain`, :func:`combine_tile_stats_plain`,
@@ -43,6 +44,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
+
+from exploring_meta_tpu_torch.utils.graphs import count_launch
 
 EPS = 1e-5
 _TILE_M = 64              # kTileM: positions (or dw rows) per CTA
@@ -367,7 +370,7 @@ def block_fwd(x, w, b, scale, bias) -> torch.Tensor:
             scale.data_ptr(), bias.data_ptr(), out.data_ptr(), ws.data_ptr(),
             B, N, H, W, ci, co, _stream(x))
     _raise_on(err, "cnn4_block_fwd")
-    block_fwd.launches += 1
+    count_launch(block_fwd)
     return out
 
 
@@ -392,7 +395,7 @@ def block_bwd_params(x, w, b, scale, bias, g):
             dw.data_ptr(), db.data_ptr(), ds.data_ptr(), dbe.data_ptr(),
             ws.data_ptr(), B, N, H, W, ci, co, _stream(x))
     _raise_on(err, "cnn4_block_bwd_params")
-    block_bwd_params.launches += 1
+    count_launch(block_bwd_params)
     return dy, dw, db, ds, dbe
 
 
@@ -417,13 +420,13 @@ def block_bwd_input(dy, w, h: int, wd: int) -> torch.Tensor:
             _DTYPES[w.dtype], dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
             B, N, h, wd, ci, co, _stream(dy))
     _raise_on(err, "cnn4_block_bwd_input")
-    block_bwd_input.launches += 1
+    count_launch(block_bwd_input)
     return dx
 
 
-block_fwd.launches = 0
-block_bwd_params.launches = 0
-block_bwd_input.launches = 0
+block_fwd.launches = block_fwd.captured = 0
+block_bwd_params.launches = block_bwd_params.captured = 0
+block_bwd_input.launches = block_bwd_input.captured = 0
 
 KERNELS = {"cnn4_block_fwd": block_fwd,
            "cnn4_block_bwd_params": block_bwd_params,
@@ -434,9 +437,14 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def captured_counts() -> dict:
+    """Calls recorded into CUDA graphs (each replay launches them again)."""
+    return {name: fn.captured for name, fn in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
-        fn.launches = 0
+        fn.launches = fn.captured = 0
 
 
 # ---------------------------------------------------------------------------

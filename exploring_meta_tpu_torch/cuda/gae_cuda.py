@@ -16,7 +16,8 @@ or pad is made.
 
 The wrappers :func:`gae_sweep` and :func:`discount_sweep` run the plain
 twins for CPU tensors and launch the kernels for CUDA tensors; there is no
-other path. Each counts its kernel launches in ``<wrapper>.launches``. The
+other path. Each counts its kernel launches in ``<wrapper>.launches`` (a
+call recorded into a CUDA graph in ``<wrapper>.captured``). The
 gradient is the VJP of the plain formulation, as the JAX ``custom_vjp``
 reruns its XLA version (``gae_pallas.py:134-138``); JAX has no backward
 kernel.
@@ -28,6 +29,8 @@ import ctypes
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from exploring_meta_tpu_torch.utils.graphs import count_launch
 
 # csrc/gae.cu: 32 segments (a warp) a slab, kLanes lanes (warps) a CTA, and
 # kSegShort steps a thread while one slab covers T, else kSegLong
@@ -207,7 +210,7 @@ def _launch_gae(gamma, tau, r, d, v) -> torch.Tensor:
                                 out.data_ptr(), G, T, L, gamma, gamma * tau,
                                 _stream(r))
     _raise_on(err, "gae_sweep")
-    gae_sweep.launches += 1
+    count_launch(gae_sweep)
     return out
 
 
@@ -219,7 +222,7 @@ def _launch_discount(gamma, r, d) -> torch.Tensor:
                                      out.data_ptr(), G, T, L, gamma,
                                      _stream(r))
     _raise_on(err, "discount_sweep")
-    discount_sweep.launches += 1
+    count_launch(discount_sweep)
     return out
 
 
@@ -279,8 +282,8 @@ def discount_sweep(gamma: float, rewards, dones):
     return _DiscountSweep.apply(rewards, dones, float(gamma))
 
 
-gae_sweep.launches = 0
-discount_sweep.launches = 0
+gae_sweep.launches = gae_sweep.captured = 0
+discount_sweep.launches = discount_sweep.captured = 0
 
 KERNELS = {"gae_sweep": gae_sweep, "discount_sweep": discount_sweep}
 
@@ -289,6 +292,11 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def captured_counts() -> dict:
+    """Calls recorded into CUDA graphs (each replay launches them again)."""
+    return {name: fn.captured for name, fn in KERNELS.items()}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
-        fn.launches = 0
+        fn.launches = fn.captured = 0

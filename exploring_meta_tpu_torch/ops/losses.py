@@ -50,8 +50,10 @@ def ppo_policy_loss(new_log_probs, old_log_probs, advantages,
     each side there too; ``torch.clamp`` would pass all of it at a bound."""
     ratio = torch.exp(new_log_probs - old_log_probs)
     obj = ratio * advantages
-    clipped = torch.minimum(torch.maximum(ratio, ratio.new_tensor(1.0 - clip)),
-                            ratio.new_tensor(1.0 + clip))
+    # new_full fills on the device: no host-to-device copy, which a CUDA
+    # graph could not capture
+    lo, hi = ratio.new_full((), 1.0 - clip), ratio.new_full((), 1.0 + clip)
+    clipped = torch.minimum(torch.maximum(ratio, lo), hi)
     return -_loss_mean(torch.minimum(obj, clipped * advantages), valid)
 
 

@@ -11,8 +11,13 @@ scaled to the trust region, then accepted by a backtracking line search.
 JAX differentiates ``jvp(grad(kl))`` inside one XLA program. Here
 ``grad(kl)`` is taken once with a graph, and each Fisher-vector product is
 one double backward through it (``ops/cg.py``). CG runs a fixed number of
-iterations with no host sync; the line search reads its accept flag on the
-host once per step, at most ``ls_max_steps`` times.
+iterations with no host sync. The line search takes the first candidate
+that is accepted, as JAX's ``lax.while_loop`` does, in one of two ways: the
+per-iteration path reads each candidate's accept flag on the host and stops
+at the first accepted one; the fused path (``host_free=True``, captured in
+a CUDA graph, which cannot stop early) evaluates all ``ls_max_steps``
+candidates and selects the first accepted one on the device, with no read
+back. Both give the same params.
 """
 
 from __future__ import annotations
@@ -106,9 +111,10 @@ def _ravel(params):
 
 def meta_optimize_trpo(policy, params, old_params_stack, replays,
                        cfg: RLConfig, trpo_cfg: TRPOConfig,
-                       adapt_steps: int):
+                       adapt_steps: int, host_free: bool = False):
     """One TRPO outer step -> (new params, ``{"old_loss", "accepted"}``)
-    (reference ``meta_optimize_trpo``, ``rl.py:409-438``)."""
+    (reference ``meta_optimize_trpo``, ``rl.py:409-438``). ``accepted`` is
+    a Python bool, or with ``host_free`` a device bool (no host sync)."""
     flat0, unravel = _ravel(params)
 
     def loss_kl(flat):
@@ -132,13 +138,20 @@ def meta_optimize_trpo(policy, params, old_params_stack, replays,
     # backtracking line search: the first candidate that improves the
     # surrogate inside the KL bound is taken
     final, accepted = flat0, False
-    with torch.no_grad():
+    if host_free:
+        accepted = torch.zeros((), dtype=torch.bool, device=flat0.device)
+    with torch.no_grad(), torch.profiler.record_function("trpo_line_search"):
         for ls_step in range(trpo_cfg.ls_max_steps):
             stepsize = (trpo_cfg.backtrack_factor ** ls_step
                         * trpo_cfg.outer_lr)
             candidate = flat0 - stepsize * step
             new_loss, kl = loss_kl(candidate)
-            if bool((new_loss < old_loss) & (kl < trpo_cfg.max_kl)):
+            ok = (new_loss < old_loss) & (kl < trpo_cfg.max_kl)
+            if host_free:
+                take = ok & ~accepted
+                final = torch.where(take, candidate, final)
+                accepted = accepted | take
+            elif bool(ok):
                 final, accepted = candidate, True
                 break
     new_params = tree_map(lambda t: t.detach().clone(), unravel(final))
@@ -146,9 +159,10 @@ def meta_optimize_trpo(policy, params, old_params_stack, replays,
 
 
 def make_trpo_meta_step(policy, cfg: RLConfig, trpo_cfg: TRPOConfig,
-                        adapt_steps: int):
+                        adapt_steps: int, host_free: bool = False):
     """``(params, old_params_stack, replays) -> (params, info)``."""
     def step(params, old_params_stack, replays):
         return meta_optimize_trpo(policy, params, old_params_stack, replays,
-                                  cfg, trpo_cfg, adapt_steps)
+                                  cfg, trpo_cfg, adapt_steps,
+                                  host_free=host_free)
     return step

@@ -43,7 +43,9 @@ def _sample(gen, images, ways, shots, meta_batch, invert, rotations):
             out = torch.where(k == r, torch.rot90(data, r, dims=(3, 4)), out)
         data = out
     data = data.reshape((meta_batch, ways * 2 * shots) + data.shape[3:])
-    labels = torch.arange(ways, device=dev).repeat_interleave(2 * shots)
+    # class-major labels 0..ways-1, each 2*shots times; floor division
+    # sizes nothing on the host (a CUDA graph can capture it)
+    labels = torch.arange(ways * 2 * shots, device=dev) // (2 * shots)
     return data, labels.expand(meta_batch, -1)
 
 

@@ -11,6 +11,12 @@ are data) and take one Adam step on the mean query loss. After the last
 iteration (or a KeyboardInterrupt, or a diverged loss) the trainer saves
 the model and meta-tests it on fresh tasks.
 
+``--fuse N`` runs the iterations in chunks of N (``rl/train_scan.py``): on
+the card one iteration is captured as a CUDA graph and replayed, the
+metrics of a chunk come to the host in one copy, and checkpoints land on
+chunk-end iterations (``trainers/fused.py``). Otherwise each iteration runs
+eagerly and fetches its metrics in one copy.
+
 Every option the JAX trainer has and the port does not run yet raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -21,20 +27,21 @@ import time
 
 import torch
 
-from exploring_meta_tpu_torch.adapt.maml import adam, apply_meta_gradient
+from exploring_meta_tpu_torch.adapt.maml import adam
 from exploring_meta_tpu_torch.device import resolve_device
 from exploring_meta_tpu_torch.envs.factory import make_env
 from exploring_meta_tpu_torch.models.policies import (
     DiagNormalPolicy, DiagNormalPolicyANIL,
 )
-from exploring_meta_tpu_torch.rl.adapt_rl import (
-    RLConfig, fast_adapt_ppo, fast_adapt_vpg, make_trpo_collect,
-)
+from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
 from exploring_meta_tpu_torch.rl.evaluate import meta_test
 from exploring_meta_tpu_torch.rl.rollout import make_rollout
-from exploring_meta_tpu_torch.rl.trpo_meta import (
-    TRPOConfig, make_trpo_meta_step,
+from exploring_meta_tpu_torch.rl.train_scan import (
+    make_adam_iteration, make_adam_train_scan, make_trpo_iteration,
+    make_trpo_train_scan,
 )
+from exploring_meta_tpu_torch.rl.trpo_meta import TRPOConfig
+from exploring_meta_tpu_torch.trainers.fused import host_metrics, run_fused
 from exploring_meta_tpu_torch.utils.config import (
     RLScriptConfig, raise_unported,
 )
@@ -83,7 +90,6 @@ def _check_ported(cfg: RLScriptConfig) -> None:
         (not cfg.env.startswith("Particles2D"), f"env={cfg.env!r}",
          "host envs"),
         (cfg.task_batch, "task_batch", "host envs"),
-        (cfg.fuse > 1, "fuse > 1", "fused iterations and CUDA graphs"),
         (cfg.mesh > 1, "mesh > 1", "scale-out"),
         (cfg.bf16, "bf16", "bf16 RL"),
         (bool(cfg.resume), "resume", "run utilities"),
@@ -117,45 +123,53 @@ class RLTrainer(Experiment):
         self.anil = anil
 
     def _make_trpo_iteration(self, env, policy, roll, rl_cfg: RLConfig):
-        """``(params, None, gen) -> (params, None, metrics)``."""
-        cfg = self.cfg
-        meta_step = make_trpo_meta_step(policy, rl_cfg, trpo_config(cfg),
-                                        adapt_steps=cfg.adapt_steps)
-        collect = make_trpo_collect(policy, roll, rl_cfg)
+        """``(params, None, gen) -> (params, None, metrics)``; the line
+        search stops at the first accepted candidate."""
+        iteration = make_trpo_iteration(env, policy, roll, rl_cfg,
+                                        trpo_config(self.cfg),
+                                        self.cfg.meta_batch_size)
 
-        def iteration(params, _, gen):
-            tasks = env.sample_tasks(gen, cfg.meta_batch_size)
-            old_params, _, replays, metrics = collect(params, tasks, gen)
-            params, info = meta_step(params, old_params, replays)
-            return params, None, {
-                "adapt_reward": float(metrics["reward"].mean()),
-                "adapt_success": float(metrics["success"].mean()),
-                "meta_loss": float(info["old_loss"]),
-                "ls_accepted": bool(info["accepted"]),
-            }
+        def step(params, _, gen):
+            params, metrics = iteration(params, gen)
+            return params, None, metrics
 
-        return iteration
+        return step
 
     def _make_adam_iteration(self, env, policy, roll, rl_cfg: RLConfig):
         """``(params, opt, gen) -> (params, opt, metrics)``: second-order
         PPO or VPG adaptation of a meta-batch and one Adam step on the mean
         query loss."""
+        iteration = make_adam_iteration(env, policy, roll, rl_cfg, self.algo,
+                                        self.cfg.meta_batch_size)
+
+        def step(params, opt, gen):
+            return params, opt, iteration(params, opt, gen)
+
+        return step
+
+    def _fused_loop(self, env, policy, roll, rl_cfg: RLConfig, params, opt,
+                    gen) -> int:
+        """All iterations in chunks of ``cfg.fuse`` (``rl/train_scan.py``,
+        ``trainers/fused.py:run_fused``) -> the last iteration."""
         cfg = self.cfg
-        fast_adapt = {"ppo": fast_adapt_ppo, "vpg": fast_adapt_vpg}[self.algo]
+        if self.algo == "trpo":
+            train = make_trpo_train_scan(env, policy, roll, rl_cfg,
+                                         trpo_config(cfg),
+                                         cfg.meta_batch_size, cfg.fuse)
 
-        def iteration(params, opt, gen):
-            tasks = env.sample_tasks(gen, cfg.meta_batch_size)
-            _, losses, metrics = fast_adapt(policy, params, roll, tasks, gen,
-                                            rl_cfg)
-            loss = losses.mean()
-            apply_meta_gradient(opt, loss, params)
-            return params, opt, {
-                "meta_loss": float(loss.detach()),
-                "adapt_reward": float(metrics["reward"].mean()),
-                "adapt_success": float(metrics["success"].mean()),
-            }
+            def run_chunk(n, state, g):
+                p, ms = train(state[0], g, n)
+                return (p, state[1]), ms
+        else:
+            train = make_adam_train_scan(env, policy, roll, rl_cfg,
+                                         self.algo, cfg.meta_batch_size,
+                                         cfg.fuse)
 
-        return iteration
+            def run_chunk(n, state, g):
+                p, o, ms = train(*state, g, n)
+                return (p, o), ms
+
+        return run_fused(self, run_chunk, (params, opt), gen)
 
     def run(self) -> dict:
         cfg = self.cfg
@@ -182,19 +196,31 @@ class RLTrainer(Experiment):
         start = time.perf_counter()
         iteration = 0
         try:
-            for iteration in range(cfg.num_iterations):
-                params, state, metrics = step_fn(params, state, gen)
-                print(f"iteration {iteration}: {metrics}", flush=True)
-                self.log_metrics(metrics)
-                if iteration % cfg.save_every == 0:
-                    self.save_model_checkpoint(params, iteration)
+            if cfg.fuse > 1:
+                iteration = self._fused_loop(env, policy, roll, rl_cfg,
+                                             params, state, gen)
+                params = self._fused_params
+            else:
+                for iteration in range(cfg.num_iterations):
+                    params, state, metrics = step_fn(params, state, gen)
+                    metrics = host_metrics(metrics)
+                    print(f"iteration {iteration}: {metrics}", flush=True)
+                    self.log_metrics(metrics)
+                    if iteration % cfg.save_every == 0:
+                        self.save_model_checkpoint(params, iteration)
         except (KeyboardInterrupt, DivergenceError) as stop:
+            if cfg.fuse > 1:
+                # the COUNT of iterations in whole chunks (= rows of
+                # metrics.json before the stop) and their params
+                iteration, params = self._fused_count, self._fused_params
             self.mark_stopped(stop, iteration)
 
         self.save_model(params)
         self.logger["elapsed_time"] = (
             f"{round(time.perf_counter() - start, 2)} sec")
 
+        # the generator only moves forward, so the meta-test draws numbers
+        # that no training iteration (eager or replayed) drew
         final = meta_test(self.algo, cfg.env, policy, params, rl_cfg,
                           n_tasks=cfg.n_eval_tasks, gen=gen)
         print("Final evaluation:", final["mean_reward"],

@@ -12,6 +12,12 @@ model and meta-tests it on the test split. On the Omniglot spec under
 kernels, forward and backward, under a backward that is itself
 differentiable (``cuda/cnn4_cuda.py:FusedBlockBackward``).
 
+``--fuse N`` runs the iterations in chunks of N (``adapt/maml.py:
+make_train_scan``): on the card one iteration, the valid pass included, is
+captured as a CUDA graph and replayed, a chunk's metrics come to the host
+in one copy, and checkpoints land on chunk-end iterations
+(``trainers/fused.py``).
+
 Every option the JAX trainer has and the port does not run yet raises
 ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -23,7 +29,7 @@ import time
 import torch
 
 from exploring_meta_tpu_torch.adapt.maml import (
-    adam, cast_compute, make_meta_eval, make_meta_step,
+    adam, cast_compute, make_meta_eval, make_meta_step, make_train_scan,
 )
 from exploring_meta_tpu_torch.adapt.vision import make_vision_fast_adapt
 from exploring_meta_tpu_torch.device import resolve_device
@@ -31,6 +37,7 @@ from exploring_meta_tpu_torch.models import cnn4
 from exploring_meta_tpu_torch.models.layers import set_conv_impl
 from exploring_meta_tpu_torch.tasks.datasets import get_dataset
 from exploring_meta_tpu_torch.tasks.sampler import sample_task_batch
+from exploring_meta_tpu_torch.trainers.fused import host_metrics, run_fused
 from exploring_meta_tpu_torch.utils.config import (
     CONV_IMPLS, VisionConfig, raise_unported,
 )
@@ -52,7 +59,6 @@ def _build_spec(cfg: VisionConfig, anil: bool) -> cnn4.CNN4Spec:
 
 def _check_ported(cfg: VisionConfig) -> None:
     raise_unported("VisionTrainer", [
-        (cfg.fuse > 1, "fuse > 1", "Fused iterations and CUDA graphs"),
         (cfg.mesh > 1, "mesh > 1", "Scale-out"),
         (bool(cfg.resume), "resume", "Run utilities"),
         (cfg.async_ckpt, "async_ckpt", "Run utilities"),
@@ -79,6 +85,22 @@ class VisionTrainer(Experiment):
                          cfg.to_params(), path=path)
         self.cfg = cfg
         self.anil = anil
+
+    def _fused_loop(self, fast_adapt, sample_train, sample_valid, params,
+                    opt, gen) -> int:
+        """All iterations in chunks of ``cfg.fuse`` (``make_train_scan``:
+        the valid pass on the pre-update params, then the meta-step;
+        ``trainers/fused.py:run_fused``) -> the last iteration."""
+        train = make_train_scan(fast_adapt, sample_train, self.cfg.fuse,
+                                eval_sample_fn=sample_valid)
+
+        def run_chunk(n, state, g):
+            p, o, ms = train(*state, g, n)
+            return (p, o), ms
+
+        return run_fused(self, run_chunk, (params, opt), gen, names={
+            "loss": "train_loss", "metric": "train_acc",
+            "valid_metric": "valid_acc"})
 
     def run(self) -> float:
         cfg, dev = self.cfg, self.device
@@ -113,27 +135,40 @@ class VisionTrainer(Experiment):
         start = time.perf_counter()
         iteration = 0
         try:
-            for iteration in range(cfg.num_iterations):
-                batch = sample(train_ds)
-                # PRE-update params: the reference's valid pass runs
-                # before opt.step() (maml_vision.py:117-141)
-                valid_m = meta_eval(params, *sample(valid_ds))
-                params, opt, train_m = meta_step(params, opt, *batch)
-                metrics = {"train_loss": float(train_m["loss"]),
-                           "train_acc": float(train_m["metric"]),
-                           "valid_loss": float(valid_m["loss"]),
-                           "valid_acc": float(valid_m["metric"])}
-                print(f"iteration {iteration}: {metrics}", flush=True)
-                self.log_metrics(metrics)
-                if iteration % cfg.save_every == 0:
-                    self.save_model_checkpoint(params, iteration)
+            if cfg.fuse > 1:
+                iteration = self._fused_loop(
+                    fast_adapt, lambda g: sample(train_ds),
+                    lambda g: sample(valid_ds), params, opt, gen)
+                params = self._fused_params
+            else:
+                for iteration in range(cfg.num_iterations):
+                    batch = sample(train_ds)
+                    # PRE-update params: the reference's valid pass runs
+                    # before opt.step() (maml_vision.py:117-141)
+                    valid_m = meta_eval(params, *sample(valid_ds))
+                    params, opt, train_m = meta_step(params, opt, *batch)
+                    metrics = host_metrics({
+                        "train_loss": train_m["loss"],
+                        "train_acc": train_m["metric"],
+                        "valid_loss": valid_m["loss"],
+                        "valid_acc": valid_m["metric"]})
+                    print(f"iteration {iteration}: {metrics}", flush=True)
+                    self.log_metrics(metrics)
+                    if iteration % cfg.save_every == 0:
+                        self.save_model_checkpoint(params, iteration)
         except (KeyboardInterrupt, DivergenceError) as stop:
+            if cfg.fuse > 1:
+                # the COUNT of iterations in whole chunks (= rows of
+                # metrics.json before the stop) and their params
+                iteration, params = self._fused_count, self._fused_params
             self.mark_stopped(stop, iteration)
 
         self.save_model(params)
         self.logger["elapsed_time"] = (
             f"{round(time.perf_counter() - start, 2)} sec")
 
+        # the generator only moves forward: the meta-test draws numbers that
+        # no training iteration (eager or replayed) drew
         test_acc = float(meta_eval(params, *sample(test_ds))["metric"])
         print("Meta Test Accuracy", test_acc)
         self.logger["test_acc"] = test_acc

@@ -420,3 +420,87 @@ def test_meta_step_kernel_counts(cuda_device):
     counts = _meta_grad("fused", cuda_device, tasks=2, steps=2)[2]
     assert counts == {"cnn4_block_fwd": 12, "cnn4_block_bwd_params": 20,
                       "cnn4_block_bwd_input": 15}
+
+
+def _fused_run(kind, fuse, tmp_path, algo="trpo"):
+    """A small trainer run of 4 iterations at ``fuse`` -> (final params
+    {key: CPU tensor}, graph counts)."""
+    from exploring_meta_tpu_torch.trainers.rl import RLTrainer
+    from exploring_meta_tpu_torch.trainers.vision import VisionTrainer
+    from exploring_meta_tpu_torch.utils import graphs
+    from exploring_meta_tpu_torch.utils.config import (
+        RLScriptConfig, VisionConfig,
+    )
+    path = str(tmp_path / f"{kind}_{algo}_{fuse}") + "/"
+    graphs.reset_counts()
+    if kind == "rl":
+        cfg = RLScriptConfig(num_iterations=4, meta_batch_size=4,
+                             adapt_batch_size=5, max_path_length=20,
+                             n_eval_tasks=2, outer_lr=0.01, fuse=fuse)
+        trainer = RLTrainer(cfg, algo=algo, path=path)
+    else:
+        cfg = VisionConfig(num_iterations=4, meta_batch_size=2, shots=1,
+                           synthetic=True, fuse=fuse)
+        trainer = VisionTrainer(cfg, path=path)
+    trainer.run()
+    with np.load(os.path.join(trainer.model_path, "model.npz")) as z:
+        params = {k: torch.from_numpy(z[k]) for k in z.files}
+    return params, dict(graphs.COUNTS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,algo", [("rl", "trpo"), ("rl", "ppo"),
+                                       ("vision", None)])
+def test_fused_chunks_match_eager(cuda_device, tmp_path, kind, algo):
+    """4 iterations at ``--fuse 3`` (the eager warm-up, one capture, three
+    replays) against ``--fuse 1`` from the same seed: the Adam paths
+    within 1e-5 of max|params|, TRPO within 2e-2 of the run's step (f32
+    CG, ROADMAP Queue 3)."""
+    got, counts = _fused_run(kind, 3, tmp_path, algo)
+    want, eager_counts = _fused_run(kind, 1, tmp_path, algo)
+    assert counts == {"captures": 1, "replays": 3}
+    assert eager_counts == {"captures": 0, "replays": 0}
+    top = max(float(w.abs().max()) for w in want.values())
+    err = max(float((got[k] - w).abs().max()) for k, w in want.items())
+    if algo == "trpo":
+        from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
+        from exploring_meta_tpu_torch.utils.tree import tree_items
+        init = dict(tree_items(DiagNormalPolicy(2, 2).init(
+            torch.Generator(device=cuda_device).manual_seed(42))))
+        l2 = lambda a, b: sum(float((a[k].cpu() - b[k].cpu()).norm()) ** 2
+                              for k in b) ** 0.5
+        assert l2(got, want) <= 2e-2 * l2(want, init)
+    else:
+        assert err <= 1e-5 * top, err / top
+
+
+@pytest.mark.cuda
+def test_capture_raises_on_a_host_sync(cuda_device):
+    """An iteration that reads a value back to the host cannot be
+    captured: the capture raises, and the loop does not go on eagerly."""
+    from exploring_meta_tpu_torch.utils import graphs
+    state = torch.zeros((), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def iteration():
+        x = torch.rand((), generator=gen, device=cuda_device)
+        state.add_(x * float(x > 2.0))       # float(): a host sync
+        return {"s": state * 1.0}
+
+    graphs.reset_counts()
+    loop = graphs.FusedIterations(iteration, 3, cuda_device, (gen,))
+    calls, step = [], loop.step
+
+    def counted():
+        calls.append(torch.cuda.is_current_stream_capturing())
+        step()
+
+    loop.step = counted
+    with pytest.raises((RuntimeError,
+                        getattr(torch, "AcceleratorError", RuntimeError))):
+        loop(3)
+    torch.cuda.synchronize()
+    assert graphs.COUNTS == {"captures": 0, "replays": 0}
+    assert loop.graph is None
+    # the eager warm-up, then the capture that failed; nothing after it
+    assert calls == [False, True]

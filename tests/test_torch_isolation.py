@@ -53,7 +53,9 @@ def test_port_module_list_is_complete():
                 # slice 6: vision meta-training
                 "adapt.vision", "trainers.vision",
                 # slice 7: policy serving and the Adam outer paths
-                "rl.replay_meta"):
+                "rl.replay_meta",
+                # slice 8: fused meta-iterations as CUDA-graph replays
+                "trainers.fused", "rl.train_scan", "utils.graphs"):
         assert f"exploring_meta_tpu_torch.{mod}" in names
 
 

@@ -123,7 +123,6 @@ def test_default_device_is_the_card_never_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"fuse": 2}, "Fused iterations and CUDA graphs"),
     ({"mesh": 2}, "Scale-out"),
     ({"resume": "model.npz"}, "Run utilities"),
     ({"async_ckpt": True}, "Run utilities"),
