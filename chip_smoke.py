@@ -89,7 +89,18 @@ Phases, each of which fails the run (non-zero exit) on any error:
    iteration profiled (host launches per iteration, idle share, the
    kernels inside the replays); phase 5 also profiles the TRPO line
    search, stopping early and host-free;
-10. print one ``{"kernels": [...]}`` line, the card line again, and last
+10. the analysis tier (slice 9): a full-width vision run dir
+    (``VisionTrainer``, ``omniglot_spec(5)``, 2 iterations, a checkpoint
+    each) through ``eval_vision.run`` and a MAML-TRPO run dir through
+    ``eval_rl.run(run_cl=True, run_rc=True)``, each with the counters
+    zeroed just before (every CNN4 kernel under eval_vision, both sweeps
+    under eval_rl) and each section timed (ckpt sweep, meta-test, CL, RC,
+    through-time); every artifact exists and parses with JAX's keys and
+    finite numbers, the vision CCA values in [0, 1]; RC again with vpg
+    and ppo; one CL matrix from one pool held card vs CPU (adapted params,
+    logits, tie flips counted; ANIL once) and profiled (idle share); CKA
+    and CCA of the RC activations against float64 on the CPU;
+11. print one ``{"kernels": [...]}`` line, the card line again, and last
     ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports neither
@@ -98,6 +109,7 @@ JAX nor the JAX package. Without a card it exits 1 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -249,6 +261,31 @@ REPLAY_LOSS_TOL = 1e-5
 # FUSED_EAGER eager iterations a timing turn.
 FUSE, FUSED_ITERATIONS, FUSED_EAGER = 10, 20, 3
 FUSED_ADAM_TOL, FUSED_TRPO_TOL = 1e-5, 2e-2
+# The analysis tier (slice 9): eval_vision and eval_rl on run dirs that the
+# phase trains first (2 iterations, a checkpoint each) at full width. The
+# CL and RC params are the JAX defaults (vision: CL 10 tasks, RC 5 tasks
+# at layer 4; RL: 10 eval tasks, CL 5 tasks, RC 5 tasks at layers 2, 4,
+# -1); the one depth cut is ANALYSIS_EVAL_BATCHES meta-test batches
+# (JAX's default: 20).
+ANALYSIS_EVAL_BATCHES = 2
+ANALYSIS_CL = {"adapt_steps": 1, "inner_lr": 0.1, "n_tasks": 10}
+ANALYSIS_REP = {"adapt_steps": 1, "inner_lr": 0.1, "n_tasks": 5,
+                "layers": [4]}
+# One CL matrix from one pool, card vs CPU: adapted params within ADAPT_TOL
+# of max|params| over the tree, logits within CL_LOGIT_TOL of max|logits|
+# (float32 both, summation order only). An accuracy entry may differ only
+# by queries whose top two CPU logits lie within 2 x CL_LOGIT_TOL of
+# max|logits| (tie flips, counted and printed).
+CL_LOGIT_TOL = 1e-4
+# Linear and kernel CKA and the CCA mean of the RC activations, card
+# (float32) vs CPU (float64, the same activations): CKA within PROBE_TOL.
+# The CCA mean is held within PROBE_TOL where the float64 covariance of
+# the stacked activations has full rank (the vision reps). The RL reps
+# of 2-D Particles2D states span a few dimensions of 100 (rank 2 of 200
+# at layer 2 on the CPU), so their CCA, JAX's too, is float32 rounding
+# amplified by the pseudo-inverse: its error is printed with the rank,
+# not held.
+PROBE_TOL = 1e-4
 
 
 def check(ok: bool, what: str) -> None:
@@ -1924,7 +1961,7 @@ def fused_setup(torch, kind: str, kw: dict, cfg):
         from exploring_meta_tpu_torch.trainers.rl import (
             build_policy, rl_config, trpo_config,
         )
-        env = make_env(cfg.env)
+        env, _ = make_env(cfg.env)
         policy = build_policy(env, False, cfg.fc_neurons, cfg.activation)
         params = policy.init(gen)
         roll = make_rollout(env, policy.sample, cfg.adapt_batch_size,
@@ -2175,6 +2212,411 @@ def fused_phase(torch, gc, tc, gpu, tmp) -> dict:
         del train, params, opt, gen, loop
     return out
 
+@contextlib.contextmanager
+def timed_sections(torch, module, sections: dict, counts):
+    """Within the block, each function ``module.<name>`` of ``sections``
+    ({name: label}) is timed by host clock between two syncs, with the
+    kernel launches (``counts()``) it made -> {label: {"s", "calls",
+    "launches"}}, filled as the calls run. The module's functions are
+    restored on exit."""
+    out, saved = {}, {name: getattr(module, name) for name in sections}
+
+    def timed(name, fn):
+        def call(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = counts()
+            t0 = time.perf_counter()
+            res = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            rec = out.setdefault(sections[name],
+                                 {"s": 0.0, "calls": 0, "launches": {}})
+            rec["s"] += time.perf_counter() - t0
+            rec["calls"] += 1
+            for k, n in counts().items():
+                rec["launches"][k] = rec["launches"].get(k, 0) + n - before[k]
+            return res
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, timed(name, fn))
+    try:
+        yield out
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def recorded_reps(rc):
+    """Within the block, every pair of activations that the RC probes
+    compare (``analysis/rc.py:_similarities``) is recorded as (initial,
+    adapted) -> the list."""
+    sims, got = rc._similarities, []
+
+    def recording(init_rep, adapted_rep, compare):
+        got.append((init_rep, adapted_rep))
+        return sims(init_rep, adapted_rep, compare)
+
+    rc._similarities = recording
+    try:
+        yield got
+    finally:
+        rc._similarities = sims
+
+
+def json_numbers(x) -> list:
+    """Every number in a parsed JSON value."""
+    if isinstance(x, dict):
+        return [v for y in x.values() for v in json_numbers(y)]
+    if isinstance(x, list):
+        return [v for y in x for v in json_numbers(y)]
+    return [x] if isinstance(x, (int, float)) and not isinstance(x, bool) \
+        else []
+
+
+def check_artifacts(run: str, keys: dict, what: str) -> dict:
+    """Every artifact ``keys`` names ({relative path: the JSON's top-level
+    keys, ``...`` for any, or None for a text matrix}) exists and parses,
+    with those keys and finite numbers -> {path: parsed}."""
+    import math
+    import numpy as np
+    out = {}
+    for rel, want in keys.items():
+        path = os.path.join(run, rel)
+        check(os.path.exists(path), f"{what}: {rel} written")
+        if want is None:
+            out[rel] = np.loadtxt(path, ndmin=2)
+            nums = out[rel].ravel().tolist()
+        else:
+            with open(path) as f:
+                out[rel] = json.load(f)
+            if want is not ...:
+                check(set(out[rel]) == set(want),
+                      f"{what}: {rel} keys {sorted(out[rel])}, want "
+                      f"{sorted(want)}")
+            nums = json_numbers(out[rel])
+        check(all(math.isfinite(v) for v in nums),
+              f"{what}: {rel} finite, {out[rel]}")
+    return out
+
+
+def cl_card_vs_cpu(torch, params, spec, pool, anil: bool = False) -> dict:
+    """One vision CL matrix (``analysis/cl.py:cl_matrix``, setting 1) from
+    one pool, sampled once, on the card and on the CPU: the adapted params
+    within ADAPT_TOL, the logits within CL_LOGIT_TOL, and each accuracy
+    entry equal but for tie flips -> the errors and the flips."""
+    import numpy as np
+    from exploring_meta_tpu_torch.analysis.cl import cl_matrix
+    from exploring_meta_tpu_torch.models import cnn4
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+    data, labels = pool
+    kw = {}
+    if anil:
+        kw = dict(features_fn=lambda p, x: cnn4.cnn4_features(p, spec, x),
+                  head_apply=cnn4.cnn4_head_apply)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        res[dev] = cl_matrix(
+            lambda p, x: cnn4.cnn4_apply(p, spec, x),
+            tree_map(lambda t: t.detach().to(dev), params), data.to(dev),
+            labels.to(dev), spec.ways, 1, ANALYSIS_CL["inner_lr"],
+            ANALYSIS_CL["adapt_steps"], **kw)
+    card, cpu = res["cuda"], res["cpu"]
+    what = f"CL matrix{' (ANIL)' if anil else ''} card vs CPU"
+    adapted = max(tree_err(torch, a, b, what)
+                  for a, b in zip(card.adapted, cpu.adapted))
+    check(adapted <= ADAPT_TOL, f"{what}: adapted params {adapted} of "
+                                f"max|params|, limit {ADAPT_TOL}")
+    lc, lp = card.logits.cpu().double(), cpu.logits.double()
+    scale = float(lp.abs().max())
+    logits = float((lc - lp).abs().max()) / scale
+    check(logits <= CL_LOGIT_TOL, f"{what}: logits {logits} of max|logits|,"
+                                  f" limit {CL_LOGIT_TOL}")
+    top2 = lp.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]) / scale
+    flipped = lc.argmax(-1) != lp.argmax(-1)
+    check(bool((margin[flipped] <= 2 * CL_LOGIT_TOL).all()),
+          f"{what}: a prediction differs where the top two logits are "
+          f"{margin[flipped].tolist()} of max|logits| apart")
+    n_eval = lp.shape[-2]
+    moved = np.rint(np.abs(card.acc - cpu.acc) * n_eval)
+    check(bool((moved <= flipped.sum(-1).numpy()).all()),
+          f"{what}: accuracy entries differ beyond the tie flips, "
+          f"{card.acc.tolist()} vs {cpu.acc.tolist()}")
+    return {"adapted_err": adapted, "logit_err": logits,
+            "tie_flips": int(flipped.sum()), "entries_moved": int(moved.sum()),
+            "acc_card": card.acc.tolist(), "acc_cpu": cpu.acc.tolist()}
+
+
+def probes_card_vs_f64(torch, reps: list) -> dict:
+    """Linear and kernel CKA and the CCA mean of each recorded pair of RC
+    activations on the card (float32) against float64 on the CPU (the
+    same activations; the CCA covariance from ``np.cov``) -> the largest
+    errors, and the rank of each stacked covariance. CKA within PROBE_TOL;
+    the CCA mean within PROBE_TOL where that covariance has full rank."""
+    import numpy as np
+    from exploring_meta_tpu_torch.analysis.rc import _rows
+    from exploring_meta_tpu_torch.ops.cca import (
+        cca_from_cov, get_cca_similarity,
+    )
+    from exploring_meta_tpu_torch.ops.cka import get_kernel_CKA, get_linear_CKA
+    check(len(reps) > 0, "the RC probes compared activations")
+    errs = {"cka_linear": 0.0, "cka_kernel": 0.0, "cca_full_rank": 0.0,
+            "cca_rank_deficient": 0.0}
+    ranks = []
+    for init_rep, adapted_rep in reps:
+        a, b = _rows(adapted_rep), _rows(init_rep)
+        a64, b64 = a.double().cpu(), b.double().cpu()
+        for name, fn in (("cka_linear", get_linear_CKA),
+                         ("cka_kernel", get_kernel_CKA)):
+            err = abs(float(fn(a, b)) - float(fn(a64, b64)))
+            check(err <= PROBE_TOL, f"{name} card vs float64: {err}, limit "
+                                    f"{PROBE_TOL}")
+            errs[name] = max(errs[name], err)
+        if a.shape[0] == a.shape[1]:
+            a, b, a64, b64 = a[:-1], b[:-1], a64[:-1], b64[:-1]
+        if a.shape[0] >= a.shape[1]:
+            a, b, a64, b64 = a.T, b.T, a64.T, b64.T
+        cov = np.cov(torch.cat([a64, b64]).numpy())
+        rank = int(np.linalg.matrix_rank(cov))
+        ranks.append((rank, cov.shape[0]))
+        err = abs(get_cca_similarity(a, b, epsilon=1e-10)[1]
+                  - cca_from_cov(cov, a.shape[0], epsilon=1e-10)[1])
+        full = rank == cov.shape[0]
+        check(not full or err <= PROBE_TOL,
+              f"CCA mean card vs float64 at full rank: {err}, limit "
+              f"{PROBE_TOL}")
+        key = "cca_full_rank" if full else "cca_rank_deficient"
+        errs[key] = max(errs[key], err)
+    return {"max_err": errs, "pairs": len(reps),
+            "full_rank_pairs": sum(r == n for r, n in ranks),
+            "ranks": sorted(set(ranks))}
+
+
+def analysis_phase(torch, gc, tc, gpu, tmp) -> dict:
+    """Phase 10: the main path of slice 9, the analysis tier. A full-width
+    vision run dir (``VisionTrainer``, ``omniglot_spec(5)``, 2 iterations,
+    a checkpoint each) goes through ``eval_vision.run`` and a MAML-TRPO
+    run dir (``RLTrainer``, the ``RLScriptConfig`` defaults) through
+    ``eval_rl.run(run_cl=True, run_rc=True)``, each with the launch
+    counters zeroed just before and every section timed; every artifact
+    is checked; RC runs again with vpg and ppo; one CL matrix (MAML, and
+    ANIL once) is held card vs CPU on one pool and profiled; the RC
+    activations' CKA and CCA are held against float64 on the CPU."""
+    import numpy as np
+    from exploring_meta_tpu_torch.analysis import cl as acl
+    from exploring_meta_tpu_torch.analysis import eval_rl as er
+    from exploring_meta_tpu_torch.analysis import eval_vision as ev
+    from exploring_meta_tpu_torch.analysis import rc as arc
+    from exploring_meta_tpu_torch.envs.factory import make_env
+    from exploring_meta_tpu_torch.models import cnn4
+    from exploring_meta_tpu_torch.rl.rollout import make_rollout
+    from exploring_meta_tpu_torch.tasks.datasets import get_dataset
+    from exploring_meta_tpu_torch.tasks.sampler import sample_task_batch
+    from exploring_meta_tpu_torch.trainers.rl import (
+        RLTrainer, build_policy, rl_config,
+    )
+    from exploring_meta_tpu_torch.trainers.vision import VisionTrainer
+    from exploring_meta_tpu_torch.utils.config import (
+        RLScriptConfig, VisionConfig,
+    )
+    from exploring_meta_tpu_torch.utils.experiment import load_params
+
+    def counts():
+        return {**gc.launch_counts(), **tc.launch_counts()}
+
+    def zeroed():
+        torch.cuda.synchronize()
+        gc.reset_launch_counts()
+        tc.reset_launch_counts()
+
+    start = time.perf_counter()
+    out = {"cuts": {"n_eval_batches": ANALYSIS_EVAL_BATCHES,
+                    "cl_params": ANALYSIS_CL, "rep_params": ANALYSIS_REP,
+                    "rl": "eval_rl defaults: 10 eval tasks, CL 5 tasks, RC "
+                          "5 tasks at layers [2, 4, -1]"}}
+    print(f"analysis: depth cut to n_eval_batches {ANALYSIS_EVAL_BATCHES} "
+          f"(JAX default 20); CL {ANALYSIS_CL}, RC {ANALYSIS_REP} (JAX "
+          f"defaults) [{gpu}]", flush=True)
+
+    # vision: train, then eval_vision with the counters zeroed just before
+    trainer = VisionTrainer(VisionConfig(num_iterations=2, save_every=1,
+                                         synthetic=True, seed=SEED),
+                            path=os.path.join(tmp, "vision") + "/")
+    trainer.run()
+    run = trainer.model_path
+    zeroed()
+    with timed_sections(torch, ev, {
+            "checkpoint_sweep": "ckpt sweep",
+            "meta_test_accuracy": "meta-test", "run_cl_exp": "CL",
+            "run_rep_exp": "RC",
+            "measure_change_through_time": "through-time"},
+            counts) as secs, recorded_reps(arc) as vision_reps:
+        t0 = time.perf_counter()
+        res = ev.run(run, n_eval_batches=ANALYSIS_EVAL_BATCHES,
+                     cl_params=ANALYSIS_CL, rep_params=ANALYSIS_REP,
+                     synthetic=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = counts()
+    for k in tc.KERNELS:
+        check(launches[k] > 0, f"eval_vision: {k} launched, {launches}")
+    arts = check_artifacts(run, {
+        "ckpnt_results.json": {"0", "1"},
+        "eval_results.json": {"test_acc", "ckpnt_results", "cl_res",
+                              "rep_res", "cca_through_time"},
+        "cl_exp/acc_matrix.out": None,
+        "cl_exp/cl_res.json": {"av_acc", "fwt", "rem", "bwt_plus"},
+        "cl_exp/cl_params.json": set(ANALYSIS_CL),
+        "rep_exp/cca_results.json": {"4"},
+        "cca_through_time.json": ...}, "eval_vision")
+    n = ANALYSIS_CL["n_tasks"]
+    check(arts["cl_exp/acc_matrix.out"].shape == (n, n),
+          f"eval_vision: a {n} x {n} CL matrix")
+    ccas = arts["rep_exp/cca_results.json"]["4"] + arts[
+        "cca_through_time.json"]
+    check(len(arts["rep_exp/cca_results.json"]["4"])
+          == ANALYSIS_REP["n_tasks"] and len(arts["cca_through_time.json"])
+          == 1 and all(0.0 <= v <= 1.0 for v in ccas),
+          f"eval_vision: CCA values in [0, 1], {ccas}")
+    out["eval_vision"] = {"wall_s": wall, "sections": secs,
+                          "launches": launches, "test_acc": res["test_acc"],
+                          "cl_res": res["cl_res"], "cca": ccas}
+    print(f"eval_vision: {wall} s, launches {launches}, test_acc "
+          f"{res['test_acc']}, CL {res['cl_res']}, CCA {ccas} [{gpu}]",
+          flush=True)
+    for label, rec in secs.items():
+        print(f"  {label}: {rec['s']} s ({rec['calls']} calls), launches "
+              f"{rec['launches']} [{gpu}]", flush=True)
+
+    # one CL matrix from one pool, card vs CPU, then profiled on the card
+    spec = cnn4.omniglot_spec(WAYS)
+    template = cnn4.init_cnn4(torch.Generator(device="cuda").manual_seed(0),
+                              spec, device="cuda")
+    params = load_params(os.path.join(run, "model.npz"), template)
+    _, _, test_ds = get_dataset("omni", seed=SEED, synthetic=True,
+                                device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    pool = sample_task_batch(gen, test_ds, WAYS, 1, ANALYSIS_CL["n_tasks"])
+    zeroed()
+    versus = cl_card_vs_cpu(torch, params, spec, pool)
+    anil_spec = cnn4.anil_omniglot_spec(WAYS)
+    anil = cl_card_vs_cpu(torch, cnn4.init_cnn4(gen, anil_spec,
+                                                device="cuda"),
+                          anil_spec, pool, anil=True)
+
+    def one_matrix():
+        return acl.cl_matrix(lambda p, x: cnn4.cnn4_apply(p, spec, x),
+                             params, *pool, WAYS, 1,
+                             ANALYSIS_CL["inner_lr"],
+                             ANALYSIS_CL["adapt_steps"])
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_matrix()
+    torch.cuda.synchronize()
+    prof = profiled(torch, one_matrix, time.perf_counter() - t0)
+    out["cl_card_vs_cpu"] = {"maml": versus, "anil": anil, "profile": prof}
+    print(f"CL matrix card vs CPU, one pool of {n} tasks: adapted params "
+          f"{versus['adapted_err']} of max|params| (limit {ADAPT_TOL}), "
+          f"logits {versus['logit_err']} of max|logits| (limit "
+          f"{CL_LOGIT_TOL}), tie flips {versus['tie_flips']} (entries moved "
+          f"{versus['entries_moved']}); ANIL: {anil['adapted_err']}, "
+          f"{anil['logit_err']}, flips {anil['tie_flips']}; one matrix "
+          f"{prof['wall_us']} us wall, kernels busy {prof['busy_union_us']} "
+          f"us, idle {100 * prof['idle_share']:.1f} %, "
+          f"{prof['kernel_launches']} kernels [{gpu}]", flush=True)
+
+    # RL: train MAML-TRPO, then eval_rl with CL and RC
+    rcfg = RLScriptConfig(num_iterations=2, save_every=1, seed=SEED)
+    trainer = RLTrainer(rcfg, algo="trpo",
+                        path=os.path.join(tmp, "rl") + "/")
+    trainer.run()
+    run = trainer.model_path
+    zeroed()
+    with timed_sections(torch, er, {
+            "evaluate": "meta-test", "run_cl_rl_exp": "CL",
+            "run_rep_rl_exp": "RC",
+            "measure_change_through_time": "through-time"},
+            counts) as rsecs, recorded_reps(arc) as rl_reps:
+        t0 = time.perf_counter()
+        res = er.run(run, run_cl=True, run_rc=True)
+        torch.cuda.synchronize()
+        rwall = time.perf_counter() - t0
+    rlaunches = counts()
+    for k in gc.KERNELS:
+        check(rlaunches[k] > 0, f"eval_rl: {k} launched, {rlaunches}")
+    rarts = check_artifacts(run, {
+        "eval_results.json": {"eval", "cl_res_rew", "cl_res_suc", "rep_res",
+                              "cca_through_time"},
+        "cl_exp/cl_rew_matrix.out": None, "cl_exp/cl_suc_matrix.out": None,
+        "cl_exp/cl_res_rew.json": {"av_acc", "fwt", "rem", "bwt_plus"},
+        "cl_exp/cl_res_suc.json": {"av_acc", "fwt", "rem", "bwt_plus"},
+        "cl_exp/cl_params.json": ...,
+        "rep_exp/cca_rl_results.json": {"2", "4", "-1"},
+        "rep_exp/rep_params.json": ..., "rep_exp/rep_extra.json": {
+            "across_steps", "av_layer_changes_mean", "av_layer_changes_std",
+            "performance"},
+        "cca_through_time.json": ...}, "eval_rl")
+    check(rarts["cl_exp/cl_rew_matrix.out"].shape == (5, 5)
+          and len(res["eval"]["tasks_rewards"]) == rcfg.n_eval_tasks,
+          "eval_rl: a 5 x 5 CL matrix and 10 eval tasks")
+    out["eval_rl"] = {"wall_s": rwall, "sections": rsecs,
+                      "launches": rlaunches, "eval": res["eval"],
+                      "cca": rarts["rep_exp/cca_rl_results.json"],
+                      "cca_through_time": rarts["cca_through_time.json"]}
+    print(f"eval_rl: {rwall} s, launches {rlaunches}, mean reward "
+          f"{res['eval']['mean_reward']}, CCA by layer "
+          f"{rarts['rep_exp/cca_rl_results.json']}, through time "
+          f"{rarts['cca_through_time.json']} [{gpu}]", flush=True)
+    for label, rec in rsecs.items():
+        print(f"  {label}: {rec['s']} s ({rec['calls']} calls), launches "
+              f"{rec['launches']} [{gpu}]", flush=True)
+
+    # RC once more with vpg and with ppo: each branch of single_adapt_step
+    env, _ = make_env(rcfg.env)
+    policy = build_policy(env, False)
+    params = load_params(os.path.join(run, "model.npz"), policy.init(
+        torch.Generator(device="cuda").manual_seed(0)))
+    roll = make_rollout(env, policy.sample, rcfg.adapt_batch_size,
+                        rcfg.max_path_length)
+    out["rc_algos"] = {}
+    for algo in ("vpg", "ppo"):
+        zeroed()
+        t0 = time.perf_counter()
+        rc = arc.run_rep_rl_exp(os.path.join(tmp, f"rc_{algo}"), policy,
+                                params, env, roll, rl_config(rcfg),
+                                torch.Generator(device="cuda").manual_seed(
+                                    SEED), algo=algo)
+        torch.cuda.synchronize()
+        got = counts()
+        check(all(got[k] > 0 for k in gc.KERNELS)
+              and all(np.isfinite(v) for vals in rc["cca"].values()
+                      for v in vals),
+              f"RC {algo}: the sweeps ran, finite CCA, {got}, {rc['cca']}")
+        out["rc_algos"][algo] = {"s": time.perf_counter() - t0,
+                                 "launches": got, "cca": rc["cca"]}
+        print(f"RC {algo}: {out['rc_algos'][algo]['s']} s, launches {got}, "
+              f"CCA {rc['cca']} [{gpu}]", flush=True)
+
+    # CKA / CCA of the RC activations, card vs float64 on the CPU: every
+    # vision pair; the RL pairs of the first task, one a layer (float64 on
+    # the CPU takes ~1 s a pair of 2,000 states)
+    t0 = time.perf_counter()
+    out["probes"] = {"vision": probes_card_vs_f64(torch, vision_reps),
+                     "rl": probes_card_vs_f64(torch, rl_reps[:3])}
+    for name, p in out["probes"].items():
+        print(f"probes {name}, card f32 vs CPU f64 over {p['pairs']} pairs "
+              f"({p['full_rank_pairs']} with a full-rank stacked "
+              f"covariance; (rank, size) {p['ranks']}): max |err| "
+              f"{p['max_err']} (CKA and full-rank CCA held at {PROBE_TOL}) "
+              f"[{gpu}]", flush=True)
+    out["probes"]["s"] = time.perf_counter() - t0
+    out["phase_s"] = time.perf_counter() - start
+    print(f"analysis phase: {out['phase_s']} s, of which the float64 probes "
+          f"{out['probes']['s']} s [{gpu}]", flush=True)
+    return out
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2232,6 +2674,8 @@ def main() -> int:
     replay_grad = replay_grad_phase(torch, gpu)
     with tempfile.TemporaryDirectory() as tmp:
         fused = fused_phase(torch, gc, tc, gpu, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        analysis = analysis_phase(torch, gc, tc, gpu, tmp)
 
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2241,8 +2685,8 @@ def main() -> int:
                    "vision_second_order": second_order,
                    "vision_trainer": vision, "vision_timing": vision_times,
                    "policy_serve": policy_serve, "adam_rl": adam_rl,
-                   "replay_meta_grad": replay_grad, "fused": fused},
-                  f, indent=1)
+                   "replay_meta_grad": replay_grad, "fused": fused,
+                   "analysis": analysis}, f, indent=1, default=str)
 
     replaces = {
         "cnn4_block_fwd": "exploring_meta_tpu/pallas/cnn4_pallas.py:295",
@@ -2256,10 +2700,15 @@ def main() -> int:
     # vision trainer's run; the sweeps on four, the MAML-TRPO trainer's
     # run, the served policy batches and the two Adam trainers' runs; and
     # each on the fused trainers' runs (the eager warm-up and meta-test:
-    # a replay runs the kernels recorded in its graph, no wrapper)
+    # a replay runs the kernels recorded in its graph, no wrapper); the
+    # analysis tier's: eval_vision the CNN4 kernels, eval_rl and the vpg /
+    # ppo RC runs the sweeps
     for paths in (vision["launches"], policy_serve["launches"],
                   adam_rl["launches"],
-                  *(r["launches"] for r in fused.values())):
+                  *(r["launches"] for r in fused.values()),
+                  analysis["eval_vision"]["launches"],
+                  analysis["eval_rl"]["launches"],
+                  *(r["launches"] for r in analysis["rc_algos"].values())):
         for name, n in paths.items():
             launches[name] += n
     kernels = []

@@ -5,6 +5,8 @@
     python -m exploring_meta_tpu_torch.cli anil_vision --dataset min ...
     python -m exploring_meta_tpu_torch.cli maml_trpo --num_iterations 3
     python -m exploring_meta_tpu_torch.cli anil_ppo --num_iterations 3
+    python -m exploring_meta_tpu_torch.cli eval_vision <run_dir>
+    python -m exploring_meta_tpu_torch.cli eval_rl <run_dir> --cl --rc
     EMT_FORCE_CPU=1 python -m exploring_meta_tpu_torch.cli maml_vision ...
 
 Runs go to the card unless ``EMT_FORCE_CPU=1`` asks for the CPU.
@@ -12,6 +14,7 @@ Runs go to the card unless ``EMT_FORCE_CPU=1`` asks for the CPU.
 
 from __future__ import annotations
 
+import argparse
 import sys
 
 
@@ -80,10 +83,74 @@ def anil_vpg(argv=None) -> dict:
     return _rl_main("vpg", True, "ANIL-VPG on Meta-RL", argv)
 
 
+def eval_vision(argv=None) -> dict:
+    """Offline vision evaluation of a run directory (``emt-eval-vision``;
+    reference ``misc_scripts/eval_vision.py``)."""
+    from exploring_meta_tpu_torch.utils.config import requested_device
+
+    p = argparse.ArgumentParser(description="Evaluate a vision run directory")
+    p.add_argument("path", help="run directory (results/<algo>_<dataset>_...)")
+    p.add_argument("--no_cl", action="store_true")
+    p.add_argument("--no_rc", action="store_true")
+    p.add_argument("--synthetic", action="store_true")
+    args = p.parse_args(argv)
+    from exploring_meta_tpu_torch.analysis import eval_vision as ev
+    return ev.run(args.path, run_cl=not args.no_cl, run_rc=not args.no_rc,
+                  synthetic=args.synthetic or None, device=requested_device())
+
+
+def eval_rl(argv=None) -> dict:
+    """Offline RL evaluation of a run directory (``emt-eval-rl``; reference
+    ``misc_scripts/eval_rl.py``). The host-env flags (``--workers``,
+    ``--task_batch``, ``--host_policy cpu``) raise
+    ``NotImplementedError``."""
+    from exploring_meta_tpu_torch.utils.config import requested_device
+
+    p = argparse.ArgumentParser(description="Evaluate an RL run directory")
+    p.add_argument("path", help="run directory")
+    p.add_argument("--cl", action="store_true", help="run CL experiment")
+    p.add_argument("--rc", action="store_true",
+                   help="run rep-change experiment")
+    p.add_argument("--n_eval_tasks", type=int, default=None)
+    p.add_argument("--each3", action="store_true",
+                   help="3 trials per distinct task (reference eval_rl.py:33)")
+    p.add_argument("--task", type=str, default=None,
+                   help="explicit ML10 task name to evaluate, e.g. "
+                        "'door-close' (reference eval_params['n_tasks'] "
+                        "string mode)")
+    p.add_argument("--test_on_train", action="store_true",
+                   help="meta-test on the benchmark's TRAIN tasks "
+                        "(reference eval_rl.py:32)")
+    p.add_argument("--checkpoint", type=int, default=None,
+                   help="evaluate model_checkpoints/model_<N>.npz instead "
+                        "of the final model (reference eval_rl.py:29)")
+    p.add_argument("--workers", type=int, default=None,
+                   help="host-env episode slots (defaults to "
+                        "adapt_batch_size)")
+    p.add_argument("--task_batch", action="store_true",
+                   help="host envs: adapt+evaluate all tasks in lockstep "
+                        "through one n_tasks*episodes vec env")
+    p.add_argument("--host_policy", choices=["device", "cpu"],
+                   default="device",
+                   help="host envs: where per-step policy forwards run "
+                        "during collection")
+    args = p.parse_args(argv)
+    if args.host_policy != "device":
+        from exploring_meta_tpu_torch.envs.factory import HOST_ENVS
+        raise NotImplementedError(f"eval_rl: --host_policy: {HOST_ENVS}")
+    from exploring_meta_tpu_torch.analysis import eval_rl as er
+    return er.run(args.path, run_cl=args.cl, run_rc=args.rc,
+                  n_eval_tasks=args.task or args.n_eval_tasks,
+                  each3=args.each3, test_on_train=args.test_on_train,
+                  checkpoint=args.checkpoint, workers=args.workers,
+                  task_batch=args.task_batch, device=requested_device())
+
+
 COMMANDS = {"maml_vision": maml_vision, "anil_vision": anil_vision,
             "maml_trpo": maml_trpo, "anil_trpo": anil_trpo,
             "maml_ppo": maml_ppo, "anil_ppo": anil_ppo,
-            "maml_vpg": maml_vpg, "anil_vpg": anil_vpg}
+            "maml_vpg": maml_vpg, "anil_vpg": anil_vpg,
+            "eval_vision": eval_vision, "eval_rl": eval_rl}
 
 if __name__ == "__main__":
     if len(sys.argv) < 2 or sys.argv[1] not in COMMANDS:

@@ -173,7 +173,8 @@ class RLTrainer(Experiment):
 
     def run(self) -> dict:
         cfg = self.cfg
-        env = make_env(cfg.env)
+        env, _ = make_env(cfg.env, seed=cfg.seed,
+                          max_path_length=cfg.max_path_length)
         policy = build_policy(env, self.anil, fc_neurons=cfg.fc_neurons,
                               activation=cfg.activation)
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
@@ -222,7 +223,7 @@ class RLTrainer(Experiment):
         # the generator only moves forward, so the meta-test draws numbers
         # that no training iteration (eager or replayed) drew
         final = meta_test(self.algo, cfg.env, policy, params, rl_cfg,
-                          n_tasks=cfg.n_eval_tasks, gen=gen)
+                          n_tasks=cfg.n_eval_tasks, gen=gen, seed=cfg.seed)
         print("Final evaluation:", final["mean_reward"],
               "success:", final["mean_success"])
         self.logger["final_eval"] = final

@@ -19,8 +19,10 @@ written by either package loads in the other.
 from __future__ import annotations
 
 import datetime
+import glob
 import json
 import os
+import re
 
 import numpy as np
 import torch
@@ -55,6 +57,19 @@ def load_params(path: str, template):
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     return unflatten_into(template, flat)
+
+
+def list_checkpoints(run_dir: str) -> list:
+    """Numerically sorted ``[(step, path)]`` of
+    ``model_checkpoints/model_<step>.npz`` under ``run_dir`` (a
+    lexicographic sort would put model_10 before model_2)."""
+    out = []
+    for path in glob.glob(os.path.join(run_dir, "model_checkpoints",
+                                       "model_*.npz")):
+        m = re.search(r"model_(\d+)\.npz$", path)
+        if m:
+            out.append((int(m.group(1)), path))
+    return sorted(out)
 
 
 class DivergenceError(RuntimeError):

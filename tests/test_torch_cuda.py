@@ -504,3 +504,60 @@ def test_capture_raises_on_a_host_sync(cuda_device):
     assert loop.graph is None
     # the eager warm-up, then the capture that failed; nothing after it
     assert calls == [False, True]
+
+
+@pytest.mark.cuda
+def test_cl_matrix_card_vs_cpu_on_one_pool(cuda_device):
+    """One vision CL matrix from one pool sampled once on the card: the
+    adapted params and logits against the CPU's, accuracy entries equal
+    but for counted tie flips (``chip_smoke.cl_card_vs_cpu``); MAML and
+    ANIL."""
+    from exploring_meta_tpu_torch.tasks.sampler import sample_task_batch
+    from exploring_meta_tpu_torch.models.cnn4 import anil_omniglot_spec
+    from exploring_meta_tpu_torch.tasks.datasets import get_dataset
+    _, _, ds = get_dataset("omni", seed=0, synthetic=True, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pool = sample_task_batch(gen, ds, 5, 1, 4)
+    for spec, anil in ((omniglot_spec(5), False), (anil_omniglot_spec(5),
+                                                    True)):
+        res = chip_smoke.cl_card_vs_cpu(
+            torch, init_cnn4(gen, spec, device="cuda"), spec, pool, anil=anil)
+        assert res["adapted_err"] <= chip_smoke.ADAPT_TOL
+        assert res["logit_err"] <= chip_smoke.CL_LOGIT_TOL
+
+
+@pytest.mark.cuda
+def test_eval_runs_launch_the_kernels(cuda_device, tmp_path):
+    """eval_vision on a card-trained run dir launches the three CNN4
+    kernels, eval_rl (CL and RC) both sweeps; every artifact is written."""
+    from exploring_meta_tpu_torch.analysis import eval_rl, eval_vision
+    from exploring_meta_tpu_torch.trainers.rl import RLTrainer
+    from exploring_meta_tpu_torch.trainers.vision import VisionTrainer
+    from exploring_meta_tpu_torch.utils.config import (
+        RLScriptConfig, VisionConfig,
+    )
+    vis = VisionTrainer(VisionConfig(num_iterations=2, meta_batch_size=4,
+                                     save_every=1, synthetic=True),
+                        path=str(tmp_path) + "/")
+    vis.run()
+    tc.reset_launch_counts()
+    out = eval_vision.run(vis.model_path, n_eval_batches=1,
+                          cl_params={"adapt_steps": 1, "inner_lr": 0.1,
+                                     "n_tasks": 3},
+                          rep_params={"adapt_steps": 1, "inner_lr": 0.1,
+                                      "n_tasks": 2, "layers": [4]},
+                          synthetic=True)
+    assert all(n > 0 for n in tc.launch_counts().values())
+    assert len(out["cca_through_time"]) == 1
+    rl = RLTrainer(RLScriptConfig(num_iterations=2, meta_batch_size=3,
+                                  adapt_batch_size=5, max_path_length=20,
+                                  n_eval_tasks=3, save_every=1),
+                   path=str(tmp_path) + "/")
+    rl.run()
+    gc.reset_launch_counts()
+    out = eval_rl.run(rl.model_path, run_cl=True, run_rc=True)
+    assert all(n > 0 for n in gc.launch_counts().values())
+    assert np.isfinite(out["eval"]["mean_reward"])
+    for rel in ("cl_exp/cl_rew_matrix.out", "rep_exp/cca_rl_results.json",
+                "rep_exp/rep_extra.json", "cca_through_time.json"):
+        assert os.path.exists(os.path.join(rl.model_path, rel))

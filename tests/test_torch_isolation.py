@@ -21,6 +21,7 @@ bad = sorted(m for m in sys.modules
              or m == "exploring_meta_tpu" or m.startswith("exploring_meta_tpu."))
 print(len(names))
 print(",".join(bad))
+print(",".join(sorted(m for m in sys.modules if m.split(".")[0] == "matplotlib")))
 """
 
 
@@ -32,6 +33,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     n, bad = (out.stdout.split("\n") + [""])[:2]
     assert int(n) >= 35
     assert bad == "", bad
+
+
+def test_no_port_module_imports_matplotlib_when_imported():
+    """matplotlib (absent from the card's machine) is imported inside the
+    plot functions only; the probe above imports every module, the
+    analysis tier included."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    assert lines[2] == "", lines[2]
 
 
 def test_port_module_list_is_complete():
@@ -55,7 +68,11 @@ def test_port_module_list_is_complete():
                 # slice 7: policy serving and the Adam outer paths
                 "rl.replay_meta",
                 # slice 8: fused meta-iterations as CUDA-graph replays
-                "trainers.fused", "rl.train_scan", "utils.graphs"):
+                "trainers.fused", "rl.train_scan", "utils.graphs",
+                # slice 9: the analysis tier
+                "analysis", "analysis.cl", "analysis.rc",
+                "analysis.eval_vision", "analysis.eval_rl", "ops.cca",
+                "ops.cka", "ops.cl_metrics", "utils.plotter"):
         assert f"exploring_meta_tpu_torch.{mod}" in names
 
 
