@@ -100,7 +100,23 @@ Phases, each of which fails the run (non-zero exit) on any error:
     and ppo; one CL matrix from one pool held card vs CPU (adapted params,
     logits, tie flips counted; ANIL once) and profiled (idle share); CKA
     and CCA of the RC activations against float64 on the CPU;
-11. print one ``{"kernels": [...]}`` line, the card line again, and last
+11. the non-meta baselines and bf16 meta-RL (slice 10): the CNN4 kernels
+    at B = 1, N = 10 (TPU-kernel rows 1-2, the vision baseline's Adam
+    step) against their twins in f32 and bf16 at the four block shapes,
+    each timed (CUDA events, profiler device time, twin, library); the
+    PPO, TRPO and random baselines, 2 iterations each at the
+    ``RLScriptConfig`` defaults, and the vision baseline, 2 iterations at
+    the script's defaults on Omniglot's real shape, each with the
+    counters zeroed just before: each sweep once a task (the random
+    policy the discount sweep alone), the CNN4 kernels 4 / 4 / 3 an Adam
+    step, plus the meta-tests' launches, exactly; finite metrics, a
+    finite test reward or accuracy, run dirs that load; one PPO, one
+    TRPO and one vision update card vs CPU (on the card's baseline fit);
+    maml_trpo ``--bf16 --fuse 10`` through the trainer (one capture, 19
+    replays), s per replayed iteration bf16 against f32 in turns, one
+    eager maml_ppo ``--bf16`` iteration, and the bf16 density on the
+    card against the CPU path (equal but at bf16 ties) and f32;
+12. print one ``{"kernels": [...]}`` line, the card line again, and last
     ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports neither
@@ -286,6 +302,63 @@ CL_LOGIT_TOL = 1e-4
 # amplified by the pseudo-inverse: its error is printed with the rank,
 # not held.
 PROBE_TOL = 1e-4
+
+# Non-meta baselines and bf16 meta-RL (slice 10). The RL baselines run
+# BASELINE_ITERATIONS iterations at the RLScriptConfig defaults (20 tasks
+# x 20 episodes x horizon 100, MLP (100, 100)); each task's rollout runs
+# both sweeps once through its advantages (the random policy: discount
+# once, for its fit); the meta-test adapts 10 fresh tasks at once, PPO
+# with 2 + 2 sweeps (support and query advantages), TRPO with 3 + 3 (its
+# fit, its inner loss, its query loss). The vision baseline runs at the
+# script's defaults (Adam 1e-3; meta-batch 32, so int(320 / 32) = 10 Adam
+# steps an iteration, 5-way 1-shot, N = 10 images a step, the CNN4
+# kernels at B = 1: 4 / 4 / 3 calls a step, block 1 takes no dx), on
+# synthetic Omniglot at its real shape; its meta-test is one
+# make_meta_eval at B = 32 (META_EVAL_CALLS).
+BASELINE_ITERATIONS = 2
+BASELINE_META_TEST = {"ppo": {"gae_sweep": 2, "discount_sweep": 2},
+                      "trpo": {"gae_sweep": 3, "discount_sweep": 3}}
+BASELINE_STEP_CALLS = {"cnn4_block_fwd": 4, "cnn4_block_bwd_params": 4,
+                       "cnn4_block_bwd_input": 3}
+# Card vs CPU of one baseline update, on the card's baseline fit. Adam
+# scales each element's step by its own gradient history, so summation
+# order alone moves three PPO epochs at Adam 0.1 by up to 6.2e-5 of
+# max|params| (the CPU against itself at 1 and 8 threads, full width, six
+# trajectories): held within BASELINE_PPO_TOL with a non-capturable Adam
+# on the card, as on the CPU. The path's own Adam is capturable on the
+# card: its step count lives on the device and its bias correction is
+# taken in float32, where the CPU's is taken in double, which Adam's
+# normalization amplifies to up to 5.7e-3 of max|params| (the CPU with
+# that arithmetic written out against torch's, the same six): held within
+# ADAM_F32_TOL. The first epoch's gradient, before any Adam step, is held
+# within REPLAY_GRAD_TOL of max|grad|. The single-task TRPO step's
+# float32 CG (damping 1e-5)
+# moves by ~0.10 of the step between the CPU's own two summation orders,
+# and float32 against float64 alike: the accepted candidate is held
+# exactly and the params within BASELINE_TRPO_TOL of the step. The vision
+# scan (10 Adam steps at 1e-3): the first step's gradient within
+# REPLAY_GRAD_TOL of max|grad|; after the scan every element but the conv
+# biases within VISION_TOL of max|params| but a share VISION_FLIP_SHARE at
+# most, and each of those within one Adam step a step: Adam's first step
+# is the sign of each element's gradient, so an element whose gradient is
+# rounding noise may step either way on two conv implementations (the
+# CPU's fused and direct paths, four batches: 0 or 1 of 112,005 elements
+# past 1e-4 of max|params|, at most 0.42 lr apart). The conv biases are
+# all such elements: batch-stat BN removes them.
+BASELINE_PPO_TOL, ADAM_F32_TOL = 5e-4, 1e-2
+BASELINE_TRPO_TOL, VISION_TOL, VISION_FLIP_SHARE = 0.3, 1e-4, 1e-3
+# bf16 density, card vs the CPU path: each layer rounds a float32 dot to
+# bf16, and two summation orders may round a dot that lies within float32
+# rounding of a bf16 rounding boundary (a tie) to neighbouring values; the
+# states that differ by more than BF16_DENSITY_TOL of max|loc| must each
+# have such a tie, be at most BF16_TIE_SHARE of the states, and differ by
+# at most four bf16 steps of max|loc|.
+BF16_STATES, BF16_DENSITY_TOL, BF16_TIE_SHARE = 2000, 1e-6, 0.01
+BF16_STEPS = 4 * 2.0 ** -8
+# the single-task CNN4 kernels (TPU-kernel rows 1-2) at the vision
+# baseline's N = 2 x ways x shots = 10 images; GRAPH_CALLS calls captured
+# back to back in one CUDA graph, replayed GRAPH_REPLAYS times
+SINGLE_N, GRAPH_CALLS, GRAPH_REPLAYS = 10, 20, 10
 
 
 def check(ok: bool, what: str) -> None:
@@ -1963,6 +2036,8 @@ def fused_setup(torch, kind: str, kw: dict, cfg):
         )
         env, _ = make_env(cfg.env)
         policy = build_policy(env, False, cfg.fc_neurons, cfg.activation)
+        if cfg.bf16:
+            policy = policy._replace(compute_dtype="bf16")
         params = policy.init(gen)
         roll = make_rollout(env, policy.sample, cfg.adapt_batch_size,
                             cfg.max_path_length)
@@ -2617,6 +2692,570 @@ def analysis_phase(torch, gc, tc, gpu, tmp) -> dict:
           f"{out['probes']['s']} s [{gpu}]", flush=True)
     return out
 
+def graph_ms_per_call(torch, fn, calls: int = GRAPH_CALLS,
+                      replays: int = GRAPH_REPLAYS) -> float:
+    """ms of one call of ``fn`` run back to back: ``calls`` calls captured
+    in one CUDA graph, its replays timed by CUDA events. A call of a few
+    microseconds launched from Python one at a time is timed by the host's
+    dispatch (``time_ms``); a replay launches the same kernels with no
+    host between them, so this is their device time and the gaps between
+    kernels on the device. (The profiler's per-kernel records are not
+    used: after the earlier phases' sessions CUPTI has been seen to
+    deliver a session's records into the next one.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def single_task_kernels(tc, F, torch, gpu) -> dict:
+    """Phase 11, rows 1-2 of the TPU-kernel table: the single-task forms
+    (B = 1) at the vision baseline's N = SINGLE_N images, at each of the
+    four block shapes. Each kernel against its twin in f32 and bf16; in
+    f32 its bound, its CUDA-event time, its time back to back in a CUDA
+    graph (the device's), its twin's time and phase 3's library
+    yardstick."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    co, out = HIDDEN, {name: [] for name in tc.KERNELS}
+    err = {name: {} for name in tc.KERNELS}
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        for blk, (h, ci) in enumerate(BLOCKS):
+            x, w, b, sc, be, g = block_inputs(torch, tc, gen, 1, SINGLE_N, h,
+                                              ci, dt)
+            what = f"block {blk + 1} B 1 N {SINGLE_N}"
+            got = tc.block_bwd_params(x, w, b, sc, be, g)
+            want = tc.block_bwd_params_plain(x, w, b, sc, be, g)
+            dy_abs = want[0].abs().sum(dim=(1, 2, 3))
+            errs = {
+                "cnn4_block_fwd": held(torch, tc.block_fwd(x, w, b, sc, be),
+                                       tc.block_fwd_plain(x, w, b, sc, be),
+                                       dname, what),
+                "cnn4_block_bwd_params": max(
+                    held(torch, got[i], want[i], dname, f"{what} output {i}",
+                         db=dy_abs + 1e-30 if i == 2 else None)
+                    for i in range(5)),
+                "cnn4_block_bwd_input": held(
+                    torch, tc.block_bwd_input(got[0], w, h, h),
+                    tc.block_bwd_input_plain(got[0], w, h, h), dname, what)}
+            for name, e in errs.items():
+                err[name][dname] = max(err[name].get(dname, 0.0), e)
+            if dt != torch.float32:
+                continue
+            dy = got[0]
+            xg = x[0].permute(0, 3, 1, 2).contiguous()
+            wg = w[0].permute(3, 2, 0, 1).contiguous()
+            dyg = dy[0].permute(0, 3, 1, 2).contiguous()
+            runs = {
+                "cnn4_block_fwd": (
+                    lambda: tc.block_fwd(x, w, b, sc, be),
+                    lambda: tc.block_fwd_plain(x, w, b, sc, be),
+                    lambda: torch.relu(F.batch_norm(
+                        F.conv2d(xg, wg, b[0], stride=2, padding=1), None,
+                        None, sc[0], be[0], training=True, eps=tc.EPS))),
+                "cnn4_block_bwd_params": (
+                    lambda: tc.block_bwd_params(x, w, b, sc, be, g),
+                    lambda: tc.block_bwd_params_plain(x, w, b, sc, be, g),
+                    None),
+                "cnn4_block_bwd_input": (
+                    lambda: tc.block_bwd_input(dy, w, h, h),
+                    lambda: tc.block_bwd_input_plain(dy, w, h, h),
+                    lambda: torch.nn.grad.conv2d_input(
+                        xg.shape, wg, dyg, stride=2, padding=1)),
+            }
+            for name, (kern, plain, lib) in runs.items():
+                bms, oms = bound(name, 1, SINGLE_N, h, ci, co, 4)
+                row = {"block": blk + 1, "x": [1, SINGLE_N, h, h, ci],
+                       "on_path": not (name == "cnn4_block_bwd_input"
+                                       and blk == 0),
+                       "ms": time_ms(kern),
+                       "graph_ms": graph_ms_per_call(torch, kern),
+                       "plain_ms": time_ms(plain),
+                       "library_ms": time_ms(lib) if lib else None,
+                       "bytes_ms": bms, "ops_ms": oms,
+                       "bound_ms": max(bms, oms)}
+                if name == "cnn4_block_bwd_params":
+                    row["dw_library_ms"] = time_ms(
+                        lambda: torch.nn.grad.conv2d_weight(
+                            xg, wg.shape, dyg, stride=2, padding=1))
+                out[name].append(row)
+    res = {}
+    for name, rows in out.items():
+        path = [r for r in rows if r["on_path"]]
+        res[name] = {"max_abs_err": err[name], "shapes": rows, **{
+            k: (None if any(r[k] is None for r in path)
+                else sum(r[k] for r in path))
+            for k in ("ms", "graph_ms", "plain_ms", "library_ms",
+                      "bytes_ms", "ops_ms", "bound_ms")}}
+        for r in rows:
+            print(f"  {name} B 1 block {r['block']} x {r['x']}: ms "
+                  f"{r['ms']} graph_ms {r['graph_ms']} bound_ms "
+                  f"{r['bound_ms']} plain_ms {r['plain_ms']} library_ms "
+                  f"{r['library_ms']}" + (f" dw_library_ms "
+                                          f"{r['dw_library_ms']}"
+                                          if "dw_library_ms" in r else ""),
+                  flush=True)
+        r = res[name]
+        print(f"single-task {name} (row {1 if name == 'cnn4_block_fwd' else 2}"
+              f", B 1, N {SINGLE_N}, the blocks on the path summed): ms "
+              f"{r['ms']} graph_ms {r['graph_ms']} bound_ms "
+              f"{r['bound_ms']} plain_ms {r['plain_ms']} library_ms "
+              f"{r['library_ms']} max_abs_err {r['max_abs_err']} [{gpu}]",
+              flush=True)
+    return res
+
+
+def counted_train(torch, gc, tc, cls):
+    """A subclass of the RL baseline ``cls`` whose training loop records
+    its wall time and kernel launches, apart from the meta-test's."""
+    class Counted(cls):
+        def _train(self, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = super()._train(*args)
+            torch.cuda.synchronize()
+            self.train_s = time.perf_counter() - t0
+            self.train_launches = {**gc.launch_counts(),
+                                   **tc.launch_counts()}
+            return last
+    Counted.__name__ = cls.__name__
+    return Counted
+
+
+def rl_baseline_runs(torch, gc, tc, gpu, tmp) -> dict:
+    """Phase 11, the RL baselines' main paths: BASELINE_ITERATIONS
+    iterations of each at the RLScriptConfig defaults, with every counter
+    zeroed just before."""
+    import math
+    import numpy as np
+    from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
+    from exploring_meta_tpu_torch.trainers import baselines
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+    from exploring_meta_tpu_torch.utils.experiment import load_params
+
+    template = DiagNormalPolicy(2, 2).init(torch.Generator().manual_seed(0),
+                                           device="cpu")
+    out = {}
+    for name, cls, test in (("ppo", baselines.PPOBaseline, "ppo"),
+                            ("trpo", baselines.TRPOBaseline, "trpo"),
+                            ("random", baselines.RandomPolicyBaseline,
+                             "ppo")):
+        cfg = RLScriptConfig(num_iterations=BASELINE_ITERATIONS, seed=SEED)
+        trainer = counted_train(torch, gc, tc, cls)(
+            cfg, path=os.path.join(tmp, name) + "/")
+        torch.cuda.synchronize()
+        gc.reset_launch_counts()
+        tc.reset_launch_counts()
+        t0 = time.perf_counter()
+        final = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {**gc.launch_counts(), **tc.launch_counts()}
+        tasks = BASELINE_ITERATIONS * cfg.meta_batch_size
+        train = {"gae_sweep": 0 if name == "random" else tasks,
+                 "discount_sweep": tasks}
+        check({k: trainer.train_launches[k] for k in train} == train
+              and all(trainer.train_launches[k] == 0 for k in tc.KERNELS),
+              f"{name} baseline: each sweep once a task an iteration, "
+              f"{trainer.train_launches}, want {train}")
+        want = {k: train[k] + BASELINE_META_TEST[test][k] for k in train}
+        check({k: launches[k] for k in want} == want,
+              f"{name} baseline with its meta-test: {launches}, want {want}")
+        run = trainer.model_path
+        with open(os.path.join(run, "metrics.json")) as f:
+            metrics = json.load(f)
+        keys = {"average_return"} | ({"loss"} if name == "ppo" else set())
+        for key in keys:
+            check(len(metrics[key]) == BASELINE_ITERATIONS
+                  and all(v is not None and math.isfinite(v)
+                          for v in metrics[key]),
+                  f"{name} baseline metrics.json {key}: {metrics}")
+        with open(os.path.join(run, "logger.json")) as f:
+            logger = json.load(f)
+        check(math.isfinite(final["mean_reward"])
+              and logger["test_reward"] == final["mean_reward"]
+              and (name == "trpo") == ("test_reward" not in metrics),
+              f"{name} baseline: test_reward finite and logged")
+        for rel in ("model.npz", "model_checkpoints/model_1.npz"):
+            p = load_params(os.path.join(run, rel), template)
+            check(all(bool(torch.isfinite(t).all()) for t in
+                      (p["sigma"], *(v for layer in p["mean"]
+                                     for v in layer.values()))),
+                  f"{name} baseline {rel} loads, finite")
+        if name == "random":
+            for rel in ("baseline.npz", "model_checkpoints/baseline_1.npz"):
+                with np.load(os.path.join(run, rel)) as z:
+                    check(list(z.files) == ["weight"]
+                          and z["weight"].shape == (8, 1)
+                          and bool(np.isfinite(z["weight"]).all()),
+                          f"random baseline {rel}")
+        out[name] = {"launches": launches,
+                     "train_launches": trainer.train_launches,
+                     "s_per_iteration": trainer.train_s / BASELINE_ITERATIONS,
+                     "wall_s": wall, "metrics": metrics,
+                     "test_reward": final["mean_reward"]}
+        print(f"{name} baseline, full width, {BASELINE_ITERATIONS} "
+              f"iterations: {out[name]['s_per_iteration']} s an iteration "
+              f"(training loop), run with meta-test {wall} s; launches "
+              f"{launches} (training {trainer.train_launches}); metrics "
+              f"{metrics}; test_reward {final['mean_reward']} [{gpu}]",
+              flush=True)
+    return out
+
+
+def vision_baseline_run(torch, gc, tc, gpu, tmp) -> dict:
+    """Phase 11, the vision baseline's main path: BASELINE_ITERATIONS
+    iterations at the script's defaults on synthetic Omniglot at its real
+    shape, with every counter zeroed just before."""
+    import math
+    from exploring_meta_tpu_torch.models.cnn4 import init_cnn4, omniglot_spec
+    from exploring_meta_tpu_torch.trainers.baselines import VisionBaseline
+    from exploring_meta_tpu_torch.utils.config import VisionConfig
+    from exploring_meta_tpu_torch.utils.experiment import load_params
+
+    cfg = VisionConfig(outer_lr=0.001, num_iterations=BASELINE_ITERATIONS,
+                       synthetic=True, synth_classes=1623, synth_per_class=20,
+                       seed=SEED)
+    steps = max(1, int(320 / cfg.meta_batch_size))
+    trainer = VisionBaseline(cfg, path=os.path.join(tmp, "vision") + "/")
+    torch.cuda.synchronize()
+    gc.reset_launch_counts()
+    tc.reset_launch_counts()
+    t0 = time.perf_counter()
+    test_acc = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {**gc.launch_counts(), **tc.launch_counts()}
+    want = {k: BASELINE_ITERATIONS * steps * n + META_EVAL_CALLS[k]
+            for k, n in BASELINE_STEP_CALLS.items()}
+    check({k: launches[k] for k in want} == want,
+          f"vision baseline: {launches}, want {want} ({steps} Adam steps "
+          f"an iteration at B = 1, then a meta-eval)")
+    run = trainer.model_path
+    with open(os.path.join(run, "metrics.json")) as f:
+        metrics = json.load(f)
+    check(len(metrics["train_loss"]) == BASELINE_ITERATIONS
+          and all(v is not None and math.isfinite(v)
+                  for vals in metrics.values() for v in vals),
+          f"vision baseline metrics.json: {metrics}")
+    check(0.0 <= test_acc <= 1.0, f"vision baseline test_acc {test_acc}")
+    template = init_cnn4(torch.Generator().manual_seed(0), omniglot_spec(5),
+                         device="cpu")
+    for rel in ("model.npz", "model_checkpoints/model_0.npz"):
+        p = load_params(os.path.join(run, rel), template)
+        check(all(bool(torch.isfinite(v).all())
+                  for v in (p["head"]["w"], p["base"][0]["conv"]["w"])),
+              f"vision baseline {rel} loads, finite")
+    print(f"vision baseline, Omniglot 5-way 1-shot, {steps} Adam steps an "
+          f"iteration: {wall} s for {BASELINE_ITERATIONS} iterations and "
+          f"the meta-test; launches {launches}; metrics {metrics}; test_acc "
+          f"{test_acc} [{gpu}]", flush=True)
+    return {"launches": launches, "wall_s": wall, "metrics": metrics,
+            "test_acc": test_acc, "steps_an_iteration": steps}
+
+
+def baseline_card_vs_cpu(torch, gpu) -> dict:
+    """Phase 11: one PPO task update (3 Adam epochs) and one TRPO update on
+    one trajectory collected on the card, each again on the CPU path on
+    the card's baseline fit; one vision scan of Adam steps on one drawn
+    batch on both."""
+    from exploring_meta_tpu_torch.adapt.maml import adam
+    from exploring_meta_tpu_torch.models.cnn4 import (
+        cnn4_apply, init_cnn4, omniglot_spec,
+    )
+    from exploring_meta_tpu_torch.tasks.datasets import get_dataset
+    from exploring_meta_tpu_torch.tasks.sampler import sample_task_batch
+    from exploring_meta_tpu_torch.ops.losses import (
+        cross_entropy, ppo_policy_loss,
+    )
+    from exploring_meta_tpu_torch.rl.adapt_rl import normalized_advantages
+    from exploring_meta_tpu_torch.trainers import baselines as tb
+    from exploring_meta_tpu_torch.trainers.rl import rl_config, trpo_config
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+    from exploring_meta_tpu_torch.utils.tree import (
+        tree_items, tree_leaves, tree_map, tree_unflatten,
+    )
+
+    cfg = RLScriptConfig(seed=SEED)
+    rl_cfg, trpo_cfg = rl_config(cfg), trpo_config(cfg)
+    env, _, policy, roll = tb._setup_rl_baseline(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    params = policy.init(gen)
+    traj = roll(params, tb._task_at(env.sample_tasks(gen, 1), 0), gen)
+
+    def on(dev, fits, update):
+        tr = traj.map(lambda t: t.to(dev))
+        return with_baseline_fits(lambda: update(dev, tr), fits)
+
+    def ppo(dev, tr, capturable=True):
+        p = tree_map(lambda t: t.to(dev).clone().requires_grad_(), params)
+        opt = adam(p, cfg.outer_lr)
+        if not capturable:
+            opt = torch.optim.Adam(opt.param_groups[0]["params"],
+                                   lr=cfg.outer_lr, eps=1e-8)
+        states, actions = tr.flat(tr.state), tr.flat(tr.action)
+        with torch.enable_grad():
+            first = ppo_policy_loss(
+                policy.log_prob(p, states, actions),
+                policy.log_prob(p, states, actions).detach(),
+                normalized_advantages(tr, rl_cfg), clip=rl_cfg.ppo_clip_ratio,
+                valid=tr.flat(tr.valid).unsqueeze(-1)).sum()
+            grads = torch.autograd.grad(first, tree_leaves(p))
+        loss, _ = tb.ppo_update(policy, p, opt, tr, rl_cfg)
+        return p, float(loss), tree_unflatten(p, grads)
+
+    def trpo(dev, tr):
+        new, _, info = tb.trpo_update(
+            policy, tree_map(lambda t: t.to(dev), params), tr, rl_cfg,
+            trpo_cfg)
+        return new, info["index"]
+
+    out = {}
+    (card, card_loss, card_g), fits = on("cuda", None, ppo)
+    (cpu, cpu_loss, cpu_g), _ = on("cpu", fits, ppo)
+    (plain, _, _), _ = on("cuda", fits, lambda dev, tr: ppo(dev, tr, False))
+    out["ppo_grad_err"] = tree_close(torch, card_g, cpu_g, REPLAY_GRAD_TOL,
+                                     "PPO first-epoch gradient card vs CPU")
+    out["ppo_params_err"] = tree_close(
+        torch, plain, cpu, BASELINE_PPO_TOL,
+        "PPO task update, non-capturable Adam on the card, vs CPU")
+    out["ppo_capturable_err"] = tree_close(
+        torch, card, cpu, ADAM_F32_TOL,
+        "PPO task update, the path's capturable Adam, card vs CPU")
+    out["ppo_loss"] = {"card": card_loss, "cpu": cpu_loss}
+    (card, card_i), fits = on("cuda", None, trpo)
+    (cpu, cpu_i), _ = on("cpu", fits, trpo)
+    check(card_i == cpu_i >= 0, f"TRPO update: candidate {card_i} accepted "
+                                f"on the card, {cpu_i} on the CPU")
+    flat = lambda tree: torch.cat([t.detach().cpu().double().reshape(-1)
+                                   for _, t in tree_items(tree)])
+    step = float((flat(cpu) - flat(params)).norm())
+    out["trpo_index"] = card_i
+    out["trpo_err_of_step"] = float((flat(card) - flat(cpu)).norm()) / step
+    check(out["trpo_err_of_step"] <= BASELINE_TRPO_TOL,
+          f"TRPO update card vs CPU: {out['trpo_err_of_step']} of the step, "
+          f"limit {BASELINE_TRPO_TOL}")
+
+    spec = omniglot_spec(WAYS)
+    train, _, _ = get_dataset("omni", seed=SEED, synthetic=True,
+                              synth_classes=1623, synth_per_class=20,
+                              device="cuda")
+    data, labels = sample_task_batch(gen, train, WAYS, 1,
+                                     int(320 / META_BATCH))
+    base = init_cnn4(gen, spec, device="cuda")
+    lr, res = 0.001, {}
+    for dev in ("cuda", "cpu"):
+        p = tree_map(lambda t: t.to(dev).clone().requires_grad_(), base)
+        x, y = data.to(dev), labels.to(dev)
+        with torch.enable_grad():
+            grads = torch.autograd.grad(cross_entropy(
+                cnn4_apply(p, spec, x[0]), y[0]), tree_leaves(p))
+        loss, _ = tb.make_supervised_steps(spec)(p, adam(p, lr), x, y)
+        res[dev] = (dict(tree_items(p)), float(loss),
+                    tree_unflatten(p, grads))
+    out["vision_grad_err"] = tree_close(
+        torch, res["cuda"][2], res["cpu"][2], REPLAY_GRAD_TOL,
+        "vision first-step gradient card vs CPU")
+    keep = [k for k in res["cpu"][0] if not k.endswith("conv/b")]
+    top = max(float(v.detach().abs().max()) for v in res["cpu"][0].values())
+    diff = torch.cat([(res["cuda"][0][k].detach().cpu() - res["cpu"][0][k]
+                       .detach()).abs().reshape(-1) for k in keep])
+    out["vision_params_err"] = float(diff.max()) / top
+    out["vision_elements_past_tol"] = int((diff > VISION_TOL * top).sum())
+    steps = data.shape[0]
+    check(out["vision_elements_past_tol"] <= VISION_FLIP_SHARE * diff.numel()
+          and float(diff.max()) <= steps * lr,
+          f"vision scan card vs CPU (conv biases aside): "
+          f"{out['vision_elements_past_tol']} of {diff.numel()} elements "
+          f"past {VISION_TOL} of max|params|, the largest "
+          f"{float(diff.max())}, limit {steps} steps of lr {lr}")
+    out["vision_conv_b_err"] = tree_err(
+        torch, {k: res["cuda"][0][k] for k in res["cpu"][0]}, res["cpu"][0],
+        "vision scan card vs CPU, all leaves")
+    out["vision_loss"] = {"card": res["cuda"][1], "cpu": res["cpu"][1]}
+    check(abs(res["cuda"][1] - res["cpu"][1]) <= 1e-4 * abs(res["cpu"][1]),
+          f"vision scan loss card vs CPU: {out['vision_loss']}")
+    print(f"baselines card vs CPU (on the card's fits): PPO first-epoch "
+          f"gradient {out['ppo_grad_err']} of max|grad|, update "
+          f"{out['ppo_params_err']} of max|params| (non-capturable Adam on "
+          f"the card), {out['ppo_capturable_err']} (capturable; losses "
+          f"{out['ppo_loss']});"
+          f" TRPO candidate {card_i} both, params {out['trpo_err_of_step']} "
+          f"of the step; vision first-step gradient "
+          f"{out['vision_grad_err']} of max|grad|, scan "
+          f"{out['vision_params_err']} of max|params| "
+          f"({out['vision_elements_past_tol']} elements past {VISION_TOL}; "
+          f"all leaves {out['vision_conv_b_err']}), losses "
+          f"{out['vision_loss']} [{gpu}]", flush=True)
+    return out
+
+
+def bf16_tie_rows(torch, layers, acts, states):
+    """``[N]`` bool on the CPU: the states whose bf16 forward through
+    ``layers`` (``[{"w", "b"}]``; ``acts[i]`` "relu", "tanh" or None after
+    layer i) has a tie, where two summation orders may round to
+    neighbouring bf16 values: a bf16 rounding boundary within K u sum|x w|
+    of an exact float64 dot of K bf16 products (the most any float32
+    summation order can be off), or within 2 ulp of an exact tanh (a
+    float32 tanh's error)."""
+    u = 2.0 ** -24
+
+    def near_boundary(exact, window):
+        ulp = torch.exp2(torch.floor(torch.log2(
+            exact.abs().clamp(min=2.0 ** -126))) - 7)
+        frac = exact / ulp - torch.floor(exact / ulp)
+        return ((frac - 0.5).abs() * ulp <= window).any(dim=-1)
+
+    bf16 = lambda t: t.detach().cpu().float().bfloat16().double()
+    x = bf16(states)
+    tie = torch.zeros(x.shape[0], dtype=torch.bool)
+    for p, act in zip(layers, acts):
+        w, b = bf16(p["w"]), bf16(p["b"])
+        dot = x @ w
+        tie |= near_boundary(dot, w.shape[0] * u * (x.abs() @ w.abs()))
+        x = bf16(dot.float().bfloat16().double() + b)
+        if act == "relu":
+            x = x.clamp(min=0)
+        elif act == "tanh":
+            t = torch.tanh(x)
+            tie |= near_boundary(t, 4 * u * t.abs())
+            x = bf16(t)
+    return tie
+
+
+def bf16_phase(torch, gc, tc, gpu, tmp) -> dict:
+    """Phase 11, bf16 meta-RL: maml_trpo ``--bf16 --fuse 10`` through the
+    trainer (one capture, FUSED_ITERATIONS - 1 replays), s per replayed
+    iteration bf16 against f32 in turns, one eager maml_ppo ``--bf16``
+    iteration, and the bf16 density on the card against the CPU path and
+    against f32."""
+    import dataclasses
+    import math
+    from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
+    from exploring_meta_tpu_torch.trainers.fused import fetch
+    from exploring_meta_tpu_torch.trainers.rl import RLTrainer
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+
+    out = {}
+    cfg = RLScriptConfig(outer_lr=1.0, seed=SEED, bf16=True)
+    g = fused_trainer_run(torch, gc, tc, "rl", {"algo": "trpo"}, cfg, FUSE,
+                          os.path.join(tmp, "bf16_trpo"))
+    check(g["counts"] == {"captures": 1, "replays": FUSED_ITERATIONS - 1},
+          f"bf16 maml_trpo: one capture and {FUSED_ITERATIONS - 1} "
+          f"replays, {g['counts']}")
+    for k in gc.KERNELS:
+        check(g["launches"][k] > 0 and g["captured"][k] > 0,
+              f"bf16 maml_trpo: {k} launched by the warm-up and recorded in "
+              f"the graph, {g['launches']}, {g['captured']}")
+    out["fused_trpo"] = {k: g[k] for k in ("counts", "launches", "captured",
+                                           "wall_s", "metrics")}
+    print(f"bf16 maml_trpo --fuse {FUSE}, {FUSED_ITERATIONS} iterations: "
+          f"{g['counts']}; launches {g['launches']}, recorded a replay "
+          f"{g['captured']}; trainer wall {g['wall_s']} s; meta_loss "
+          f"{g['metrics']['meta_loss']} [{gpu}]", flush=True)
+
+    loops = {}
+    for name, flag in (("f32", False), ("bf16", True)):
+        train, params, _, gen = fused_setup(
+            torch, "rl", {"algo": "trpo"}, dataclasses.replace(cfg, bf16=flag))
+        fetch(train(params, gen)[-1])             # warm-up, capture, replays
+        loops[name] = (train, params, gen)
+    s_iter = {name: [] for name in loops}
+    for _ in range(2):
+        for name, (train, params, gen) in loops.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fetch(train(params, gen)[-1])
+            s_iter[name].append((time.perf_counter() - t0) / FUSE)
+    out["s_per_replayed_iteration"] = s_iter
+    print(f"maml_trpo replayed iteration, in turns: f32 {s_iter['f32']} s, "
+          f"bf16 {s_iter['bf16']} s [{gpu}]", flush=True)
+    del loops
+
+    trainer = RLTrainer(RLScriptConfig(num_iterations=1, bf16=True,
+                                       seed=SEED), algo="ppo",
+                        path=os.path.join(tmp, "bf16_ppo") + "/")
+    torch.cuda.synchronize()
+    gc.reset_launch_counts()
+    tc.reset_launch_counts()
+    t0 = time.perf_counter()
+    final = trainer.run()
+    torch.cuda.synchronize()
+    launches = {**gc.launch_counts(), **tc.launch_counts()}
+    with open(os.path.join(trainer.model_path, "metrics.json")) as f:
+        metrics = json.load(f)
+    check(all(launches[k] > 0 for k in gc.KERNELS),
+          f"bf16 maml_ppo: both sweeps ran, {launches}")
+    check(all(v is not None and math.isfinite(v)
+              for vals in metrics.values() for v in vals)
+          and math.isfinite(final["mean_reward"]),
+          f"bf16 maml_ppo: finite metrics, {metrics}")
+    out["eager_ppo"] = {"launches": launches, "metrics": metrics,
+                        "wall_s": time.perf_counter() - t0}
+    print(f"bf16 maml_ppo, one eager iteration and the meta-test: launches "
+          f"{launches}, metrics {metrics} [{gpu}]", flush=True)
+
+    pol = DiagNormalPolicy(2, 2, compute_dtype="bf16")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    params = tree_map(lambda t: t + 0.1 * torch.randn(
+        t.shape, generator=gen, device="cuda"), pol.init(gen))
+    states = torch.rand(BF16_STATES, 2, generator=gen, device="cuda") - 0.5
+    card = pol.density(params, states)[0]
+    cpu = pol.density(tree_map(lambda t: t.cpu(), params), states.cpu())[0]
+    f32 = pol._replace(compute_dtype="f32").density(params, states)[0]
+    check(card.dtype == torch.float32, "bf16 loc is float32")
+    top = float(cpu.abs().max())
+    err = (card.cpu() - cpu).abs().max(dim=-1).values / top
+    differ = err > BF16_DENSITY_TOL
+    tie = bf16_tie_rows(torch, params["mean"], ["relu", "relu", None],
+                        states)
+    check(bool(tie[differ].all()) and float(differ.float().mean())
+          <= BF16_TIE_SHARE and float(err.max()) <= BF16_STEPS,
+          f"bf16 density card vs CPU: {int(differ.sum())} states differ "
+          f"(max {float(err.max())} of max|loc|), "
+          f"{int((differ & ~tie).sum())} of them without a tie")
+    gap = float((f32 - card).abs().max() / f32.abs().max())
+    check(1e-4 < gap < 3e-2, f"bf16 vs f32 density: {gap} of max|loc|")
+    out["density"] = {"card_vs_cpu_max": float(err.max()),
+                      "states_differing": int(differ.sum()),
+                      "tie_states": int(tie.sum()), "bf16_vs_f32": gap}
+    print(f"bf16 density, {BF16_STATES} states: card vs CPU max "
+          f"{float(err.max())} of max|loc| ({int(differ.sum())} states "
+          f"differ, {int(tie.sum())} have a tie); bf16 vs f32 {gap} of "
+          f"max|loc| [{gpu}]", flush=True)
+    return out
+
+
+def slice10_phase(tc, gc, F, torch, gpu, tmp) -> dict:
+    """Phase 11: the non-meta baselines and bf16 meta-RL (slice 10)."""
+    start = time.perf_counter()
+    out = {"single_task_kernels": single_task_kernels(tc, F, torch, gpu),
+           "rl_baselines": rl_baseline_runs(torch, gc, tc, gpu, tmp),
+           "vision_baseline": vision_baseline_run(torch, gc, tc, gpu, tmp),
+           "card_vs_cpu": baseline_card_vs_cpu(torch, gpu),
+           "bf16": bf16_phase(torch, gc, tc, gpu, tmp)}
+    out["phase_s"] = time.perf_counter() - start
+    print(f"baselines and bf16 phase: {out['phase_s']} s [{gpu}]",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2676,6 +3315,8 @@ def main() -> int:
         fused = fused_phase(torch, gc, tc, gpu, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         analysis = analysis_phase(torch, gc, tc, gpu, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        slice10 = slice10_phase(tc, gc, F, torch, gpu, tmp)
 
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -2686,7 +3327,8 @@ def main() -> int:
                    "vision_trainer": vision, "vision_timing": vision_times,
                    "policy_serve": policy_serve, "adam_rl": adam_rl,
                    "replay_meta_grad": replay_grad, "fused": fused,
-                   "analysis": analysis}, f, indent=1, default=str)
+                   "analysis": analysis, "slice10": slice10}, f, indent=1,
+                  default=str)
 
     replaces = {
         "cnn4_block_fwd": "exploring_meta_tpu/pallas/cnn4_pallas.py:295",
@@ -2702,13 +3344,21 @@ def main() -> int:
     # each on the fused trainers' runs (the eager warm-up and meta-test:
     # a replay runs the kernels recorded in its graph, no wrapper); the
     # analysis tier's: eval_vision the CNN4 kernels, eval_rl and the vpg /
-    # ppo RC runs the sweeps
+    # ppo RC runs the sweeps; the baselines' (the RL ones the sweeps, the
+    # vision one the CNN4 kernels at B = 1 and its meta-eval's) and the
+    # bf16 runs' (the fused maml_trpo's warm-up and meta-test, the eager
+    # maml_ppo's)
     for paths in (vision["launches"], policy_serve["launches"],
                   adam_rl["launches"],
                   *(r["launches"] for r in fused.values()),
                   analysis["eval_vision"]["launches"],
                   analysis["eval_rl"]["launches"],
-                  *(r["launches"] for r in analysis["rc_algos"].values())):
+                  *(r["launches"] for r in analysis["rc_algos"].values()),
+                  *(r["launches"]
+                    for r in slice10["rl_baselines"].values()),
+                  slice10["vision_baseline"]["launches"],
+                  slice10["bf16"]["fused_trpo"]["launches"],
+                  slice10["bf16"]["eager_ppo"]["launches"]):
         for name, n in paths.items():
             launches[name] += n
     kernels = []

@@ -7,6 +7,8 @@
     python -m exploring_meta_tpu_torch.cli anil_ppo --num_iterations 3
     python -m exploring_meta_tpu_torch.cli eval_vision <run_dir>
     python -m exploring_meta_tpu_torch.cli eval_rl <run_dir> --cl --rc
+    python -m exploring_meta_tpu_torch.cli ppo_baseline --num_iterations 3
+    python -m exploring_meta_tpu_torch.cli vision_baseline --synthetic
     EMT_FORCE_CPU=1 python -m exploring_meta_tpu_torch.cli maml_vision ...
 
 Runs go to the card unless ``EMT_FORCE_CPU=1`` asks for the CPU.
@@ -83,6 +85,52 @@ def anil_vpg(argv=None) -> dict:
     return _rl_main("vpg", True, "ANIL-VPG on Meta-RL", argv)
 
 
+def _rl_baseline_main(name: str, description: str, argv=None) -> dict:
+    from exploring_meta_tpu_torch.trainers import baselines
+    from exploring_meta_tpu_torch.utils.config import (
+        RLScriptConfig, requested_device, rl_argparser,
+    )
+
+    args = rl_argparser(RLScriptConfig(), description).parse_args(argv)
+    return getattr(baselines, name)(RLScriptConfig(**vars(args)),
+                                    device=requested_device()).run()
+
+
+def ppo_baseline(argv=None) -> dict:
+    """Plain PPO baseline (``scripts/baselines/ppo.py``)."""
+    return _rl_baseline_main(
+        "PPOBaseline", "Plain PPO baseline (reference baselines/ppo.py).",
+        argv)
+
+
+def trpo_baseline(argv=None) -> dict:
+    """Plain TRPO baseline (``scripts/baselines/trpo.py``)."""
+    return _rl_baseline_main(
+        "TRPOBaseline", "Plain TRPO baseline (reference baselines/trpo.py).",
+        argv)
+
+
+def random_baseline(argv=None) -> dict:
+    """Random-policy baseline (``scripts/baselines/random.py``)."""
+    return _rl_baseline_main(
+        "RandomPolicyBaseline",
+        "Random-policy baseline (reference baselines/random.py).", argv)
+
+
+def vision_baseline(argv=None) -> float:
+    """Supervised vision baseline (``scripts/baselines/vision.py``: Adam
+    1e-3, 100 iterations by default)."""
+    from exploring_meta_tpu_torch.trainers.baselines import VisionBaseline
+    from exploring_meta_tpu_torch.utils.config import (
+        VisionConfig, requested_device, vision_argparser,
+    )
+
+    defaults = VisionConfig(outer_lr=0.001, num_iterations=100)
+    args = vision_argparser(defaults, "Vision baseline").parse_args(argv)
+    return VisionBaseline(VisionConfig(**vars(args)),
+                          device=requested_device()).run()
+
+
 def eval_vision(argv=None) -> dict:
     """Offline vision evaluation of a run directory (``emt-eval-vision``;
     reference ``misc_scripts/eval_vision.py``)."""
@@ -150,7 +198,10 @@ COMMANDS = {"maml_vision": maml_vision, "anil_vision": anil_vision,
             "maml_trpo": maml_trpo, "anil_trpo": anil_trpo,
             "maml_ppo": maml_ppo, "anil_ppo": anil_ppo,
             "maml_vpg": maml_vpg, "anil_vpg": anil_vpg,
-            "eval_vision": eval_vision, "eval_rl": eval_rl}
+            "eval_vision": eval_vision, "eval_rl": eval_rl,
+            "ppo_baseline": ppo_baseline, "trpo_baseline": trpo_baseline,
+            "random_baseline": random_baseline,
+            "vision_baseline": vision_baseline}
 
 if __name__ == "__main__":
     if len(sys.argv) < 2 or sys.argv[1] not in COMMANDS:

@@ -17,8 +17,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-# "highest": full f32 convs and matmuls (TF32 off), the JAX package's
-# default for accuracy parity; "high"/"default" allow TF32.
+# "highest": full f32 convs and matmuls (TF32 off) and bf16 GEMMs reduced
+# in f32, as XLA accumulates its bf16 dots: the JAX package's default for
+# accuracy parity; "high"/"default" allow TF32 and cuBLAS's reduced-
+# precision bf16 reductions.
 _PRECISION = "highest"
 
 # Stride-2 3x3 conv lowering: "direct" (F.conv2d), "s2d" (the exact
@@ -28,14 +30,17 @@ _CONV_IMPL = "fused"
 
 
 def _apply_precision(mode: str) -> None:
-    tf32 = mode != "highest"
-    torch.backends.cuda.matmul.allow_tf32 = tf32
-    torch.backends.cudnn.allow_tf32 = tf32
+    relaxed = mode != "highest"
+    torch.backends.cuda.matmul.allow_tf32 = relaxed
+    torch.backends.cudnn.allow_tf32 = relaxed
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        relaxed)
 
 
 def set_precision(mode: str) -> None:
-    """"highest" (f32 parity, TF32 off for matmuls and cuDNN convs) or
-    "high"/"default" (TF32 allowed)."""
+    """"highest" (f32 parity: TF32 off for matmuls and cuDNN convs, bf16
+    GEMMs reduced in f32) or "high"/"default" (TF32 and reduced-precision
+    bf16 reductions allowed)."""
     global _PRECISION
     if mode not in ("highest", "default", "high"):
         raise ValueError(f"unknown precision {mode!r}")

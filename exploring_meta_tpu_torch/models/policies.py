@@ -12,6 +12,14 @@ params carry a leading ``[B]`` on every leaf; with them the state is
 
 ``log_prob`` keeps the reference's quirk of *averaging* (not summing) the
 per-dimension log density over the action axis (``policies.py:54-56``).
+
+Mixed precision (``--bf16`` on the RL trainers): each spec carries a
+``compute_dtype``; ``policy._replace(compute_dtype="bf16")`` runs the MLP
+(for ANIL, the body and the head) on bfloat16 copies of the float32 master
+params and the bfloat16-cast state. ``loc`` is cast back to float32 and
+``sigma`` stays float32, so the advantages, KL, CG and line search keep
+full precision; autograd transposes the casts, so the gradients reach the
+float32 leaves as float32.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from exploring_meta_tpu_torch.models import init as pinit
 from exploring_meta_tpu_torch.models.layers import (
     linear, mlp_apply, task_param,
 )
+from exploring_meta_tpu_torch.utils.tree import tree_map
 
 EPSILON = 1e-6
 MIN_LOG_SIGMA = math.log(EPSILON)
@@ -44,6 +53,15 @@ def _sigma(params) -> torch.Tensor:
     ``[B, N, act]`` when it is per task."""
     return torch.exp(torch.clamp(task_param(params["sigma"], 1, 1),
                                  min=MIN_LOG_SIGMA))
+
+
+def _compute_cast(compute_dtype: str, params, x):
+    """``(params, input)`` in the policy's compute dtype: bfloat16 copies
+    when ``compute_dtype == "bf16"``, as they are otherwise."""
+    if compute_dtype == "bf16":
+        return (tree_map(lambda t: t.to(torch.bfloat16), params),
+                x.to(torch.bfloat16))
+    return params, x
 
 
 def _init_mlp(gen, sizes, device) -> list:
@@ -80,6 +98,7 @@ class DiagNormalPolicy(NamedTuple):
     output_size: int
     hiddens: tuple = (100, 100)
     activation: str = "relu"
+    compute_dtype: str = "f32"   # "bf16": the MLP in bfloat16
 
     def init(self, gen: torch.Generator, device=None) -> dict:
         """Xavier-uniform weights, zero biases, ``sigma = 0`` (torch
@@ -93,8 +112,11 @@ class DiagNormalPolicy(NamedTuple):
         return torch.tanh if self.activation == "tanh" else relu
 
     def density(self, params, state):
-        """-> (loc, scale) of the diagonal Gaussian, both ``[..., act]``."""
-        loc = mlp_apply(params["mean"], state, self._act())
+        """-> (loc, scale) of the diagonal Gaussian, both ``[..., act]``,
+        float32."""
+        mean_p, state = _compute_cast(self.compute_dtype, params["mean"],
+                                      state)
+        loc = mlp_apply(mean_p, state, self._act()).float()
         return loc, _sigma(params).expand(loc.shape)
 
     def log_prob(self, params, state, action) -> torch.Tensor:
@@ -122,6 +144,7 @@ class DiagNormalPolicyANIL(NamedTuple):
     output_size: int
     fc_neurons: int = 100
     hiddens: tuple = (100, 100)
+    compute_dtype: str = "f32"   # "bf16": body and head in bfloat16
 
     def init(self, gen: torch.Generator, device=None) -> dict:
         """Xavier-uniform body and head, zero biases, ``sigma = 0``."""
@@ -144,8 +167,8 @@ class DiagNormalPolicyANIL(NamedTuple):
     def features(self, params, state):
         """Tanh body, an activation after every layer (reference
         ``:79-85``)."""
-        x = state
-        for p in params["body"]:
+        body_p, x = _compute_cast(self.compute_dtype, params["body"], state)
+        for p in body_p:
             x = torch.tanh(linear(p, x))
         return x
 
@@ -154,7 +177,9 @@ class DiagNormalPolicyANIL(NamedTuple):
         feats = self.features(params, state)
         if stop_body_grad:
             feats = feats.detach()
-        loc = linear(params["head"], feats)
+        head_p, feats = _compute_cast(self.compute_dtype, params["head"],
+                                      feats)
+        loc = linear(head_p, feats).float()
         return loc, _sigma(params).expand(loc.shape)
 
     def log_prob(self, params, state, action,

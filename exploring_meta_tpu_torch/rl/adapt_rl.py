@@ -146,8 +146,8 @@ def _query_metrics(query: Trajectory) -> dict:
     return {"reward": rew, "success": query.episode_successes().mean(dim=-1)}
 
 
-def _normalized_advantages(traj: Trajectory, cfg: RLConfig,
-                           **kw) -> torch.Tensor:
+def normalized_advantages(traj: Trajectory, cfg: RLConfig,
+                          **kw) -> torch.Tensor:
     """``[B, T*E, 1]`` GAE advantages normalized over each task's valid
     steps, detached."""
     adv, _ = traj_advantages(traj, cfg, **kw)
@@ -219,7 +219,7 @@ def _ppo_updates(policy, params, support: Trajectory, cfg: RLConfig,
                  epochs: int):
     """``epochs`` clipped updates on one support batch, against its
     detached log-probs and normalized advantages."""
-    adv = _normalized_advantages(support, cfg)
+    adv = normalized_advantages(support, cfg)
     old_lp = _log_prob(policy, params, support, cfg.anil).detach()
     for _ in range(epochs):
         params = _inner_update(
@@ -243,7 +243,7 @@ def fast_adapt_ppo(policy, params, rollout_fn: Callable, tasks,
     query = rollout_fn(params, tasks, gen)
     old_lp = _log_prob(policy, params, query).detach()
     valid_loss = _ppo_clip_loss(policy, params, query,
-                                _normalized_advantages(query, cfg), old_lp,
+                                normalized_advantages(query, cfg), old_lp,
                                 cfg, False)
     return params, valid_loss, _query_metrics(query)
 
@@ -259,8 +259,8 @@ def trpo_a2c_loss(policy, params, traj: Trajectory, cfg: RLConfig,
     (reference ``trpo_a2c_loss``, ``rl.py:346-358``). ``update_vf=False``
     reuses ``baseline_w``; without one it fits on this trajectory."""
     log_probs = _log_prob(policy, params, traj, inner_anil)
-    adv = _normalized_advantages(traj, cfg, update_vf=update_vf,
-                                 baseline_w=baseline_w)
+    adv = normalized_advantages(traj, cfg, update_vf=update_vf,
+                                baseline_w=baseline_w)
     return a2c_policy_loss(log_probs, adv,
                            valid=traj.flat(traj.valid).unsqueeze(-1))
 

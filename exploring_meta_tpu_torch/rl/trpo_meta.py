@@ -17,7 +17,9 @@ per-iteration path reads each candidate's accept flag on the host and stops
 at the first accepted one; the fused path (``host_free=True``, captured in
 a CUDA graph, which cannot stop early) evaluates all ``ls_max_steps``
 candidates and selects the first accepted one on the device, with no read
-back. Both give the same params.
+back. Both give the same params. The step itself
+(:func:`natural_gradient_step`) also takes the single-task TRPO
+baseline's (``trainers/baselines.py``).
 """
 
 from __future__ import annotations
@@ -93,7 +95,7 @@ def meta_surrogate_loss(policy, params, old_params_stack, replays: Trajectory,
     return surrogate.mean(), kl.mean()
 
 
-def _ravel(params):
+def ravel(params):
     """Params tree -> (flat detached vector, unravel: vector -> tree of
     views, differentiable)."""
     leaves = tree_leaves(params)
@@ -109,18 +111,15 @@ def _ravel(params):
     return flat, unravel
 
 
-def meta_optimize_trpo(policy, params, old_params_stack, replays,
-                       cfg: RLConfig, trpo_cfg: TRPOConfig,
-                       adapt_steps: int, host_free: bool = False):
-    """One TRPO outer step -> (new params, ``{"old_loss", "accepted"}``)
-    (reference ``meta_optimize_trpo``, ``rl.py:409-438``). ``accepted`` is
-    a Python bool, or with ``host_free`` a device bool (no host sync)."""
-    flat0, unravel = _ravel(params)
-
-    def loss_kl(flat):
-        return meta_surrogate_loss(policy, unravel(flat), old_params_stack,
-                                   replays, cfg, adapt_steps)
-
+def natural_gradient_step(loss_kl, flat0: torch.Tensor,
+                          trpo_cfg: TRPOConfig, host_free: bool = False):
+    """The TRPO step of ``loss_kl(flat) -> (surrogate, mean KL)``, two
+    scalars, from the flat params ``flat0``: the CG solve against the
+    damped Fisher (the Hessian of the KL), scaled to the trust region, then
+    the backtracking line search -> (the first accepted candidate, or
+    ``flat0``; ``{"old_loss", "accepted"}``, and on the early-exit path
+    ``"index"``, the accepted candidate's, -1 for none). ``accepted`` is a
+    Python bool, or with ``host_free`` a device bool (no host sync)."""
     x = flat0.clone().requires_grad_()
     with torch.enable_grad():
         old_loss, kl = loss_kl(x)
@@ -137,7 +136,7 @@ def meta_optimize_trpo(policy, params, old_params_stack, replays,
 
     # backtracking line search: the first candidate that improves the
     # surrogate inside the KL bound is taken
-    final, accepted = flat0, False
+    final, accepted, index = flat0, False, -1
     if host_free:
         accepted = torch.zeros((), dtype=torch.bool, device=flat0.device)
     with torch.no_grad(), torch.profiler.record_function("trpo_line_search"):
@@ -152,10 +151,30 @@ def meta_optimize_trpo(policy, params, old_params_stack, replays,
                 final = torch.where(take, candidate, final)
                 accepted = accepted | take
             elif bool(ok):
-                final, accepted = candidate, True
+                final, accepted, index = candidate, True, ls_step
                 break
+    info = {"old_loss": old_loss, "accepted": accepted}
+    if not host_free:
+        info["index"] = index
+    return final, info
+
+
+def meta_optimize_trpo(policy, params, old_params_stack, replays,
+                       cfg: RLConfig, trpo_cfg: TRPOConfig,
+                       adapt_steps: int, host_free: bool = False):
+    """One TRPO outer step -> (new params, the info of
+    :func:`natural_gradient_step`) (reference ``meta_optimize_trpo``,
+    ``rl.py:409-438``)."""
+    flat0, unravel = ravel(params)
+
+    def loss_kl(flat):
+        return meta_surrogate_loss(policy, unravel(flat), old_params_stack,
+                                   replays, cfg, adapt_steps)
+
+    final, info = natural_gradient_step(loss_kl, flat0, trpo_cfg,
+                                        host_free=host_free)
     new_params = tree_map(lambda t: t.detach().clone(), unravel(final))
-    return new_params, {"old_loss": old_loss, "accepted": accepted}
+    return new_params, info
 
 
 def make_trpo_meta_step(policy, cfg: RLConfig, trpo_cfg: TRPOConfig,

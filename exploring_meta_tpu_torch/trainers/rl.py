@@ -11,6 +11,9 @@ are data) and take one Adam step on the mean query loss. After the last
 iteration (or a KeyboardInterrupt, or a diverged loss) the trainer saves
 the model and meta-tests it on fresh tasks.
 
+``--bf16`` runs every application of the policy's MLP in bfloat16 on
+float32 master params (``models/policies.py``, ``compute_dtype``).
+
 ``--fuse N`` runs the iterations in chunks of N (``rl/train_scan.py``): on
 the card one iteration is captured as a CUDA graph and replayed, the
 metrics of a chunk come to the host in one copy, and checkpoints land on
@@ -91,7 +94,6 @@ def _check_ported(cfg: RLScriptConfig) -> None:
          "host envs"),
         (cfg.task_batch, "task_batch", "host envs"),
         (cfg.mesh > 1, "mesh > 1", "scale-out"),
-        (cfg.bf16, "bf16", "bf16 RL"),
         (bool(cfg.resume), "resume", "run utilities"),
         (cfg.async_ckpt, "async_ckpt", "run utilities"),
         (cfg.ckpt_backend != "npz", "ckpt_backend='orbax'", "run utilities"),
@@ -177,6 +179,11 @@ class RLTrainer(Experiment):
                           max_path_length=cfg.max_path_length)
         policy = build_policy(env, self.anil, fc_neurons=cfg.fc_neurons,
                               activation=cfg.activation)
+        if cfg.bf16:
+            # every policy application (rollouts, inner and outer losses,
+            # surrogate and KL, the meta-test) runs its MLP in bf16 on f32
+            # master params (models/policies.py compute_dtype)
+            policy = policy._replace(compute_dtype="bf16")
         gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
         params = policy.init(gen)
         self.log_model(params)

@@ -561,3 +561,75 @@ def test_eval_runs_launch_the_kernels(cuda_device, tmp_path):
     for rel in ("cl_exp/cl_rew_matrix.out", "rep_exp/cca_rl_results.json",
                 "rep_exp/rep_extra.json", "cca_through_time.json"):
         assert os.path.exists(os.path.join(rl.model_path, rel))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,ci", [(28, 1), (14, 64), (7, 64), (4, 64)])
+def test_single_task_kernels_at_the_vision_baselines_n(cuda_device, h, ci):
+    """B = 1, N = 10: the vision baseline's Adam step (one 5-way 1-shot
+    task's images as one BN batch)."""
+    x, w, p, g = _block_inputs(np.random.default_rng(ci + h), cuda_device,
+                               1, 10, h, ci)
+    torch.testing.assert_close(tc.block_fwd(x, w, *p),
+                               tc.block_fwd_plain(x, w, *p),
+                               rtol=1e-4, atol=1e-4)
+    got = tc.block_bwd_params(x, w, *p, g)
+    want = tc.block_bwd_params_plain(x, w, *p, g)
+    for i in (0, 1, 3, 4):
+        torch.testing.assert_close(got[i], want[i], rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(tc.block_bwd_input(got[0], w, h, h),
+                               tc.block_bwd_input_plain(got[0], w, h, h),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_baselines_launch_the_kernels(cuda_device, tmp_path):
+    """The RL baselines launch each sweep once a task (the random policy
+    the discount sweep alone), the vision baseline the CNN4 kernels 4 / 4
+    / 3 an Adam step, each with its meta-test's launches."""
+    from exploring_meta_tpu_torch.trainers import baselines
+    from exploring_meta_tpu_torch.utils.config import (
+        RLScriptConfig, VisionConfig,
+    )
+    cfg = RLScriptConfig(num_iterations=2, meta_batch_size=3,
+                         adapt_batch_size=5, max_path_length=20,
+                         n_eval_tasks=2)
+    for cls, want in ((baselines.PPOBaseline, (8, 8)),
+                      (baselines.TRPOBaseline, (9, 9)),
+                      (baselines.RandomPolicyBaseline, (2, 8))):
+        gc.reset_launch_counts()
+        final = cls(cfg, path=str(tmp_path) + "/").run()
+        assert tuple(gc.launch_counts().values()) == want, cls.__name__
+        assert np.isfinite(final["mean_reward"])
+    tc.reset_launch_counts()
+    acc = baselines.VisionBaseline(
+        VisionConfig(num_iterations=1, meta_batch_size=64, synthetic=True),
+        path=str(tmp_path) + "/").run()
+    # 5 Adam steps, then a meta-eval at B = 64
+    assert tc.launch_counts() == {"cnn4_block_fwd": 28,
+                                  "cnn4_block_bwd_params": 24,
+                                  "cnn4_block_bwd_input": 18}
+    assert 0.0 <= acc <= 1.0
+
+
+@pytest.mark.cuda
+def test_bf16_density_card_vs_cpu(cuda_device):
+    """The bf16 policy on the card equals the CPU path but at bf16 ties
+    (chip_smoke.bf16_tie_rows), and lies ~2^-8 from f32."""
+    from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
+    pol = DiagNormalPolicy(2, 2, compute_dtype="bf16")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = pol.init(gen)
+    states = torch.rand(2000, 2, generator=gen, device="cuda") - 0.5
+    card = pol.density(params, states)[0].cpu()
+    cpu = pol.density({k: (v.cpu() if k == "sigma" else
+                           [{n: t.cpu() for n, t in layer.items()}
+                            for layer in v]) for k, v in params.items()},
+                      states.cpu())[0]
+    err = (card - cpu).abs().max(dim=-1).values / cpu.abs().max()
+    differ = err > 1e-6
+    tie = chip_smoke.bf16_tie_rows(torch, params["mean"],
+                                   ["relu", "relu", None], states)
+    assert bool(tie[differ].all()) and float(differ.float().mean()) <= 0.01
+    f32 = DiagNormalPolicy(2, 2).density(params, states)[0].cpu()
+    assert 1e-4 < float((f32 - card).abs().max() / f32.abs().max()) < 3e-2

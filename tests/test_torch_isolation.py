@@ -72,7 +72,9 @@ def test_port_module_list_is_complete():
                 # slice 9: the analysis tier
                 "analysis", "analysis.cl", "analysis.rc",
                 "analysis.eval_vision", "analysis.eval_rl", "ops.cca",
-                "ops.cka", "ops.cl_metrics", "utils.plotter"):
+                "ops.cka", "ops.cl_metrics", "utils.plotter",
+                # slice 10: the non-meta baselines
+                "trainers.baselines"):
         assert f"exploring_meta_tpu_torch.{mod}" in names
 
 

@@ -111,10 +111,9 @@ def test_default_device_is_the_card_never_the_cpu(tmp_path):
 
 
 @pytest.mark.parametrize("change", [
-    {"algo": "ppo", "bf16": True},
     {"algo": "vpg", "env": "AntDirection-v1"},
     {"env": "AntDirection-v1"}, {"task_batch": True},
-    {"mesh": 2}, {"bf16": True}, {"resume": "model.npz"},
+    {"mesh": 2}, {"resume": "model.npz"},
     {"async_ckpt": True}, {"ckpt_backend": "orbax"}, {"use_wandb": True},
     {"profile": True}, {"trace": "trace_dir"}, {"compile_cache": "cache"},
 ])
