@@ -116,7 +116,25 @@ Phases, each of which fails the run (non-zero exit) on any error:
     replays), s per replayed iteration bf16 against f32 in turns, one
     eager maml_ppo ``--bf16`` iteration, and the bf16 density on the
     card against the CPU path (equal but at bf16 ties) and f32;
-12. print one ``{"kernels": [...]}`` line, the card line again, and last
+12. the run utilities and the offline tools (slice 11): whether
+    gymnasium, mujoco and Pillow import here; ``--resume`` bit for bit,
+    each with the counters zeroed just before each run: maml_omni
+    ``--fuse 5`` (10 iterations against a resume from ``model_4``: one
+    capture and 4 replays, the CNN4 kernels launched and recorded),
+    maml_trpo ``--fuse 10`` at ``trpo_particles`` (20 against a resume
+    from ``model_9``: 1 capture, 9 replays, both sweeps) and maml_ppo
+    eager (3 against a resume from ``model_1``): rows, final params and
+    final meta-test equal exactly; maml_omni ``--fuse 5 --async_ckpt``,
+    every checkpoint equal to the synchronous run's, and the ms a
+    checkpoint holds the training thread; maml_ppo with ``--ckpt_backend
+    orbax`` (DCP) resumed from its ``model_checkpoints/``, equal exactly;
+    a reference-layout Omniglot CNN4 ``state_dict`` through
+    ``import_reference_run`` into ``VisionServer``, one request (B = 1)
+    and a batch on the kernels against the CPU path; 3 eager maml_omni
+    iterations plain, with ``--profile`` (JAX's phases and schema) and,
+    last, with ``--trace`` (a Chrome trace naming ``cnn4_block_fwd``),
+    s an iteration each;
+13. print one ``{"kernels": [...]}`` line, the card line again, and last
     ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports neither
@@ -3256,6 +3274,378 @@ def slice10_phase(tc, gc, F, torch, gpu, tmp) -> dict:
     return out
 
 
+# Phase 12 (slice 11), the run utilities. Resume, bit for bit: maml_omni
+# (vision_config) --fuse RESUME_FUSE, RESUME_TOTAL iterations with a
+# checkpoint every RESUME_FUSE, against a resume from model_<RESUME_FUSE -
+# 1>; maml_trpo at trpo_particles --fuse FUSE, FUSED_ITERATIONS against
+# FUSE + a resume from model_<FUSE - 1>; maml_ppo eager (Adam 0.01)
+# PPO_TOTAL iterations against a resume from model_1. The rows, the final
+# params and the final meta-test must be equal exactly (PR 8: graph and
+# eager are bit for bit equal on these paths). PROFILE_ITERATIONS eager
+# maml_omni iterations without and with --profile, then with --trace.
+RESUME_FUSE, RESUME_TOTAL, PPO_TOTAL, PROFILE_ITERATIONS = 5, 10, 3, 3
+PHASE_NAMES = ("sample", "valid_eval", "meta_step")
+
+
+def checkpoint_timed(cls):
+    """``cls`` whose ``save_model_checkpoint`` records, in ``ckpt_ms``, the
+    ms each call holds the training thread."""
+    class Timed(cls):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.ckpt_ms, self.rows_t = [], []
+
+        def save_model_checkpoint(self, *args, **kw):
+            t0 = time.perf_counter()
+            super().save_model_checkpoint(*args, **kw)
+            self.ckpt_ms.append(1e3 * (time.perf_counter() - t0))
+
+        def log_metrics(self, metrics):
+            self.rows_t.append(time.perf_counter())
+            super().log_metrics(metrics)
+
+    return Timed
+
+
+def counted_run(torch, gc, tc, kind: str, kw: dict, cfg, path: str) -> dict:
+    """One trainer run with every counter zeroed just before -> the
+    trainer, its final meta-test, metrics.json, model.npz, the counters,
+    the wall time and the ms each checkpoint held the training thread."""
+    import numpy as np
+    from exploring_meta_tpu_torch.trainers.rl import RLTrainer
+    from exploring_meta_tpu_torch.trainers.vision import VisionTrainer
+    from exploring_meta_tpu_torch.utils import graphs
+
+    cls = checkpoint_timed(RLTrainer if kind == "rl" else VisionTrainer)
+    trainer = cls(cfg, path=path + "/", **kw)
+    torch.cuda.synchronize()
+    graphs.reset_counts()
+    gc.reset_launch_counts()
+    tc.reset_launch_counts()
+    t0 = time.perf_counter()
+    final = trainer.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(trainer.model_path, "metrics.json")) as f:
+        metrics = json.load(f)
+    with np.load(os.path.join(trainer.model_path, "model.npz")) as z:
+        params = {k: z[k] for k in z.files}
+    return {"trainer": trainer, "final": final, "metrics": metrics,
+            "params": params, "counts": dict(graphs.COUNTS),
+            "launches": {**gc.launch_counts(), **tc.launch_counts()},
+            "captured": {**gc.captured_counts(), **tc.captured_counts()},
+            "wall_s": wall, "ckpt_ms": trainer.ckpt_ms,
+            "rows_t": trainer.rows_t}
+
+
+def run_gap(full: dict, res: dict, total: int, done: int) -> dict:
+    """How far the resumed run lies from the uninterrupted one: rows that
+    differ, the largest |difference| of the final params, whether the final
+    meta-test differs; the resumed run must have ``total - done - 1``
+    training rows."""
+    import numpy as np
+    rows = 0
+    for key, vals in res["metrics"].items():
+        want = full["metrics"][key]
+        if len(want) == total:
+            check(len(vals) == total - done - 1,
+                  f"{key}: {len(vals)} resumed rows, {total - done - 1} "
+                  "expected")
+        rows += sum(a != b for a, b in zip(vals, want[len(want) - len(vals):]))
+    check(res["params"].keys() == full["params"].keys(), "the same params")
+    err = max(float(np.abs(res["params"][k].astype(np.float64)
+                           - full["params"][k]).max())
+              for k in full["params"])
+    return {"rows_differing": int(rows), "params_max_abs": err,
+            "final_differs": res["final"] != full["final"]}
+
+
+def resume_case(torch, gc, tc, name: str, kind: str, kw: dict, cfg,
+                total: int, done: int, tmp: str, gpu: str) -> dict:
+    """An uninterrupted run of ``total`` iterations and a resume from its
+    ``model_<done>.npz``, which must agree exactly. If they do not, a
+    second uninterrupted run shows the run-to-run spread before the check
+    fails."""
+    import dataclasses
+    cfg = dataclasses.replace(cfg, num_iterations=total)
+    full = counted_run(torch, gc, tc, kind, kw, cfg,
+                       os.path.join(tmp, f"{name}_full"))
+    ckpt = os.path.join(full["trainer"].model_path, "model_checkpoints",
+                        f"model_{done}.npz")
+    res = counted_run(torch, gc, tc, kind, kw,
+                      dataclasses.replace(cfg, resume=ckpt),
+                      os.path.join(tmp, f"{name}_resumed"))
+    gap = run_gap(full, res, total, done)
+    print(f"{name}: resumed from model_{done} ({total - done - 1} of "
+          f"{total} iterations): {gap}; counts {res['counts']}, launches "
+          f"{res['launches']}, recorded in a replay {res['captured']}; "
+          f"wall {full['wall_s']} / {res['wall_s']} s [{gpu}]", flush=True)
+    if gap != {"rows_differing": 0, "params_max_abs": 0.0,
+               "final_differs": False}:
+        again = counted_run(torch, gc, tc, kind, kw, cfg,
+                            os.path.join(tmp, f"{name}_again"))
+        spread = run_gap(full, again, total, -1)
+        print(f"{name}: two uninterrupted runs: {spread}", flush=True)
+        check(False, f"{name}: resumed run differs from the uninterrupted "
+                     f"one, {gap} (run to run: {spread})")
+    return {"full": full, "resumed": res, "gap": gap}
+
+
+def reference_omniglot_cnn(torch):
+    """An Omniglot CNN4 built with ``torch.nn`` to the reference's module
+    nesting and state_dict keys (``base.<i>.conv``, ``base.<i>.normalize``,
+    ``linear``), as ``tests/test_import_reference.py`` builds it."""
+    nn = torch.nn
+
+    class Block(nn.Module):
+        def __init__(self, ci, co):
+            super().__init__()
+            self.conv = nn.Conv2d(ci, co, 3, stride=2, padding=1)
+            nn.init.xavier_uniform_(self.conv.weight)
+            nn.init.zeros_(self.conv.bias)
+            self.normalize = nn.BatchNorm2d(co, affine=True)
+            nn.init.uniform_(self.normalize.weight)
+
+        def forward(self, x):
+            return torch.relu(self.normalize(self.conv(x)))
+
+    class OmniglotCNN(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.base = nn.Sequential(Block(1, HIDDEN), *(
+                Block(HIDDEN, HIDDEN) for _ in range(3)))
+            self.linear = nn.Linear(HIDDEN, WAYS)
+            with torch.no_grad():
+                self.linear.weight.normal_()
+                self.linear.bias.zero_()
+
+        def forward(self, x):
+            return self.linear(self.base(x).mean(dim=[2, 3]))
+
+    return OmniglotCNN()
+
+
+def imported_model_phase(torch, tc, gpu, tmp) -> dict:
+    """A reference-layout Omniglot CNN4 (seeded) through
+    ``import_reference_run`` into ``VisionServer.from_checkpoint``: one
+    request (the kernels at B = 1) and one batch of BATCH on the card,
+    each against the CPU path on the same params within phase 3's 1e-3."""
+    from exploring_meta_tpu_torch.models.cnn4 import omniglot_spec
+    from exploring_meta_tpu_torch.serve import VisionServer
+    from exploring_meta_tpu_torch.tasks import datasets as td
+    from exploring_meta_tpu_torch.tasks import sampler as ts
+    from exploring_meta_tpu_torch.utils.import_torch import (
+        import_reference_run,
+    )
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = reference_omniglot_cnn(torch)
+    src = os.path.join(tmp, "reference_run")
+    os.makedirs(os.path.join(src, "model_checkpoints"))
+    torch.save(model.state_dict(), os.path.join(src, "model.pt"))
+    with open(os.path.join(src, "logger.json"), "w") as f:
+        json.dump({"config": {"algo": "maml_5w5s", "dataset": "omni",
+                              "ways": WAYS, "shots": SHOTS, "seed": SEED}},
+                  f)
+    dst = import_reference_run(src, os.path.join(tmp, "imported"))
+    path, spec = os.path.join(dst, "model.npz"), omniglot_spec(WAYS)
+    kw = dict(inner_lr=INNER_LR, adapt_steps=ADAPT_STEPS)
+    server = VisionServer.from_checkpoint(path, spec, device="cuda", **kw)
+    cpu = VisionServer.from_checkpoint(path, spec, device="cpu", **kw)
+    sx, sy, qx, _ = make_requests(torch, td, ts, torch.device("cuda"))
+    out = {}
+    torch.cuda.synchronize()
+    tc.reset_launch_counts()
+    one = server(sx[0], sy[0], qx[0])
+    torch.cuda.synchronize()
+    out["launches_request"] = tc.launch_counts()
+    tc.reset_launch_counts()
+    batch = server.batch(sx, sy, qx)
+    torch.cuda.synchronize()
+    out["launches_batch"] = tc.launch_counts()
+    for what in ("launches_request", "launches_batch"):
+        check(all(n > 0 for n in out[what].values()),
+              f"imported model: every CNN4 kernel ran, {what} {out[what]}")
+    agree(one, cpu(sx[0].cpu(), sy[0].cpu(), qx[0].cpu()), 1e-3,
+          "imported model, one request: card vs CPU")
+    ref = cpu.batch(sx[:4].cpu(), sy[:4].cpu(), qx[:4].cpu())
+    agree((batch[0][:4], batch[1][:4]), ref, 1e-3,
+          "imported model, a batch: card vs CPU")
+    out["max_abs_prob_err"] = max(
+        float((one[1].cpu() - cpu(sx[0].cpu(), sy[0].cpu(),
+                                  qx[0].cpu())[1]).abs().max()),
+        float((batch[1][:4].cpu() - ref[1]).abs().max()))
+    print(f"imported reference CNN4 served: one request launches "
+          f"{out['launches_request']}, a batch of {BATCH} "
+          f"{out['launches_batch']}; card vs CPU max |prob| "
+          f"{out['max_abs_prob_err']} [{gpu}]", flush=True)
+    out["launches"] = {k: out["launches_request"][k]
+                       + out["launches_batch"][k]
+                       for k in out["launches_batch"]}
+    return out
+
+
+def s_per_row(run: dict) -> float:
+    """Mean s between consecutive training rows after the first (each row
+    is logged after its metrics reached the host)."""
+    t = run["rows_t"][:-1]                        # the meta-test's row apart
+    return (t[-1] - t[0]) / (len(t) - 1)
+
+
+def profile_phase(torch, gc, tc, gpu, tmp) -> dict:
+    """PROFILE_ITERATIONS eager maml_omni iterations plain, with
+    ``--profile`` (JAX's phases and ``phase_times.json`` schema) and, last,
+    with ``--trace`` (a Chrome trace that names ``cnn4_block_fwd``)."""
+    import dataclasses
+    cfg = vision_config(num_iterations=PROFILE_ITERATIONS)
+    runs = {name: counted_run(torch, gc, tc, "vision", {},
+                              dataclasses.replace(cfg, **kw),
+                              os.path.join(tmp, f"omni_{name}"))
+            for name, kw in (("plain", {}), ("profile", {"profile": True}))}
+    with open(os.path.join(runs["profile"]["trainer"].model_path,
+                           "phase_times.json")) as f:
+        phases = json.load(f)
+    check(set(phases) == set(PHASE_NAMES)
+          and all(set(v) == {"total_s", "mean_ms", "count"}
+                  and v["count"] == PROFILE_ITERATIONS
+                  for v in phases.values()),
+          f"phase_times.json has JAX's phases and schema: {phases}")
+    trace_dir = os.path.join(tmp, "trace")
+    runs["trace"] = counted_run(torch, gc, tc, "vision", {},
+                                dataclasses.replace(cfg, trace=trace_dir),
+                                os.path.join(tmp, "omni_trace"))
+    files = os.listdir(trace_dir)
+    check(len(files) == 1, f"one trace file: {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        text = f.read()
+    names = {k: text.count(k) for k in ("cnn4_block_fwd",
+                                        "fwd_conv_stats_kernel")}
+    check(names["cnn4_block_fwd"] > 0,
+          f"the trace names cnn4_block_fwd: {names}")
+    s_iter = {name: s_per_row(r) for name, r in runs.items()}
+    print(f"maml_omni eager, s an iteration (iterations 2-"
+          f"{PROFILE_ITERATIONS}): {s_iter}; phases {phases}; trace "
+          f"{len(text)} bytes, names {names} [{gpu}]", flush=True)
+    return {"s_per_iteration": s_iter, "phases": phases,
+            "trace_bytes": len(text), "trace_names": names,
+            "launches": {k: sum(r["launches"][k] for r in runs.values())
+                         for k in runs["plain"]["launches"]}}
+
+
+def run_utilities_phase(torch, gc, tc, gpu, tmp) -> dict:
+    """Phase 12: the run utilities and the offline tools (slice 11)."""
+    import dataclasses
+    import importlib
+    import numpy as np
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+
+    start = time.perf_counter()
+    out = {"modules": {}}
+    for mod in ("gymnasium", "mujoco", "PIL"):
+        try:
+            m = importlib.import_module(mod)
+            out["modules"][mod] = getattr(m, "__version__", "imported")
+        except Exception as e:          # absent or broken: say which
+            out["modules"][mod] = f"no ({type(e).__name__}: {e})"
+    print(f"optional modules on this machine: {out['modules']}", flush=True)
+
+    omni = vision_config(fuse=RESUME_FUSE, save_every=RESUME_FUSE)
+    trpo = RLScriptConfig(outer_lr=1.0, seed=SEED, fuse=FUSE,
+                          save_every=FUSE)
+    ppo = RLScriptConfig(outer_lr=0.01, seed=SEED, save_every=1)
+    cases = {
+        "maml_omni": resume_case(torch, gc, tc, "maml_omni fuse 5",
+                                 "vision", {}, omni, RESUME_TOTAL,
+                                 RESUME_FUSE - 1, tmp, gpu),
+        "maml_trpo": resume_case(torch, gc, tc, "maml_trpo fuse 10", "rl",
+                                 {"algo": "trpo"}, trpo, FUSED_ITERATIONS,
+                                 FUSE - 1, tmp, gpu),
+        "maml_ppo": resume_case(torch, gc, tc, "maml_ppo eager", "rl",
+                                {"algo": "ppo"}, ppo, PPO_TOTAL, 1, tmp,
+                                gpu)}
+    for name, n_iter in (("maml_omni", RESUME_TOTAL - RESUME_FUSE),
+                         ("maml_trpo", FUSED_ITERATIONS - FUSE)):
+        res = cases[name]["resumed"]
+        check(res["counts"] == {"captures": 1, "replays": n_iter - 1},
+              f"{name} resumed: one capture, {n_iter - 1} replays, "
+              f"{res['counts']}")
+        kernels = tc.KERNELS if name == "maml_omni" else gc.KERNELS
+        for k in kernels:
+            check(res["launches"][k] > 0 and res["captured"][k] > 0,
+                  f"{name} resumed: {k} launched and recorded in the graph,"
+                  f" {res['launches']}, {res['captured']}")
+    res = cases["maml_ppo"]["resumed"]
+    check(all(res["launches"][k] > 0 for k in gc.KERNELS),
+          f"maml_ppo resumed: both sweeps ran, {res['launches']}")
+
+    # async equals sync under replays: maml_omni --fuse 5 --async_ckpt
+    sync = cases["maml_omni"]["full"]
+    asyn = counted_run(torch, gc, tc, "vision", {},
+                       dataclasses.replace(omni, num_iterations=RESUME_TOTAL,
+                                           async_ckpt=True),
+                       os.path.join(tmp, "omni_async"))
+    for it in range(RESUME_FUSE - 1, RESUME_TOTAL, RESUME_FUSE):
+        files = [os.path.join(r["trainer"].model_path, "model_checkpoints",
+                              f"model_{it}.npz") for r in (sync, asyn)]
+        with np.load(files[0]) as a, np.load(files[1]) as b:
+            check(a.files == b.files and all(np.array_equal(a[k], b[k])
+                                             for k in a.files),
+                  f"async model_{it}.npz equals the synchronous one")
+    print(f"maml_omni --fuse {RESUME_FUSE} checkpoints: ms holding the "
+          f"training thread, sync {sync['ckpt_ms']}, async "
+          f"{asyn['ckpt_ms']}; async files equal sync [{gpu}]", flush=True)
+
+    # DCP (--ckpt_backend orbax) on maml_ppo: save, resume from the dir
+    dcp = dataclasses.replace(ppo, ckpt_backend="orbax")
+    saved = counted_run(torch, gc, tc, "rl", {"algo": "ppo"},
+                        dataclasses.replace(dcp, num_iterations=2),
+                        os.path.join(tmp, "ppo_dcp"))
+    ckdir = os.path.join(saved["trainer"].model_path, "model_checkpoints")
+    check(sorted(os.listdir(ckdir)) == ["0", "1"],
+          f"DCP steps: {os.listdir(ckdir)}")
+    res = counted_run(torch, gc, tc, "rl", {"algo": "ppo"},
+                      dataclasses.replace(dcp, num_iterations=PPO_TOTAL,
+                                          resume=ckdir),
+                      os.path.join(tmp, "ppo_dcp_resumed"))
+    gap = run_gap(cases["maml_ppo"]["full"], res, PPO_TOTAL, 1)
+    check(gap == {"rows_differing": 0, "params_max_abs": 0.0,
+                  "final_differs": False},
+          f"maml_ppo resumed through DCP equals the uninterrupted run, {gap}")
+    print(f"maml_ppo DCP: resumed from {ckdir} (latest step 1): {gap}; ms "
+          f"holding the training thread a DCP save {saved['ckpt_ms']}, an "
+          f"npz save (sync) {cases['maml_ppo']['full']['ckpt_ms']} [{gpu}]",
+          flush=True)
+    dcp_runs = {"saved": saved, "resumed": res}
+
+    imported = imported_model_phase(torch, tc, gpu, tmp)
+    profile = profile_phase(torch, gc, tc, gpu, tmp)
+
+    runs = [r for c in cases.values() for r in (c["full"], c["resumed"])]
+    runs += [asyn, *dcp_runs.values()]
+    launches = {k: sum(r["launches"][k] for r in runs)
+                + imported["launches"].get(k, 0)
+                + profile["launches"].get(k, 0)
+                for k in runs[0]["launches"]}
+    keep = ("final", "metrics", "counts", "launches", "captured", "wall_s",
+            "ckpt_ms")
+    out.update({
+        "resume": {n: {"gap": c["gap"],
+                       **{w: {k: c[w][k] for k in keep}
+                          for w in ("full", "resumed")}}
+                   for n, c in cases.items()},
+        "ckpt_ms": {"omni_fuse_npz_sync": sync["ckpt_ms"],
+                    "omni_fuse_npz_async": asyn["ckpt_ms"],
+                    "ppo_eager_npz_sync": cases["maml_ppo"]["full"][
+                        "ckpt_ms"],
+                    "ppo_eager_dcp": saved["ckpt_ms"]},
+        "dcp": {"gap": gap, "resumed_counts": res["counts"]},
+        "imported": imported, "profile": profile, "launches": launches})
+    out["phase_s"] = time.perf_counter() - start
+    print(f"run utilities phase: {out['phase_s']} s [{gpu}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3317,6 +3707,8 @@ def main() -> int:
         analysis = analysis_phase(torch, gc, tc, gpu, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         slice10 = slice10_phase(tc, gc, F, torch, gpu, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        slice11 = run_utilities_phase(torch, gc, tc, gpu, tmp)
 
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3327,8 +3719,8 @@ def main() -> int:
                    "vision_trainer": vision, "vision_timing": vision_times,
                    "policy_serve": policy_serve, "adam_rl": adam_rl,
                    "replay_meta_grad": replay_grad, "fused": fused,
-                   "analysis": analysis, "slice10": slice10}, f, indent=1,
-                  default=str)
+                   "analysis": analysis, "slice10": slice10,
+                   "slice11": slice11}, f, indent=1, default=str)
 
     replaces = {
         "cnn4_block_fwd": "exploring_meta_tpu/pallas/cnn4_pallas.py:295",
@@ -3347,7 +3739,8 @@ def main() -> int:
     # ppo RC runs the sweeps; the baselines' (the RL ones the sweeps, the
     # vision one the CNN4 kernels at B = 1 and its meta-eval's) and the
     # bf16 runs' (the fused maml_trpo's warm-up and meta-test, the eager
-    # maml_ppo's)
+    # maml_ppo's); and the run utilities' (the resumed and uninterrupted
+    # runs, the imported model's request and batch, the profiled runs)
     for paths in (vision["launches"], policy_serve["launches"],
                   adam_rl["launches"],
                   *(r["launches"] for r in fused.values()),
@@ -3358,7 +3751,8 @@ def main() -> int:
                     for r in slice10["rl_baselines"].values()),
                   slice10["vision_baseline"]["launches"],
                   slice10["bf16"]["fused_trpo"]["launches"],
-                  slice10["bf16"]["eager_ppo"]["launches"]):
+                  slice10["bf16"]["eager_ppo"]["launches"],
+                  slice11["launches"]):
         for name, n in paths.items():
             launches[name] += n
     kernels = []

@@ -9,9 +9,14 @@
     python -m exploring_meta_tpu_torch.cli eval_rl <run_dir> --cl --rc
     python -m exploring_meta_tpu_torch.cli ppo_baseline --num_iterations 3
     python -m exploring_meta_tpu_torch.cli vision_baseline --synthetic
+    python -m exploring_meta_tpu_torch.cli maml_ppo --resume \
+        results/<run>/model_checkpoints/model_<i>.npz
+    python -m exploring_meta_tpu_torch.cli import_reference_ckpt <src> <dst>
+    python -m exploring_meta_tpu_torch.cli pack_datasets omniglot --src <dir>
     EMT_FORCE_CPU=1 python -m exploring_meta_tpu_torch.cli maml_vision ...
 
-Runs go to the card unless ``EMT_FORCE_CPU=1`` asks for the CPU.
+Runs go to the card unless ``EMT_FORCE_CPU=1`` asks for the CPU; the two
+offline tools run on the host.
 """
 
 from __future__ import annotations
@@ -194,6 +199,47 @@ def eval_rl(argv=None) -> dict:
                   task_batch=args.task_batch, device=requested_device())
 
 
+def import_reference_ckpt(argv=None) -> str:
+    """Import a reference-trained run dir (torch ``state_dict``s) into a
+    run dir of the port's contract (``scripts/import_reference_ckpt.py``;
+    ``utils/import_torch.py``)."""
+    p = argparse.ArgumentParser(
+        description="Import a reference run dir (torch state_dict "
+                    "checkpoints) into a run dir that evaluation and "
+                    "serving read")
+    p.add_argument("src", help="reference run dir (holds logger.json + .pt)")
+    p.add_argument("dst", help="output run dir")
+    p.add_argument("--kind", default=None,
+                   choices=["maml_vision", "anil_vision", "maml_rl",
+                            "anil_rl"])
+    args = p.parse_args(argv)
+    from exploring_meta_tpu_torch.utils.import_torch import (
+        import_reference_run,
+    )
+    return import_reference_run(args.src, args.dst, kind=args.kind)
+
+
+def pack_datasets(argv=None) -> None:
+    """One-time host-side packing of real downloads into the sampler's
+    arrays (``emt-pack-datasets``; ``tasks/pack.py``)."""
+    import os
+    p = argparse.ArgumentParser(
+        description="Pack original dataset downloads into the on-device "
+                    "sampler's [n_classes, n_per_class, H, W, C] arrays")
+    p.add_argument("dataset", choices=["omniglot", "mini-imagenet"])
+    p.add_argument("--src", required=True, help="original download dir")
+    p.add_argument("--out", default=os.path.expanduser(
+        "~/data/exploring_meta_tpu"))
+    args = p.parse_args(argv)
+    from exploring_meta_tpu_torch.tasks.pack import (
+        pack_mini_imagenet, pack_omniglot,
+    )
+    if args.dataset == "omniglot":
+        pack_omniglot(args.src, args.out)
+    else:
+        pack_mini_imagenet(args.src, args.out)
+
+
 COMMANDS = {"maml_vision": maml_vision, "anil_vision": anil_vision,
             "maml_trpo": maml_trpo, "anil_trpo": anil_trpo,
             "maml_ppo": maml_ppo, "anil_ppo": anil_ppo,
@@ -201,7 +247,9 @@ COMMANDS = {"maml_vision": maml_vision, "anil_vision": anil_vision,
             "eval_vision": eval_vision, "eval_rl": eval_rl,
             "ppo_baseline": ppo_baseline, "trpo_baseline": trpo_baseline,
             "random_baseline": random_baseline,
-            "vision_baseline": vision_baseline}
+            "vision_baseline": vision_baseline,
+            "import_reference_ckpt": import_reference_ckpt,
+            "pack_datasets": pack_datasets}
 
 if __name__ == "__main__":
     if len(sys.argv) < 2 or sys.argv[1] not in COMMANDS:

@@ -2,9 +2,11 @@
 
 A source under ``exploring_meta_tpu_torch/csrc/`` is compiled for
 ``sm_90a`` into a shared library with a plain C interface, at first use,
-into ``build/`` beside the package. The library's name carries a hash of
-the source, so an edited source is rebuilt and a stale library is never
-loaded. A failed build raises with the compiler's output.
+into ``build/`` beside the package, or into the directory that
+``--compile_cache`` names (``utils/compile_cache.py`` moves
+``BUILD_DIR``). The library's name carries a hash of the source, so an
+edited source is rebuilt and a stale library is never loaded. A failed
+build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import threading
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
+DEFAULT_BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]

@@ -25,24 +25,32 @@ from exploring_meta_tpu_torch.rl.trpo_meta import (
     TRPOConfig, make_trpo_meta_step,
 )
 from exploring_meta_tpu_torch.utils.graphs import FusedIterations, bind_once
+from exploring_meta_tpu_torch.utils.profiling import no_phase
 from exploring_meta_tpu_torch.utils.tree import tree_leaves
 
 
 def make_trpo_iteration(env, policy, rollout_fn, cfg: RLConfig,
                         trpo_cfg: TRPOConfig, meta_batch_size: int,
-                        host_free: bool = False):
+                        host_free: bool = False, phase=no_phase):
     """-> ``iteration(params, gen) -> (new params, metrics)``: one
     MAML-TRPO meta-iteration (first-order collection, then the
     second-order CG / line-search outer step). ``host_free`` takes the
-    line search that reads nothing back (``rl/trpo_meta.py``)."""
+    line search that reads nothing back (``rl/trpo_meta.py``).
+    ``phase(name)`` (``PhaseTimer.phase`` under ``--profile``) times JAX's
+    eager phases ``collect`` and ``meta_step``; a fused iteration takes
+    none, since its phases would sync inside a capture."""
     collect = make_trpo_collect(policy, rollout_fn, cfg)
     meta_step = make_trpo_meta_step(policy, cfg, trpo_cfg, cfg.adapt_steps,
                                     host_free=host_free)
 
     def iteration(params, gen):
         tasks = env.sample_tasks(gen, meta_batch_size)
-        old_params, _, replays, ms = collect(params, tasks, gen)
-        params, info = meta_step(params, old_params, replays)
+        with phase("collect") as sync:
+            old_params, _, replays, ms = collect(params, tasks, gen)
+            sync.append(replays)
+        with phase("meta_step") as sync:
+            params, info = meta_step(params, old_params, replays)
+            sync.append(params)
         return params, {"adapt_reward": ms["reward"].mean(),
                         "adapt_success": ms["success"].mean(),
                         "meta_loss": info["old_loss"],
@@ -52,18 +60,21 @@ def make_trpo_iteration(env, policy, rollout_fn, cfg: RLConfig,
 
 
 def make_adam_iteration(env, policy, rollout_fn, cfg: RLConfig, algo: str,
-                        meta_batch_size: int):
+                        meta_batch_size: int, phase=no_phase):
     """-> ``iteration(params, opt, gen) -> metrics``: second-order PPO or
     VPG adaptation of a task batch and one step of ``opt`` (from
-    ``adapt/maml.py:adam``) on the mean query loss, in place."""
+    ``adapt/maml.py:adam``) on the mean query loss, in place. As in JAX
+    the whole of it is one ``phase`` (``meta_step``)."""
     fast_adapt = {"ppo": fast_adapt_ppo, "vpg": fast_adapt_vpg}[algo]
 
     def iteration(params, opt, gen):
         tasks = env.sample_tasks(gen, meta_batch_size)
-        _, losses, ms = fast_adapt(policy, params, rollout_fn, tasks, gen,
-                                   cfg)
-        loss = losses.mean()
-        apply_meta_gradient(opt, loss, params)
+        with phase("meta_step") as sync:
+            _, losses, ms = fast_adapt(policy, params, rollout_fn, tasks,
+                                       gen, cfg)
+            loss = losses.mean()
+            apply_meta_gradient(opt, loss, params)
+            sync.append(params)
         return {"meta_loss": loss.detach(),
                 "adapt_reward": ms["reward"].mean(),
                 "adapt_success": ms["success"].mean()}

@@ -3,8 +3,8 @@
 
 A split is one uint8 tensor ``[n_classes, n_per_class, H, W, C]`` on the
 device. Real Omniglot and Mini-ImageNet are read from packed ``.npz``
-files when present (``scripts/pack_datasets.py`` writes them; nothing is
-downloaded); otherwise a deterministic synthetic dataset of the same
+files when present (``tasks/pack.py`` writes them, as the JAX package's
+``emt-pack-datasets`` does; nothing is downloaded); otherwise a deterministic synthetic dataset of the same
 shape is made by the same numpy code as the JAX package, so both
 packages see the same bytes for the same seed.
 """

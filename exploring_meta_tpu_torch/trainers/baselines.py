@@ -16,9 +16,9 @@ shots`` images as one batch-stat BN batch: on the Omniglot spec under
 ``conv_impl="fused"`` those are the CNN4 kernels at B = 1.
 
 As in JAX, the meta-trainers' extras (``_UNSUPPORTED``) are ignored with a
-printed note. Device envs only: a host env, and the run utilities that
-JAX's ``Experiment`` honours (wandb, the compile cache), raise
-``NotImplementedError`` naming their ROADMAP item.
+printed note, and the run utilities that JAX's ``Experiment`` honours
+(``--wandb``, ``--compile_cache``) are honoured. Device envs only: a host
+env raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -84,15 +84,11 @@ def _warn_unsupported(cfg) -> None:
               f"ignored: {', '.join(ignored)}")
 
 
-def _check_ported(trainer: str, cfg, env: str | None = None) -> None:
-    """Raise, before a run dir is made, on what JAX's baselines honour and
-    the port does not run yet: a host ``env``, wandb, the compile cache."""
-    raise_unported(trainer, [
-        (env is not None and not env.startswith("Particles2D"),
-         f"env={env!r}", "host envs"),
-        (cfg.use_wandb, "wandb", "run utilities"),
-        (bool(cfg.compile_cache), "compile_cache", "run utilities"),
-    ])
+def _check_ported(trainer: str, env: str) -> None:
+    """Raise, before a run dir is made, on what JAX's baselines run and the
+    port does not yet: a host ``env``."""
+    raise_unported(trainer, [(not env.startswith("Particles2D"),
+                              f"env={env!r}", "host envs")])
 
 
 # ---------------------------------------------------------------------------
@@ -195,10 +191,11 @@ class _RLBaseline(Experiment):
 
     def __init__(self, cfg: RLScriptConfig, path: str | None = None,
                  device=None):
-        _check_ported(type(self).__name__, cfg, env=cfg.env)
+        _check_ported(type(self).__name__, cfg.env)
         self.device = resolve_device(device)
         super().__init__(self.name, cfg.env, cfg.to_params(),
-                         path=path or self.default_path)
+                         path=path or self.default_path,
+                         use_wandb=cfg.use_wandb)
         self.cfg = cfg
 
     def _start(self):
@@ -358,9 +355,9 @@ class VisionBaseline(Experiment):
 
     def __init__(self, cfg: VisionConfig, path: str = "results/",
                  device=None):
-        _check_ported("VisionBaseline", cfg)
         self.device = resolve_device(device)
-        super().__init__("baseline", cfg.dataset, cfg.to_params(), path=path)
+        super().__init__("baseline", cfg.dataset, cfg.to_params(), path=path,
+                         use_wandb=cfg.use_wandb)
         self.cfg = cfg
 
     def run(self) -> float:

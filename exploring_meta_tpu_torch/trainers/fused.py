@@ -16,6 +16,7 @@ from typing import Callable
 
 import torch
 
+from exploring_meta_tpu_torch.utils.profiling import no_phase
 from exploring_meta_tpu_torch.utils.tree import tree_map
 
 
@@ -87,15 +88,25 @@ def drive_fused_chunks(*, total: int, fuse: int, save_every: int, gen,
 
 
 def run_fused(trainer, run_chunk: Callable, state, gen,
-              names: dict | None = None) -> int:
-    """A trainer's whole run in chunks of ``trainer.cfg.fuse``: each
-    iteration's metrics (renamed by ``names``) printed and logged, the
-    params checkpointed at chunk ends -> the last iteration. The params
-    after the last whole chunk, and the count of iterations in whole
-    chunks (= rows of metrics.json), stay on ``trainer._fused_params`` /
-    ``trainer._fused_count`` for an interrupt."""
+              names: dict | None = None, start: int = 0,
+              phase: Callable = no_phase) -> int:
+    """A trainer's whole run from iteration ``start`` in chunks of
+    ``trainer.cfg.fuse``: each iteration's metrics (renamed by ``names``)
+    printed and logged, checkpoints at chunk ends with the Adam state
+    (``state[1]``, None for TRPO) and the generator, each chunk timed as
+    JAX's ``train_chunk`` phase under ``--profile`` -> the last iteration.
+    The params after the last whole chunk, and the count of iterations
+    done in whole chunks (= rows of metrics.json), stay on
+    ``trainer._fused_params`` / ``trainer._fused_count`` for an
+    interrupt."""
     cfg, names = trainer.cfg, names or {}
-    trainer._fused_params, trainer._fused_count = snapshot(state[0]), 0
+    trainer._fused_params, trainer._fused_count = snapshot(state[0]), start
+
+    def chunk(n, state, g):
+        with phase("train_chunk") as sync:
+            state, ms = run_chunk(n, state, g)
+            sync.append(ms)
+        return state, ms
 
     def log_step(ms, j):
         metrics = {names.get(k, k): float(v[j]) for k, v in ms.items()}
@@ -108,9 +119,10 @@ def run_fused(trainer, run_chunk: Callable, state, gen,
 
     state, iteration, _ = drive_fused_chunks(
         total=cfg.num_iterations, fuse=cfg.fuse, save_every=cfg.save_every,
-        gen=gen, state=state, run_chunk=run_chunk, log_step=log_step,
+        gen=gen, state=state, run_chunk=chunk, log_step=log_step,
         save_ckpt=lambda state, i, g: trainer.save_model_checkpoint(
-            state[0], i),
-        on_chunk=on_chunk)
+            state[0], i, opt_state=state[1], gen=g,
+            async_write=cfg.async_ckpt),
+        on_chunk=on_chunk, start=start)
     trainer._fused_params = state[0]
     return iteration

@@ -20,12 +20,22 @@ metrics of a chunk come to the host in one copy, and checkpoints land on
 chunk-end iterations (``trainers/fused.py``). Otherwise each iteration runs
 eagerly and fetches its metrics in one copy.
 
-Every option the JAX trainer has and the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP item.
+The run utilities are JAX's: a checkpoint carries the params, the Adam
+state and the generator, and ``--resume`` continues a run exactly where
+it stopped (``utils/experiment.py``); ``--async_ckpt`` writes checkpoints
+on a background thread, ``--ckpt_backend orbax`` as
+``torch.distributed.checkpoint`` steps; ``--profile`` times JAX's phases
+into ``phase_times.json`` and ``--trace`` records the training loop
+(``utils/profiling.py``); ``--wandb`` logs the metrics rows.
+
+Every option the JAX trainer has and the port does not run yet (host
+envs, ``--mesh``) raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import torch
@@ -49,7 +59,10 @@ from exploring_meta_tpu_torch.utils.config import (
     RLScriptConfig, raise_unported,
 )
 from exploring_meta_tpu_torch.utils.experiment import (
-    DivergenceError, Experiment,
+    DivergenceError, Experiment, resume_training,
+)
+from exploring_meta_tpu_torch.utils.profiling import (
+    PhaseTimer, device_trace, no_phase,
 )
 from exploring_meta_tpu_torch.utils.tree import tree_map
 
@@ -94,13 +107,6 @@ def _check_ported(cfg: RLScriptConfig) -> None:
          "host envs"),
         (cfg.task_batch, "task_batch", "host envs"),
         (cfg.mesh > 1, "mesh > 1", "scale-out"),
-        (bool(cfg.resume), "resume", "run utilities"),
-        (cfg.async_ckpt, "async_ckpt", "run utilities"),
-        (cfg.ckpt_backend != "npz", "ckpt_backend='orbax'", "run utilities"),
-        (cfg.use_wandb, "wandb", "run utilities"),
-        (cfg.profile, "profile", "run utilities"),
-        (bool(cfg.trace), "trace", "run utilities"),
-        (bool(cfg.compile_cache), "compile_cache", "run utilities"),
     ]
     raise_unported("RLTrainer", unported)
 
@@ -119,17 +125,25 @@ class RLTrainer(Experiment):
         _check_ported(cfg)
         self.device = resolve_device(device)
         super().__init__(f"{'anil' if anil else 'maml'}_{algo}", cfg.env,
-                         cfg.to_params(), path=path)
+                         cfg.to_params(), path=path,
+                         use_wandb=cfg.use_wandb)
         self.cfg = cfg
         self.algo = algo
         self.anil = anil
+        self._timer = PhaseTimer() if cfg.profile else None
+        self.ckpt_backend = cfg.ckpt_backend
+
+    def _ph(self, name: str):
+        """A ``--profile`` phase (a no-op when profiling is off)."""
+        return self._timer.phase(name) if self._timer else no_phase(name)
 
     def _make_trpo_iteration(self, env, policy, roll, rl_cfg: RLConfig):
         """``(params, None, gen) -> (params, None, metrics)``; the line
         search stops at the first accepted candidate."""
         iteration = make_trpo_iteration(env, policy, roll, rl_cfg,
                                         trpo_config(self.cfg),
-                                        self.cfg.meta_batch_size)
+                                        self.cfg.meta_batch_size,
+                                        phase=self._ph)
 
         def step(params, _, gen):
             params, metrics = iteration(params, gen)
@@ -142,7 +156,8 @@ class RLTrainer(Experiment):
         PPO or VPG adaptation of a meta-batch and one Adam step on the mean
         query loss."""
         iteration = make_adam_iteration(env, policy, roll, rl_cfg, self.algo,
-                                        self.cfg.meta_batch_size)
+                                        self.cfg.meta_batch_size,
+                                        phase=self._ph)
 
         def step(params, opt, gen):
             return params, opt, iteration(params, opt, gen)
@@ -150,7 +165,7 @@ class RLTrainer(Experiment):
         return step
 
     def _fused_loop(self, env, policy, roll, rl_cfg: RLConfig, params, opt,
-                    gen) -> int:
+                    gen, start: int = 0) -> int:
         """All iterations in chunks of ``cfg.fuse`` (``rl/train_scan.py``,
         ``trainers/fused.py:run_fused``) -> the last iteration."""
         cfg = self.cfg
@@ -171,7 +186,8 @@ class RLTrainer(Experiment):
                 p, o, ms = train(*state, g, n)
                 return (p, o), ms
 
-        return run_fused(self, run_chunk, (params, opt), gen)
+        return run_fused(self, run_chunk, (params, opt), gen, start=start,
+                         phase=self._ph)
 
     def run(self) -> dict:
         cfg = self.cfg
@@ -200,22 +216,36 @@ class RLTrainer(Experiment):
             params = tree_map(torch.Tensor.requires_grad_, params)
             state = adam(params, cfg.outer_lr)
             step_fn = self._make_adam_iteration(env, policy, roll, rl_cfg)
+        start_iteration = 0
+        if cfg.resume:
+            # in place, before the first chunk: a capture takes the loaded
+            # tensors (the Adam state is loaded into state when saved)
+            params, _, gen, start_iteration = resume_training(
+                cfg.resume, params, state, gen)
 
         start = time.perf_counter()
-        iteration = 0
+        iteration = start_iteration
+        trace = (device_trace(cfg.trace) if cfg.trace
+                 else contextlib.nullcontext())
         try:
-            if cfg.fuse > 1:
-                iteration = self._fused_loop(env, policy, roll, rl_cfg,
-                                             params, state, gen)
-                params = self._fused_params
-            else:
-                for iteration in range(cfg.num_iterations):
-                    params, state, metrics = step_fn(params, state, gen)
-                    metrics = host_metrics(metrics)
-                    print(f"iteration {iteration}: {metrics}", flush=True)
-                    self.log_metrics(metrics)
-                    if iteration % cfg.save_every == 0:
-                        self.save_model_checkpoint(params, iteration)
+            with trace:
+                if cfg.fuse > 1:
+                    iteration = self._fused_loop(env, policy, roll, rl_cfg,
+                                                 params, state, gen,
+                                                 start=start_iteration)
+                    params = self._fused_params
+                else:
+                    for iteration in range(start_iteration,
+                                           cfg.num_iterations):
+                        params, state, metrics = step_fn(params, state, gen)
+                        metrics = host_metrics(metrics)
+                        print(f"iteration {iteration}: {metrics}",
+                              flush=True)
+                        self.log_metrics(metrics)
+                        if iteration % cfg.save_every == 0:
+                            self.save_model_checkpoint(
+                                params, iteration, opt_state=state, gen=gen,
+                                async_write=cfg.async_ckpt)
         except (KeyboardInterrupt, DivergenceError) as stop:
             if cfg.fuse > 1:
                 # the COUNT of iterations in whole chunks (= rows of
@@ -223,9 +253,14 @@ class RLTrainer(Experiment):
                 iteration, params = self._fused_count, self._fused_params
             self.mark_stopped(stop, iteration)
 
+        self.flush_checkpoints()
         self.save_model(params)
         self.logger["elapsed_time"] = (
             f"{round(time.perf_counter() - start, 2)} sec")
+        if self._timer:
+            self._timer.save(os.path.join(self.model_path,
+                                          "phase_times.json"))
+            print("Phase times:", self._timer.summary())
 
         # the generator only moves forward, so the meta-test draws numbers
         # that no training iteration (eager or replayed) drew

@@ -18,12 +18,17 @@ captured as a CUDA graph and replayed, a chunk's metrics come to the host
 in one copy, and checkpoints land on chunk-end iterations
 (``trainers/fused.py``).
 
-Every option the JAX trainer has and the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP item.
+The run utilities are JAX's, as in ``trainers/rl.py``: ``--resume``
+(params, Adam state and generator), ``--async_ckpt``, ``--ckpt_backend
+orbax`` (DCP), ``--profile`` (the phases ``sample``, ``valid_eval``,
+``meta_step`` and, fused, ``train_chunk``), ``--trace`` and ``--wandb``.
+``--mesh`` raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import time
 
 import torch
@@ -42,7 +47,10 @@ from exploring_meta_tpu_torch.utils.config import (
     CONV_IMPLS, VisionConfig, raise_unported,
 )
 from exploring_meta_tpu_torch.utils.experiment import (
-    DivergenceError, Experiment,
+    DivergenceError, Experiment, resume_training,
+)
+from exploring_meta_tpu_torch.utils.profiling import (
+    PhaseTimer, device_trace, no_phase,
 )
 from exploring_meta_tpu_torch.utils.tree import tree_map
 
@@ -60,13 +68,6 @@ def _build_spec(cfg: VisionConfig, anil: bool) -> cnn4.CNN4Spec:
 def _check_ported(cfg: VisionConfig) -> None:
     raise_unported("VisionTrainer", [
         (cfg.mesh > 1, "mesh > 1", "Scale-out"),
-        (bool(cfg.resume), "resume", "Run utilities"),
-        (cfg.async_ckpt, "async_ckpt", "Run utilities"),
-        (cfg.ckpt_backend != "npz", "ckpt_backend='orbax'", "Run utilities"),
-        (cfg.use_wandb, "wandb", "Run utilities"),
-        (cfg.profile, "profile", "Run utilities"),
-        (bool(cfg.trace), "trace", "Run utilities"),
-        (bool(cfg.compile_cache), "compile_cache", "Run utilities"),
     ])
 
 
@@ -82,12 +83,13 @@ class VisionTrainer(Experiment):
         self.device = resolve_device(device)
         algo = "anil" if anil else "maml"
         super().__init__(f"{algo}_{cfg.ways}w{cfg.shots}s", cfg.dataset,
-                         cfg.to_params(), path=path)
+                         cfg.to_params(), path=path, use_wandb=cfg.use_wandb)
         self.cfg = cfg
         self.anil = anil
+        self.ckpt_backend = cfg.ckpt_backend
 
     def _fused_loop(self, fast_adapt, sample_train, sample_valid, params,
-                    opt, gen) -> int:
+                    opt, gen, start: int = 0, phase=no_phase) -> int:
         """All iterations in chunks of ``cfg.fuse`` (``make_train_scan``:
         the valid pass on the pre-update params, then the meta-step;
         ``trainers/fused.py:run_fused``) -> the last iteration."""
@@ -100,7 +102,7 @@ class VisionTrainer(Experiment):
 
         return run_fused(self, run_chunk, (params, opt), gen, names={
             "loss": "train_loss", "metric": "train_acc",
-            "valid_metric": "valid_acc"})
+            "valid_metric": "valid_acc"}, start=start, phase=phase)
 
     def run(self) -> float:
         cfg, dev = self.cfg, self.device
@@ -132,30 +134,55 @@ class VisionTrainer(Experiment):
             return sample_task_batch(gen, ds, cfg.ways, cfg.shots,
                                      cfg.meta_batch_size)
 
+        start_iteration = 0
+        if cfg.resume:
+            # in place, before the first chunk: a capture takes the loaded
+            # tensors (the Adam state is loaded into opt when saved)
+            params, _, gen, start_iteration = resume_training(
+                cfg.resume, params, opt, gen)
+        timer = PhaseTimer() if cfg.profile else None
+        ph = timer.phase if timer else no_phase
+
         start = time.perf_counter()
-        iteration = 0
+        iteration = start_iteration
+        trace = (device_trace(cfg.trace) if cfg.trace
+                 else contextlib.nullcontext())
         try:
-            if cfg.fuse > 1:
-                iteration = self._fused_loop(
-                    fast_adapt, lambda g: sample(train_ds),
-                    lambda g: sample(valid_ds), params, opt, gen)
-                params = self._fused_params
-            else:
-                for iteration in range(cfg.num_iterations):
-                    batch = sample(train_ds)
-                    # PRE-update params: the reference's valid pass runs
-                    # before opt.step() (maml_vision.py:117-141)
-                    valid_m = meta_eval(params, *sample(valid_ds))
-                    params, opt, train_m = meta_step(params, opt, *batch)
-                    metrics = host_metrics({
-                        "train_loss": train_m["loss"],
-                        "train_acc": train_m["metric"],
-                        "valid_loss": valid_m["loss"],
-                        "valid_acc": valid_m["metric"]})
-                    print(f"iteration {iteration}: {metrics}", flush=True)
-                    self.log_metrics(metrics)
-                    if iteration % cfg.save_every == 0:
-                        self.save_model_checkpoint(params, iteration)
+            with trace:
+                if cfg.fuse > 1:
+                    iteration = self._fused_loop(
+                        fast_adapt, lambda g: sample(train_ds),
+                        lambda g: sample(valid_ds), params, opt, gen,
+                        start=start_iteration, phase=ph)
+                    params = self._fused_params
+                else:
+                    for iteration in range(start_iteration,
+                                           cfg.num_iterations):
+                        with ph("sample") as sync:
+                            batch = sample(train_ds)
+                            sync.append(batch)
+                        with ph("valid_eval") as sync:
+                            # PRE-update params: the reference's valid
+                            # pass runs before opt.step()
+                            # (maml_vision.py:117-141)
+                            valid_m = meta_eval(params, *sample(valid_ds))
+                            sync.append(valid_m)
+                        with ph("meta_step") as sync:
+                            params, opt, train_m = meta_step(params, opt,
+                                                             *batch)
+                            sync.append(train_m)
+                        metrics = host_metrics({
+                            "train_loss": train_m["loss"],
+                            "train_acc": train_m["metric"],
+                            "valid_loss": valid_m["loss"],
+                            "valid_acc": valid_m["metric"]})
+                        print(f"iteration {iteration}: {metrics}",
+                              flush=True)
+                        self.log_metrics(metrics)
+                        if iteration % cfg.save_every == 0:
+                            self.save_model_checkpoint(
+                                params, iteration, opt_state=opt, gen=gen,
+                                async_write=cfg.async_ckpt)
         except (KeyboardInterrupt, DivergenceError) as stop:
             if cfg.fuse > 1:
                 # the COUNT of iterations in whole chunks (= rows of
@@ -163,9 +190,13 @@ class VisionTrainer(Experiment):
                 iteration, params = self._fused_count, self._fused_params
             self.mark_stopped(stop, iteration)
 
+        self.flush_checkpoints()
         self.save_model(params)
         self.logger["elapsed_time"] = (
             f"{round(time.perf_counter() - start, 2)} sec")
+        if timer:
+            timer.save(os.path.join(self.model_path, "phase_times.json"))
+            print("Phase times:", timer.summary())
 
         # the generator only moves forward: the meta-test draws numbers that
         # no training iteration (eager or replayed) drew

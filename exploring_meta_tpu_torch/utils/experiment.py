@@ -1,6 +1,5 @@
-"""Experiment harness: run dirs, metric logs, checkpoints (port of
-``exploring_meta_tpu/utils/experiment.py``, less its compile cache, orbax,
-wandb and asynchronous writes).
+"""Experiment harness: run dirs, metric logs, checkpoints that resume (port
+of ``exploring_meta_tpu/utils/experiment.py``).
 
 The run directory keeps the reference's artifact contract::
 
@@ -14,6 +13,25 @@ The run directory keeps the reference's artifact contract::
 Keys are slash paths (``base/0/conv/w``, ``mean/0/w``) exactly as the JAX
 package writes them, and arrays keep the JAX layout, so a ``model.npz``
 written by either package loads in the other.
+
+A checkpoint may carry what a resume needs, under JAX's keys where JAX has
+one:
+
+- ``__opt__/0/count`` (int32), ``__opt__/0/mu/<path>``,
+  ``__opt__/0/nu/<path>``: the Adam state, keyed as
+  ``flatten_params(optax.adam(lr).init(params), prefix="__opt__/")``
+  keys it (``step``, ``exp_avg`` and ``exp_avg_sq`` of
+  ``torch.optim.Adam``), so each package loads the other's;
+- ``__torch_rng__/<device type>``: the run's ``torch.Generator`` state.
+  JAX's ``__rng__`` holds a threefry key, which no ``torch.Generator``
+  can take, and JAX reads any ``__rng__`` as one; so neither package
+  writes the other's key, and a resume across packages (or device types)
+  restarts the random stream from the seed and says so;
+- ``__iteration__``: the last iteration done.
+
+``--ckpt_backend orbax`` writes ``torch.distributed.checkpoint`` step
+directories instead (``utils/dcp_ckpt.py``), and ``--async_ckpt`` writes
+npz checkpoints on one background thread.
 """
 
 from __future__ import annotations
@@ -28,6 +46,9 @@ import numpy as np
 import torch
 
 from exploring_meta_tpu_torch.utils.tree import tree_from_items, tree_items
+
+OPT_PREFIX = "__opt__/"
+RNG_PREFIX = "__torch_rng__/"
 
 
 def flatten_params(tree, prefix: str = "") -> dict:
@@ -72,6 +93,177 @@ def list_checkpoints(run_dir: str) -> list:
     return sorted(out)
 
 
+def _leaf_paths(params) -> dict:
+    return {id(leaf): key for key, leaf in tree_items(params)}
+
+
+def _opt_params(opt, params):
+    """-> ``[(path, leaf)]`` of the tensors ``opt`` steps, each a leaf of
+    ``params`` (by identity)."""
+    paths = _leaf_paths(params)
+    out = []
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if id(p) not in paths:
+                raise ValueError("the optimizer steps a tensor that is not "
+                                 "a leaf of the params tree")
+            out.append((paths[id(p)], p))
+    return out
+
+
+def adam_state(opt: torch.optim.Adam, params) -> dict:
+    """``opt``'s state as optax's Adam keys ``0/count``, ``0/mu/<path>`` and
+    ``0/nu/<path>`` -> ``{key: tensor}`` on the params' devices. An Adam
+    that has not stepped holds count 0 and zero moments, as
+    ``optax.adam(lr).init`` does."""
+    out, count = {}, None
+    for path, p in _opt_params(opt, params):
+        st = opt.state.get(p) or {}
+        if count is None:
+            count = st.get("step", torch.zeros(()))
+        out[f"0/mu/{path}"] = st.get("exp_avg", torch.zeros_like(p))
+        out[f"0/nu/{path}"] = st.get("exp_avg_sq", torch.zeros_like(p))
+    out["0/count"] = count
+    return out
+
+
+def load_adam_state(opt: torch.optim.Adam, params,
+                    flat: dict) -> torch.optim.Adam:
+    """Set ``step``, ``exp_avg`` and ``exp_avg_sq`` of every leaf ``opt``
+    steps from optax's keys in ``flat`` (an Adam that has not stepped has
+    none yet). ``step`` lies where torch keeps it: on the leaf's device for
+    a ``capturable`` Adam, else on the CPU."""
+    prefix = OPT_PREFIX
+    count = float(np.asarray(flat[prefix + "0/count"]))
+    scalar = (torch.float64 if torch.get_default_dtype() == torch.float64
+              else torch.float32)
+    capturable = {id(p): g["capturable"] or bool(g.get("fused"))
+                  for g in opt.param_groups for p in g["params"]}
+
+    def moment(key, p):
+        arr = np.asarray(flat[key])
+        if arr.shape != tuple(p.shape):
+            raise ValueError(f"{key}: shape {arr.shape} != {tuple(p.shape)}")
+        return torch.as_tensor(arr, dtype=p.dtype, device=p.device).clone()
+
+    for path, p in _opt_params(opt, params):
+        opt.state[p] = {
+            "step": torch.tensor(count, dtype=scalar,
+                                 device=p.device if capturable[id(p)]
+                                 else "cpu"),
+            "exp_avg": moment(f"{prefix}0/mu/{path}", p),
+            "exp_avg_sq": moment(f"{prefix}0/nu/{path}", p)}
+    return opt
+
+
+def resume_state(params, opt=None, gen=None) -> dict:
+    """What a checkpoint holds, as ``{key: tensor}`` under the npz keys
+    (the iteration apart): the params, the Adam state and the generator's
+    state."""
+    flat = dict(tree_items(params))
+    if opt is not None:
+        flat.update({OPT_PREFIX + k: v
+                     for k, v in adam_state(opt, params).items()})
+    if gen is not None:
+        flat[RNG_PREFIX + gen.device.type] = gen.get_state()
+    return flat
+
+
+def host_snapshot(tensors: dict):
+    """Copy each tensor to the host in stream order -> ``(copies, event)``.
+
+    A tensor on the card is copied without blocking into a pinned buffer
+    and ``event`` is recorded after the copies: once it has completed the
+    copies hold the values at the time of this call, whatever the card
+    runs later (the trainers step their params in place). Nothing here
+    waits for the card. CPU tensors are cloned (``event`` is None when no
+    tensor is on the card)."""
+    out, card = {}, None
+    for key, t in tensors.items():
+        t = t.detach()
+        if t.device.type == "cuda":
+            buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            out[key], card = buf, t.device
+        else:
+            out[key] = t.clone()
+    event = None
+    if card is not None:
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(card))
+    return out, event
+
+
+def snapshot_arrays(host: dict, event) -> dict:
+    """Wait for :func:`host_snapshot`'s copies -> ``{key: np.ndarray}``,
+    the Adam count as int32, as optax keeps it."""
+    if event is not None:
+        event.synchronize()
+    flat = {k: v.numpy() for k, v in host.items()}
+    if OPT_PREFIX + "0/count" in flat:
+        flat[OPT_PREFIX + "0/count"] = np.asarray(
+            flat[OPT_PREFIX + "0/count"], np.float64).astype(np.int32)
+    return flat
+
+
+def state_from_flat(flat: dict, params_template, opt=None):
+    """``{key: array}`` of a checkpoint -> ``(params, opt | None, generator
+    state | None)``: the params in ``params_template``'s structure, dtypes
+    and devices; ``opt`` loaded when the checkpoint has an Adam state; the
+    ``torch.Generator`` state of the template's device type, if saved."""
+    params = unflatten_into(params_template, flat)
+    loaded = None
+    if opt is not None and any(k.startswith(OPT_PREFIX) for k in flat):
+        loaded = load_adam_state(opt, params_template, flat)
+    dev = next(iter(tree_items(params_template)))[1].device.type
+    state = flat.get(RNG_PREFIX + dev)
+    if state is not None:
+        state = torch.as_tensor(np.asarray(state), dtype=torch.uint8)
+    return params, loaded, state
+
+
+def load_checkpoint(path: str, params_template, opt=None):
+    """-> ``(params, opt | None, generator state | None, iteration)``.
+
+    ``path`` is a checkpoint ``.npz`` or a ``model_checkpoints/``
+    directory written under ``--ckpt_backend orbax`` (its latest step;
+    ``utils/dcp_ckpt.py``). A missing path raises."""
+    if os.path.isdir(path):
+        from exploring_meta_tpu_torch.utils.dcp_ckpt import (
+            load_dcp_checkpoint,
+        )
+        return load_dcp_checkpoint(path, params_template, opt)
+    with np.load(path) as z:
+        flat = {k: z[k] for k in z.files}
+    params, loaded, state = state_from_flat(flat, params_template, opt)
+    return params, loaded, state, int(flat.get("__iteration__", 0))
+
+
+def resume_training(resume_path: str, params, opt=None, gen=None):
+    """Mid-training resume shared by the trainers: restore the params (in
+    place, so ``opt`` keeps stepping the same tensors), the Adam state when
+    the checkpoint has one, and the generator -> ``(params, opt | None,
+    gen, start_iteration)``. A checkpoint is written after its iteration,
+    so the run continues at the next one. A checkpoint without this
+    device type's generator state (a JAX one, or one from the other
+    device type) restores the rest, and the stream restarts from the
+    seed."""
+    loaded, opt, state, done = load_checkpoint(resume_path, params, opt)
+    with torch.no_grad():
+        for (_, p), (_, q) in zip(tree_items(params), tree_items(loaded)):
+            p.copy_(q)
+    if gen is not None:
+        if state is not None:
+            gen.set_state(state)
+        else:
+            print(f"{resume_path} holds no {gen.device.type} generator "
+                  "state: the random stream restarts from --seed")
+    start = done + 1
+    print(f"Resumed from {resume_path}: iteration {done} done, "
+          f"continuing at {start}")
+    return params, opt, gen, start
+
+
 class DivergenceError(RuntimeError):
     """Raised by the watchdog when a logged ``*loss`` metric goes
     non-finite; trainers catch it beside KeyboardInterrupt and finish
@@ -82,13 +274,20 @@ class Experiment:
     """Logger/checkpointer each trainer inherits (reference Experiment)."""
 
     def __init__(self, algo: str, dataset: str, params: dict,
-                 path: str = "results/"):
+                 path: str = "results/", use_wandb: bool = False):
         params = dict(params)
         params["algo"] = algo
         params["dataset"] = dataset
         params.setdefault("seed", 42)
         self.params = params
         self.nan_guard = bool(params.get("nan_guard", True))
+
+        # where the kernels build: --compile_cache (off: build/)
+        from exploring_meta_tpu_torch.utils.compile_cache import (
+            enable_compile_cache,
+        )
+        enable_compile_cache(params.get("compile_cache", ""))
+
         rng = np.random.default_rng()
         self.logger = {
             "config": self.params,
@@ -101,10 +300,30 @@ class Experiment:
                   f"{self.logger['model_id']}")
         os.makedirs(os.path.join(self.model_path, "model_checkpoints"))
 
-    def log_metrics(self, metrics: dict) -> None:
-        """Append each value to its metric's list; raise
-        :class:`DivergenceError` after appending a non-finite ``*loss``
-        (when ``nan_guard`` is on), so metrics.json keeps the evidence."""
+        self._ckpt_executor = None
+        self._ckpt_futures: list = []
+        # "npz" (the default) or "orbax": torch.distributed.checkpoint step
+        # directories (utils/dcp_ckpt.py); trainers set it from the config
+        self.ckpt_backend = "npz"
+        self._dcp = None
+
+        self._use_wandb = False
+        if use_wandb:  # optional: wandb is not a dependency
+            try:
+                import wandb
+                self._wandb = wandb.init(
+                    project="exploring_meta_tpu",
+                    id=f"{algo}_{dataset}_{self.logger['model_id']}",
+                    config=self.params, tags=[algo, dataset])
+                self._use_wandb = True
+            except Exception as e:
+                print(f"wandb unavailable ({e}); continuing without it")
+
+    def log_metrics(self, metrics: dict, step: int | None = None) -> None:
+        """Append each value to its metric's list (and send the row to
+        wandb when it is on); raise :class:`DivergenceError` after
+        appending a non-finite ``*loss`` (when ``nan_guard`` is on), so
+        metrics.json keeps the evidence."""
         diverged = None
         for key, value in metrics.items():
             scalar = (float(value)
@@ -114,6 +333,8 @@ class Experiment:
             if (self.nan_guard and "loss" in key
                     and isinstance(scalar, float) and not np.isfinite(scalar)):
                 diverged = (key, scalar)
+        if self._use_wandb:
+            self._wandb.log(metrics, step=step)
         if diverged is not None:
             raise DivergenceError(
                 f"{diverged[0]} = {diverged[1]} at logged step "
@@ -168,10 +389,54 @@ class Experiment:
                  **flatten_params(params))
 
     def save_model_checkpoint(self, params, iteration: int,
-                              name: str = "model") -> None:
-        """``model_checkpoints/<name>_<iteration>.npz``: the params and
-        ``__iteration__``, under the JAX package's key names."""
-        flat = flatten_params(params)
-        flat["__iteration__"] = np.asarray(int(iteration))
-        np.savez(os.path.join(self.model_path, "model_checkpoints",
-                              f"{name}_{iteration}.npz"), **flat)
+                              name: str = "model", opt_state=None, gen=None,
+                              async_write: bool = False) -> None:
+        """``model_checkpoints/<name>_<iteration>.npz``: the params, and
+        what a resume needs: ``opt_state`` (the Adam, under optax's keys),
+        ``gen``'s state and ``__iteration__``.
+
+        The values are those at the time of the call: they are copied in
+        stream order before anything later runs (:func:`host_snapshot`).
+        ``async_write=True`` leaves the wait for the copies and the write
+        to one background thread, so the training thread never waits for
+        the card here; :meth:`flush_checkpoints` waits for the writes and
+        re-raises a failed one. Under ``ckpt_backend == "orbax"`` the
+        checkpoint is a DCP step directory under ``model_checkpoints/``
+        (``utils/dcp_ckpt.py``, always written in the background)."""
+        tensors = resume_state(params, opt_state, gen)
+        if self.ckpt_backend == "orbax":
+            if self._dcp is None:
+                from exploring_meta_tpu_torch.utils.dcp_ckpt import (
+                    DCPCheckpointer,
+                )
+                self._dcp = DCPCheckpointer(
+                    os.path.join(self.model_path, "model_checkpoints"))
+            self._dcp.save_flat(iteration, tensors)
+            return
+        out = os.path.join(self.model_path, "model_checkpoints",
+                           f"{name}_{iteration}.npz")
+        host, event = host_snapshot(tensors)
+
+        def write():
+            flat = snapshot_arrays(host, event)
+            flat["__iteration__"] = np.asarray(int(iteration))
+            np.savez(out, **flat)
+
+        if async_write:
+            if self._ckpt_executor is None:
+                from concurrent.futures import ThreadPoolExecutor
+                self._ckpt_executor = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="ckpt")
+            self._ckpt_futures.append(self._ckpt_executor.submit(write))
+        else:
+            write()
+
+    def flush_checkpoints(self) -> None:
+        """Block until every background checkpoint write has landed
+        (re-raising a failed one). Trainers call it before the final save
+        and the meta-test."""
+        futures, self._ckpt_futures = self._ckpt_futures, []
+        for f in futures:
+            f.result()
+        if self._dcp is not None:
+            self._dcp.wait()

@@ -25,6 +25,7 @@ differences).
 import json
 import math
 import os
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -409,19 +410,48 @@ def test_unsupported_flags_print_jax_s_note(capsys):
 @pytest.mark.parametrize("cls", [tb.PPOBaseline, tb.TRPOBaseline,
                                  tb.RandomPolicyBaseline])
 def test_host_envs_and_run_utilities_raise(tmp_path, cls):
-    for change, item in (({"env": "AntDirection-v1"}, "host envs"),
-                         ({"env": "ML10"}, "host envs"),
-                         ({"use_wandb": True}, "run utilities"),
-                         ({"compile_cache": "cache"}, "run utilities")):
-        with pytest.raises(NotImplementedError, match=item):
-            cls(RLScriptConfig(**change), path=str(tmp_path) + "/",
+    """A host env raises before a run dir is made; the run utilities that
+    JAX's baselines honour (``--wandb``, ``--compile_cache``) are accepted
+    since slice 11 (``test_run_utilities_are_accepted``)."""
+    for env in ("AntDirection-v1", "ML10"):
+        with pytest.raises(NotImplementedError, match="host envs"):
+            cls(RLScriptConfig(env=env), path=str(tmp_path) + "/",
                 device="cpu")
     assert os.listdir(tmp_path) == []
     with pytest.raises(NotImplementedError, match="host envs"):
         tb._setup_rl_baseline(RLScriptConfig(env="AntDirection-v1"))
-    with pytest.raises(NotImplementedError, match="run utilities"):
-        tb.VisionBaseline(VisionConfig(use_wandb=True),
-                          path=str(tmp_path) + "/", device="cpu")
+
+
+@pytest.mark.parametrize("change", [{"use_wandb": True},
+                                    {"compile_cache": "cache"}],
+                         ids=["wandb", "compile_cache"])
+@pytest.mark.parametrize("cls", [tb.PPOBaseline, tb.TRPOBaseline,
+                                 tb.RandomPolicyBaseline, tb.VisionBaseline])
+def test_run_utilities_are_accepted(tmp_path, monkeypatch, capsys, cls,
+                                    change):
+    """``--wandb`` (wandb is not installed: the run prints so and goes on,
+    as JAX's does) and ``--compile_cache <dir>`` (the kernels' build
+    directory moves there) construct each baseline and run one tiny
+    iteration."""
+    from exploring_meta_tpu_torch.cuda import build
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    if cls is tb.VisionBaseline:
+        cfg = VisionConfig(num_iterations=1, meta_batch_size=160,
+                           synthetic=True, save_every=1, **change)
+    else:
+        cfg = RLScriptConfig(**{**RL_SMALL, "adapt_batch_size": 2,
+                                "max_path_length": 5}, **change)
+    trainer = cls(cfg, path=str(tmp_path / "runs") + "/", device="cpu")
+    trainer.run()
+    out = capsys.readouterr().out
+    assert os.path.exists(os.path.join(trainer.model_path, "model.npz"))
+    if "use_wandb" in change:
+        assert "wandb unavailable" in out
+    else:
+        assert build.BUILD_DIR == str(tmp_path / "cache")
+        assert os.path.isdir(tmp_path / "cache")
 
 
 def test_setup_and_task_at():

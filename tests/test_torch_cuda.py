@@ -633,3 +633,80 @@ def test_bf16_density_card_vs_cpu(cuda_device):
     assert bool(tie[differ].all()) and float(differ.float().mean()) <= 0.01
     f32 = DiagNormalPolicy(2, 2).density(params, states)[0].cpu()
     assert 1e-4 < float((f32 - card).abs().max() / f32.abs().max()) < 3e-2
+
+
+def _npz(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ppo", "trpo", "vision"])
+def test_fused_resume_equals_the_uninterrupted_run(cuda_device, tmp_path,
+                                                   kind):
+    """``--fuse 2``, 4 iterations against 2 + a resume from the chunk end
+    ``model_1``: the resumed run's warm-up, capture and replays give the
+    uninterrupted run's rows, final params and meta-test exactly."""
+    from exploring_meta_tpu_torch.trainers.rl import RLTrainer
+    from exploring_meta_tpu_torch.trainers.vision import VisionTrainer
+    from exploring_meta_tpu_torch.utils import graphs
+    from exploring_meta_tpu_torch.utils.config import (
+        RLScriptConfig, VisionConfig,
+    )
+
+    def run(path, **kw):
+        if kind == "vision":
+            t = VisionTrainer(VisionConfig(num_iterations=4,
+                                           meta_batch_size=2, shots=1,
+                                           synthetic=True, fuse=2,
+                                           save_every=1, **kw),
+                              path=str(path) + "/")
+        else:
+            t = RLTrainer(RLScriptConfig(num_iterations=4, meta_batch_size=3,
+                                         adapt_batch_size=4,
+                                         max_path_length=12, n_eval_tasks=2,
+                                         outer_lr=0.01, fuse=2, save_every=1,
+                                         **kw), algo=kind,
+                          path=str(path) + "/")
+        graphs.reset_counts()
+        out = t.run()
+        return t, out, dict(graphs.COUNTS)
+
+    full, full_out, _ = run(tmp_path / "full")
+    ckpt = os.path.join(full.model_path, "model_checkpoints", "model_1.npz")
+    res, res_out, counts = run(tmp_path / "res", resume=ckpt)
+    # iteration 2 the eager warm-up, iteration 3 captured and replayed
+    assert counts == {"captures": 1, "replays": 1}
+    assert res_out == full_out
+    for k, rows in res.metrics.items():
+        assert rows == full.metrics[k][len(full.metrics[k]) - len(rows):], k
+    a = _npz(os.path.join(full.model_path, "model.npz"))
+    b = _npz(os.path.join(res.model_path, "model.npz"))
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_async_checkpoints_equal_sync_under_replays(cuda_device, tmp_path):
+    """maml_ppo ``--fuse 2`` with a checkpoint at every chunk end, written
+    on the writer thread while the next chunk's replays step the params in
+    place: every file equals the synchronous run's."""
+    from exploring_meta_tpu_torch.trainers.rl import RLTrainer
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+    runs = {}
+    for mode in (False, True):
+        t = RLTrainer(RLScriptConfig(num_iterations=6, meta_batch_size=3,
+                                     adapt_batch_size=4, max_path_length=12,
+                                     n_eval_tasks=2, outer_lr=0.01, fuse=2,
+                                     save_every=1, async_ckpt=mode),
+                      algo="ppo", path=str(tmp_path / str(mode)) + "/")
+        t.run()
+        ck = os.path.join(t.model_path, "model_checkpoints")
+        runs[mode] = {f: _npz(os.path.join(ck, f)) for f in os.listdir(ck)}
+    assert sorted(runs[True]) == ["model_1.npz", "model_3.npz",
+                                  "model_5.npz"]
+    for f, flat in runs[False].items():
+        assert "__torch_rng__/cuda" in flat and "__rng__" not in flat
+        for k, v in flat.items():
+            np.testing.assert_array_equal(runs[True][f][k], v,
+                                          err_msg=f"{f} {k}")

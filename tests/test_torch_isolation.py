@@ -22,6 +22,8 @@ bad = sorted(m for m in sys.modules
 print(len(names))
 print(",".join(bad))
 print(",".join(sorted(m for m in sys.modules if m.split(".")[0] == "matplotlib")))
+print(",".join(sorted(m for m in sys.modules
+                      if m.split(".")[0] in ("PIL", "wandb"))))
 """
 
 
@@ -45,6 +47,18 @@ def test_no_port_module_imports_matplotlib_when_imported():
     assert out.returncode == 0, out.stderr
     lines = out.stdout.split("\n")
     assert lines[2] == "", lines[2]
+
+
+def test_no_port_module_imports_pillow_or_wandb_when_imported():
+    """Pillow (``tasks/pack.py``) and wandb (``utils/experiment.py``) are
+    imported inside the functions that use them: the card's machine may
+    lack Pillow, and wandb is installed nowhere."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    assert lines[3] == "", lines[3]
 
 
 def test_port_module_list_is_complete():
@@ -74,7 +88,10 @@ def test_port_module_list_is_complete():
                 "analysis.eval_vision", "analysis.eval_rl", "ops.cca",
                 "ops.cka", "ops.cl_metrics", "utils.plotter",
                 # slice 10: the non-meta baselines
-                "trainers.baselines"):
+                "trainers.baselines",
+                # slice 11: the run utilities and the offline tools
+                "utils.compile_cache", "utils.dcp_ckpt", "utils.profiling",
+                "utils.import_torch", "tasks.pack"):
         assert f"exploring_meta_tpu_torch.{mod}" in names
 
 

@@ -12,6 +12,7 @@ import dataclasses
 import json
 import math
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -113,9 +114,7 @@ def test_default_device_is_the_card_never_the_cpu(tmp_path):
 @pytest.mark.parametrize("change", [
     {"algo": "vpg", "env": "AntDirection-v1"},
     {"env": "AntDirection-v1"}, {"task_batch": True},
-    {"mesh": 2}, {"resume": "model.npz"},
-    {"async_ckpt": True}, {"ckpt_backend": "orbax"}, {"use_wandb": True},
-    {"profile": True}, {"trace": "trace_dir"}, {"compile_cache": "cache"},
+    {"mesh": 2},
 ])
 def test_options_not_ported_raise(tmp_path, change):
     kw = {k: change.pop(k) for k in ("anil", "algo") if k in change}
@@ -123,6 +122,60 @@ def test_options_not_ported_raise(tmp_path, change):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         RLTrainer(cfg, path=str(tmp_path) + "/", device="cpu", **kw)
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("change", [
+    {"resume": "model_checkpoints/model_0.npz"}, {"async_ckpt": True},
+    {"ckpt_backend": "orbax"}, {"use_wandb": True}, {"profile": True},
+    {"trace": "trace_dir"}, {"compile_cache": "cache"},
+], ids=lambda c: next(iter(c)))
+def test_run_utilities_run(tmp_path, monkeypatch, capsys, trained, change):
+    """Each run utility constructs the trainer and runs a tiny MAML-TRPO
+    run: the resume continues the ``trained`` run at iteration 1 and logs
+    its row 1 exactly; an async checkpoint and a DCP step land; without
+    wandb the run says so and goes on; ``--profile`` writes JAX's phases;
+    ``--trace`` a Chrome trace; ``--compile_cache`` moves the kernels'
+    build directory."""
+    from exploring_meta_tpu_torch.cuda import build
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    change = dict(change)
+    if "resume" in change:
+        change["resume"] = os.path.join(trained[1], change["resume"])
+    cfg = RLScriptConfig(num_iterations=1 + ("resume" in change),
+                         save_every=1, **SMALL, **change)
+    trainer = RLTrainer(cfg, algo="trpo", path=str(tmp_path / "runs") + "/",
+                        device="cpu")
+    trainer.run()
+    out = capsys.readouterr().out
+    run = trainer.model_path
+    with open(os.path.join(run, "metrics.json")) as f:
+        metrics = json.load(f)
+    assert len(metrics["meta_loss"]) == 1
+    if "resume" in change:
+        with open(os.path.join(trained[1], "metrics.json")) as f:
+            full = json.load(f)
+        assert all(metrics[k] == full[k][-1:] for k in METRICS)
+    elif "async_ckpt" in change:
+        with np.load(os.path.join(run, "model_checkpoints",
+                                  "model_0.npz")) as z:
+            assert int(z["__iteration__"]) == 0
+    elif "ckpt_backend" in change:
+        assert os.listdir(os.path.join(run, "model_checkpoints")) == ["0"]
+    elif "use_wandb" in change:
+        assert "wandb unavailable" in out
+    elif "profile" in change:
+        with open(os.path.join(run, "phase_times.json")) as f:
+            phases = json.load(f)
+        assert set(phases) == {"collect", "meta_step"}
+        assert phases["collect"]["count"] == 1
+    elif "trace" in change:
+        (trace,) = os.listdir(tmp_path / "trace_dir")
+        with open(tmp_path / "trace_dir" / trace) as f:
+            assert "traceEvents" in json.load(f)
+    else:
+        assert build.BUILD_DIR == str(tmp_path / "cache")
 
 
 class _Scripted(RLTrainer):

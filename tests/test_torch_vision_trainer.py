@@ -12,6 +12,7 @@ import dataclasses
 import json
 import math
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -124,19 +125,70 @@ def test_default_device_is_the_card_never_the_cpu(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("change,item", [
     ({"mesh": 2}, "Scale-out"),
-    ({"resume": "model.npz"}, "Run utilities"),
-    ({"async_ckpt": True}, "Run utilities"),
-    ({"ckpt_backend": "orbax"}, "Run utilities"),
-    ({"use_wandb": True}, "Run utilities"),
-    ({"profile": True}, "Run utilities"),
-    ({"trace": "trace_dir"}, "Run utilities"),
-    ({"compile_cache": "cache"}, "Run utilities"),
 ])
 def test_options_not_ported_raise(tmp_path, change, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         tv.VisionTrainer(VisionConfig(**change), path=str(tmp_path) + "/",
                          device="cpu")
     assert os.listdir(tmp_path) == []
+
+
+@pytest.mark.parametrize("change", [
+    {"resume": "model_checkpoints/model_0.npz"}, {"async_ckpt": True},
+    {"ckpt_backend": "orbax"}, {"use_wandb": True}, {"profile": True},
+    {"trace": "trace_dir"}, {"compile_cache": "cache"},
+], ids=lambda c: next(iter(c)))
+def test_run_utilities_run(tmp_path, monkeypatch, capsys, runs, change):
+    """Each run utility constructs the trainer and runs a tiny MAML run
+    (``ARGV``'s config): the resume continues the ``runs`` MAML run at
+    iteration 1 and logs its row 1 and meta-test exactly; an async
+    checkpoint and a DCP step land; without wandb the run says so and goes
+    on; ``--profile`` writes JAX's phases; ``--trace`` a Chrome trace;
+    ``--compile_cache`` moves the kernels' build directory."""
+    from exploring_meta_tpu_torch.cuda import build
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)
+    monkeypatch.setitem(sys.modules, "wandb", None)
+    prev = get_conv_impl()
+    change = dict(change)
+    if "resume" in change:
+        change["resume"] = os.path.join(runs["maml"][1], change["resume"])
+    args = vars(vision_argparser(VisionConfig(), "").parse_args(
+        ARGV + ["--conv_impl", "pallas"]))
+    args["num_iterations"] = 1 + ("resume" in change)
+    trainer = tv.VisionTrainer(VisionConfig(**{**args, **change}),
+                               path=str(tmp_path / "runs") + "/",
+                               device="cpu")
+    trainer.run()
+    set_conv_impl(prev)
+    out = capsys.readouterr().out
+    run = trainer.model_path
+    with open(os.path.join(run, "metrics.json")) as f:
+        metrics = json.load(f)
+    assert len(metrics["train_loss"]) == 1
+    if "resume" in change:
+        with open(os.path.join(runs["maml"][1], "metrics.json")) as f:
+            full = json.load(f)
+        assert all(metrics[k] == full[k][-1:] for k in METRICS)
+    elif "async_ckpt" in change:
+        with np.load(os.path.join(run, "model_checkpoints",
+                                  "model_0.npz")) as z:
+            assert int(z["__iteration__"]) == 0
+            assert int(z["__opt__/0/count"]) == 1
+    elif "ckpt_backend" in change:
+        assert os.listdir(os.path.join(run, "model_checkpoints")) == ["0"]
+    elif "use_wandb" in change:
+        assert "wandb unavailable" in out
+    elif "profile" in change:
+        with open(os.path.join(run, "phase_times.json")) as f:
+            phases = json.load(f)
+        assert set(phases) == {"sample", "valid_eval", "meta_step"}
+    elif "trace" in change:
+        (trace,) = os.listdir(tmp_path / "trace_dir")
+        with open(tmp_path / "trace_dir" / trace) as f:
+            assert "traceEvents" in json.load(f)
+    else:
+        assert build.BUILD_DIR == str(tmp_path / "cache")
 
 
 def test_config_and_flags_match_the_jax_package():
