@@ -134,7 +134,29 @@ Phases, each of which fails the run (non-zero exit) on any error:
     iterations plain, with ``--profile`` (JAX's phases and schema) and,
     last, with ``--trace`` (a Chrome trace naming ``cnn4_block_fwd``),
     s an iteration each;
-13. print one ``{"kernels": [...]}`` line, the card line again, and last
+13. seed sweeps (slice 12), through ``sweep.main`` with the counters
+    zeroed just before each: the serial sweep of maml_trpo (the
+    ``RLScriptConfig`` defaults) and maml_vision (``maml_omni``), 2 seeds
+    x 2 iterations, each seed's rows and final params bit for bit a
+    standalone trainer run's, each kernel launched as often as the
+    standalone runs together; the summary JSON with JAX's keys and a
+    finite ``band_final_mean`` (one printed line where matplotlib is
+    missing); ``--vmap_seeds`` at ``--fuse 3`` for 3 iterations: MAML-TRPO
+    at ``bench.py``'s ``multiseed_trpo`` (S = 4) and at the defaults (S =
+    2), maml_ppo (S = 2, Adam 0.01) and ``maml_omni`` (S = 4: the CNN4
+    kernels at B = 128), each one capture for all seeds, a seeded
+    iteration recording each kernel as often as one seed's; each seed's
+    first row against its solo run's (RL 1e-5 relative, bf16 vision 1e-2),
+    one seeded iteration from the initial states against the solo ones
+    (TRPO the same line-search outcome and 0.3 of the step; vision in f32:
+    rows 1e-5, meta-gradients 1e-2 of max|grad|, Adam's sign flips 1e-3
+    of the params at most), PPO's whole run within 1e-4 of max|params|,
+    the other runs' end against their solo runs reported;
+    seed-iterations/s (tasks/s) of one program against the solo scans one
+    after another, in turns, and the idle share of a profiled seeded
+    chunk; the three CNN4 kernels at B = 128 against their twins (f32,
+    bf16) and timed;
+14. print one ``{"kernels": [...]}`` line, the card line again, and last
     ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports neither
@@ -3646,6 +3668,676 @@ def run_utilities_phase(torch, gc, tc, gpu, tmp) -> dict:
     return out
 
 
+# Seed sweeps (slice 12). The serial sweep: SWEEP_SEEDS x SWEEP_ITERATIONS
+# of maml_trpo (RLScriptConfig defaults) and maml_vision (maml_omni,
+# Omniglot's real shape) through sweep.main, each seed held bit for bit
+# against a standalone trainer run of it. The one-program sweeps
+# (--vmap_seeds, MULTISEED_ITERATIONS iterations at --fuse MULTISEED_FUSE:
+# one chunk, the eager warm-up, one capture, two replays): MAML-TRPO at
+# bench.py's multiseed_trpo (S = 4 seeds 0-3, meta-batch 10, 10 episodes
+# x horizon 50, bench.py:747-806) and at the RLScriptConfig defaults (S =
+# 2: 20 tasks x 20 episodes x horizon 100), maml_ppo at the defaults with
+# Adam 0.01 (S = 2) and maml_omni (S = 4: the CNN4 kernels at B = 128).
+# Seed i of a one-program sweep draws its solo run's numbers, but the
+# batched arithmetic at S x B tasks (cuBLAS's batched GEMMs, the reductions)
+# rounds otherwise than at B, and runs of a few iterations amplify a
+# last-bit difference without bound: TRPO's f32 CG (damping 1e-5) moves a
+# step by up to 0.10 of itself with the summation order (ROADMAP Queue 3),
+# the next rollouts follow the moved policy, and bf16 vision gradients
+# whose sign is rounding give Adam steps of +-lr. So each seed is held
+# where its state is its solo run's, and the runs' end is reported:
+# - the first row (iteration 0, before any update) of each seed's run
+#   against its solo run's: RL within MULTISEED_ROW_TOL relative, vision
+#   (bf16 losses and accuracies) within MULTISEED_VISION_TOL (the
+#   second-order standing finding);
+# - one seeded iteration from the seeds' initial states against each solo
+#   iteration: TRPO the same line-search outcome and params within
+#   BASELINE_TRPO_TOL of the step (measured up to 0.03), PPO the whole
+#   3-iteration run within MULTISEED_ADAM_TOL of max|params|; vision in
+#   f32 (the bf16 rounding apart): rows within MULTISEED_ROW_TOL, each
+#   seed's meta-gradient within SO_FLIP_TOL of max|grad| (a ReLU input at
+#   the kink, Queue 3), the params past VISION_TOL of max|params| a share
+#   VISION_FLIP_SHARE at most (Adam's first step is the gradient's sign),
+#   the conv biases aside (BN removes them: their gradient is rounding).
+# Throughput in turns, MULTISEED_TURNS each: one chunk of the seeded scan
+# against S chunks of the solo scans, one after another (bench.py's
+# baseline: the serial per-seed loop over the same fused scan); the idle
+# share of a profiled seeded chunk against the unprofiled chunk's wall.
+SWEEP_SEEDS, SWEEP_ITERATIONS = (0, 1), 2
+MULTISEED_TRPO = dict(meta_batch_size=10, adapt_batch_size=10,
+                      max_path_length=50)
+MULTISEED_ITERATIONS = MULTISEED_FUSE = 3
+MULTISEED_ADAM_TOL, MULTISEED_VISION_TOL, MULTISEED_ROW_TOL = 1e-4, 1e-2, 1e-5
+MULTISEED_TURNS = 2
+# the sweep summary's keys (scripts/sweep.py:main)
+SUMMARY_KEYS = {"algo", "metric", "seeds", "runs", "mean", "std",
+                "vmapped", "config", "band_metric", "band_final_mean"}
+
+
+def sweep_flags(cfg) -> list:
+    """A trainer config as the sweep command's flags: each flag of the
+    trainer's parser whose value differs from the script default."""
+    import argparse
+    from exploring_meta_tpu_torch.utils.config import (
+        VisionConfig, rl_argparser, vision_argparser,
+    )
+    vision = isinstance(cfg, VisionConfig)
+    default = type(cfg)()
+    parser = (vision_argparser if vision else rl_argparser)(default, "")
+    flags = []
+    for action in parser._actions:
+        v = getattr(cfg, action.dest, None)
+        if action.dest == "help" or v == getattr(default, action.dest):
+            continue
+        opt = action.option_strings[0]
+        if isinstance(action, (argparse._StoreTrueAction,
+                               argparse._StoreFalseAction)):
+            flags.append(opt)
+        else:
+            flags += [opt, str(v)]
+    return flags
+
+
+def run_sweep(torch, gc, tc, argv: list, tmp: str) -> dict:
+    """``sweep.main(argv)`` from ``tmp`` (the trainers' run dirs and the
+    summary land there), every counter zeroed just before -> the summary,
+    the counters, the wall time and the printed lines."""
+    import io
+    from exploring_meta_tpu_torch import sweep
+    from exploring_meta_tpu_torch.utils import graphs
+
+    os.makedirs(tmp, exist_ok=True)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    graphs.reset_counts()
+    gc.reset_launch_counts()
+    tc.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(tmp), contextlib.redirect_stdout(out):
+        summary = sweep.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(os.path.join(tmp, "sweeps", f"{summary['algo']}_" + "-".join(
+            str(s) for s in summary["seeds"]) + ".json")) as f:
+        check(json.load(f) == json.loads(json.dumps(summary)),
+              "the summary json holds the returned summary")
+    for run in summary["runs"]:
+        run["run_dir"] = os.path.join(tmp, run["run_dir"])
+    return {"summary": summary, "counts": dict(graphs.COUNTS),
+            "launches": {**gc.launch_counts(), **tc.launch_counts()},
+            "captured": {**gc.captured_counts(), **tc.captured_counts()},
+            "wall_s": wall, "lines": out.getvalue().splitlines()}
+
+
+def check_summary(res: dict, what: str) -> None:
+    """JAX's keys, a finite band mean, and the band figure written, or,
+    where matplotlib is missing, one printed line that says so."""
+    import importlib.util
+    import math
+    s = res["summary"]
+    check(set(s) == SUMMARY_KEYS, f"{what}: the summary's keys {sorted(s)}")
+    check(s["band_final_mean"] is not None
+          and math.isfinite(s["band_final_mean"]),
+          f"{what}: a finite band_final_mean, {s['band_final_mean']}")
+    skipped = [ln for ln in res["lines"]
+               if "matplotlib is not installed" in ln]
+    if importlib.util.find_spec("matplotlib") is None:
+        check(len(skipped) == 1, f"{what}: one line says the figure was "
+                                 f"skipped, {skipped}")
+    else:
+        check(not skipped, f"{what}: matplotlib present, {skipped}")
+    res["figure_skipped"] = skipped
+
+
+def read_run(run_dir: str) -> tuple:
+    import numpy as np
+    with open(os.path.join(run_dir, "metrics.json")) as f:
+        metrics = json.load(f)
+    with np.load(os.path.join(run_dir, "model.npz")) as z:
+        params = {k: z[k] for k in z.files}
+    return metrics, params
+
+
+def serial_sweep_phase(torch, gc, tc, gpu, tmp) -> dict:
+    """Phase 13, the serial sweeps: maml_trpo and maml_vision through
+    ``sweep.main`` with every counter zeroed just before, each seed's rows,
+    final params and final metric against a standalone trainer run of that
+    seed, bit for bit; the sweep launched each kernel S times a standalone
+    run's count."""
+    import dataclasses
+    import numpy as np
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+
+    out = {}
+    seeds = ",".join(str(s) for s in SWEEP_SEEDS)
+    cases = {"maml_trpo": ("rl", {"algo": "trpo"}, RLScriptConfig(
+                 num_iterations=SWEEP_ITERATIONS), "eval_reward"),
+             "maml_vision": ("vision", {}, vision_config(
+                 num_iterations=SWEEP_ITERATIONS), "test_acc")}
+    for algo, (kind, kw, cfg, final_key) in cases.items():
+        res = run_sweep(torch, gc, tc, [algo, "--seeds", seeds]
+                        + sweep_flags(cfg), os.path.join(tmp, algo))
+        check_summary(res, f"serial {algo}")
+        check(res["counts"] == {"captures": 0, "replays": 0},
+              f"serial {algo}: eager, {res['counts']}")
+        solo_launches = {}
+        for run in res["summary"]["runs"]:
+            solo = counted_run(torch, gc, tc, kind, kw, dataclasses.replace(
+                cfg, seed=run["seed"]), os.path.join(tmp, f"{algo}_solo"))
+            (gm, gp), (wm, wp) = read_run(run["run_dir"]), (
+                solo["metrics"], solo["params"])
+            check(gm == wm, f"serial {algo} seed {run['seed']}: the rows of "
+                            f"its standalone run")
+            check(gp.keys() == wp.keys() and all(
+                np.array_equal(gp[k], wp[k]) for k in gp),
+                  f"serial {algo} seed {run['seed']}: the final params of "
+                  f"its standalone run")
+            for k, n in solo["launches"].items():
+                solo_launches[k] = solo_launches.get(k, 0) + n
+        check(res["launches"] == solo_launches,
+              f"serial {algo}: each kernel as often as the standalone runs "
+              f"together, {res['launches']} vs {solo_launches}")
+        s = res["summary"]
+        out[algo] = {"launches": res["launches"], "wall_s": res["wall_s"],
+                     "finals": [r[final_key] for r in s["runs"]],
+                     "band_final_mean": s["band_final_mean"],
+                     "figure_skipped": res["figure_skipped"]}
+        print(f"serial sweep {algo}, seeds {seeds} x {SWEEP_ITERATIONS} "
+              f"iterations: every seed equal to its standalone run bit for "
+              f"bit; {final_key} {out[algo]['finals']}, band "
+              f"{s['band_metric']} final mean {s['band_final_mean']}; "
+              f"launches {res['launches']} (the standalone runs' sum); "
+              f"wall {res['wall_s']} s; figure: "
+              f"{res['figure_skipped'] or 'written'} [{gpu}]", flush=True)
+    return out
+
+
+def multiseed_rl_scans(torch, cfg, algo: str, S: int, n_steps: int):
+    """The seeded train scan of S seeds and the S solo scans, ``n_steps``
+    iterations a chunk, built as the sweep and the trainer build them, at
+    the seeds' initial states -> (seeded train, its state, the gens;
+    [(solo train, its state, its gen)])."""
+    from exploring_meta_tpu_torch.adapt.maml import adam
+    from exploring_meta_tpu_torch.envs.particles2d import Particles2D
+    from exploring_meta_tpu_torch.parallel.multiseed import stack_seed_states
+    from exploring_meta_tpu_torch.rl import train_scan as ts
+    from exploring_meta_tpu_torch.rl.rollout import make_rollout
+    from exploring_meta_tpu_torch.trainers.rl import (
+        build_policy, rl_config, trpo_config,
+    )
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+    env = Particles2D()
+    policy = build_policy(env, False, cfg.fc_neurons, cfg.activation)
+    roll = make_rollout(env, policy.sample, cfg.adapt_batch_size,
+                        cfg.max_path_length)
+    F, mb, rc = n_steps, cfg.meta_batch_size, rl_config(cfg)
+    lr = None if algo == "trpo" else cfg.outer_lr
+    params, opt, gens = stack_seed_states(policy.init, range(S), "cuda",
+                                          outer_lr=lr)
+    if algo == "trpo":
+        seeded = ts.make_seeded_trpo_train_scan(env, policy, roll, rc,
+                                                trpo_config(cfg), mb, F, S)
+        state = (params,)
+    else:
+        seeded = ts.make_seeded_adam_train_scan(env, policy, roll, rc, algo,
+                                                mb, F, S)
+        state = (params, opt)
+    solos = []
+    for s in range(S):
+        gen = torch.Generator(device="cuda").manual_seed(s)
+        p = policy.init(gen)
+        if algo == "trpo":
+            solos.append((ts.make_trpo_train_scan(
+                env, policy, roll, rc, trpo_config(cfg), mb, F), (p,), gen))
+        else:
+            p = tree_map(torch.Tensor.requires_grad_, p)
+            solos.append((ts.make_adam_train_scan(
+                env, policy, roll, rc, algo, mb, F), (p, adam(p, lr)), gen))
+    return seeded, state, gens, solos
+
+
+def in_turns(torch, seeded, solos, work: int) -> dict:
+    """Units of work a second (``work`` a chunk of the seeded scan, as
+    many over the S solo chunks), one-program against serial, in
+    MULTISEED_TURNS turns; every scan warmed up (captured) first."""
+    from exploring_meta_tpu_torch.trainers.fused import fetch
+
+    def one():
+        train, state, gens = seeded
+        fetch(train(*state, gens)[-1])
+
+    def serial():
+        for train, state, gen in solos:
+            fetch(train(*state, gen)[-1])
+
+    one()
+    serial()
+    rates = {"one_program": [], "serial": []}
+    for _ in range(MULTISEED_TURNS):
+        for name, fn in (("one_program", one), ("serial", serial)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            rates[name].append(work / (time.perf_counter() - t0))
+    rates["speedup"] = max(rates["one_program"]) / max(rates["serial"])
+    rates["one_program_chunk_s"] = work / max(rates["one_program"])
+    return rates
+
+
+def seeded_profile(torch, seeded, names: tuple, wall_s: float) -> dict:
+    """One chunk of the seeded scan under the profiler: the kernels, and
+    the idle share, 1 - their device timeline over ``wall_s``, the
+    unprofiled chunk's wall (as phase 9 takes it)."""
+    from exploring_meta_tpu_torch.trainers.fused import fetch
+    train, state, gens = seeded
+    prof = launch_profile(torch, lambda: fetch(train(*state, gens)[-1]),
+                          MULTISEED_FUSE, names)
+    prof["wall_us"] = 1e6 * wall_s
+    prof["idle_share"] = 1 - prof["busy_union_us"] / prof["wall_us"]
+    return prof
+
+
+def rl_one_iteration(torch, cfg, algo: str, S: int) -> list:
+    """One seeded iteration from the seeds' initial states against each
+    seed's solo iteration -> per seed (L2 distance of the params over the
+    solo step, the same line-search outcome)."""
+    from exploring_meta_tpu_torch.trainers.fused import fetch
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves
+    seeded, state, gens, solos = multiseed_rl_scans(torch, cfg, algo, S, 1)
+    init = [[t.detach().clone() for t in tree_leaves(st[0])]
+            for _, st, _ in solos]
+    ms = fetch(seeded(*state, gens)[-1])
+    out = []
+    for i, (train, st, gen) in enumerate(solos):
+        m1 = fetch(train(*st, gen)[-1])
+        got = [t[i].detach() for t in tree_leaves(state[0])]
+        want = [t.detach() for t in tree_leaves(st[0])]
+        l2 = lambda a, b: sum(float((x - y).norm()) ** 2
+                              for x, y in zip(a, b)) ** 0.5
+        same = (algo != "trpo"
+                or float(ms["ls_accepted"][0][i]) == float(
+                    m1["ls_accepted"][0]))
+        out.append((l2(got, want) / l2(want, init[i]), same))
+    return out
+
+
+def multiseed_rl_case(torch, gc, tc, gpu, tmp, name: str, algo: str,
+                      cfg, S: int) -> dict:
+    """One one-program RL sweep through ``sweep.main --vmap_seeds`` with the
+    counters zeroed just before, against each seed's solo trainer run at
+    the same --fuse; one seeded iteration from the initial states against
+    the solo ones; then its scans timed in turns and profiled."""
+    import dataclasses
+    import math
+    from exploring_meta_tpu_torch.envs.particles2d import Particles2D
+    from exploring_meta_tpu_torch.trainers.rl import build_policy
+    from exploring_meta_tpu_torch.utils.tree import tree_items
+
+    seeds = ",".join(str(s) for s in range(S))
+    res = run_sweep(torch, gc, tc, [f"maml_{algo}", "--seeds", seeds,
+                                    "--vmap_seeds"] + sweep_flags(cfg),
+                    os.path.join(tmp, name))
+    check_summary(res, name)
+    check(res["counts"] == {"captures": 1,
+                            "replays": MULTISEED_ITERATIONS - 1},
+          f"{name}: one capture for all seeds, {res['counts']}")
+    ends, solo0 = [], None
+    for run in res["summary"]["runs"]:
+        s = run["seed"]
+        solo = counted_run(torch, gc, tc, "rl", {"algo": algo},
+                           dataclasses.replace(cfg, seed=s),
+                           os.path.join(tmp, f"{name}_solo"))
+        solo0 = solo0 or solo
+        metrics, params = read_run(run["run_dir"])
+        check(len(metrics["meta_loss"]) == MULTISEED_ITERATIONS and all(
+            math.isfinite(v) for k, vals in metrics.items() for v in vals),
+              f"{name} seed {s}: {MULTISEED_ITERATIONS} finite rows")
+        # the first row: the rollouts of the initial params
+        for k in ("adapt_reward", "adapt_success"):
+            a, b = metrics[k][0], solo["metrics"][k][0]
+            check(abs(a - b) <= MULTISEED_ROW_TOL * max(abs(b), 1.0),
+                  f"{name} seed {s}: first {k} {a} vs its solo run's {b}")
+        got = {k: torch.from_numpy(v) for k, v in params.items()}
+        want = {k: torch.from_numpy(v) for k, v in solo["params"].items()}
+        if algo == "trpo":
+            init = {k: v.cpu() for k, v in tree_items(build_policy(
+                Particles2D(), False, cfg.fc_neurons, cfg.activation).init(
+                    torch.Generator(device="cuda").manual_seed(s)))}
+            l2 = lambda a, b: sum(float((a[k] - b[k]).norm()) ** 2
+                                  for k in b) ** 0.5
+            ends.append(l2(got, want) / l2(want, init))
+        else:
+            ends.append(tree_close(torch, got, want, MULTISEED_ADAM_TOL,
+                                   f"{name} seed {s} vs its solo run"))
+    one = []
+    if algo == "trpo":
+        one = rl_one_iteration(torch, cfg, algo, S)
+        for s, (err, same) in enumerate(one):
+            check(same and err <= BASELINE_TRPO_TOL,
+                  f"{name} seed {s}: one seeded iteration {err} of the "
+                  f"step from its solo one (the same line-search outcome: "
+                  f"{same}), limit {BASELINE_TRPO_TOL}")
+    # per seeded iteration each kernel as a solo iteration: the warm-up's
+    # launches and the graph's; the meta-tests, one a seed, apart
+    per_iteration = solo0["captured"]
+    meta_test = {k: solo0["launches"][k] - per_iteration[k]
+                 for k in per_iteration}
+    for k in gc.KERNELS:
+        check(res["captured"][k] == per_iteration[k] > 0
+              and res["launches"][k] == per_iteration[k] + S * meta_test[k],
+              f"{name}: {k} recorded {res['captured'][k]} (one seed's "
+              f"iteration {per_iteration[k]}), launched {res['launches'][k]}"
+              f" (the warm-up and {S} meta-tests of {meta_test[k]})")
+
+    seeded_train, state, gens, solos = multiseed_rl_scans(
+        torch, cfg, algo, S, MULTISEED_FUSE)
+    rates = in_turns(torch, (seeded_train, state, gens), solos,
+                     S * MULTISEED_FUSE)
+    prof = seeded_profile(torch, (seeded_train, state, gens),
+                          tuple(KERNEL_NAMES.values()),
+                          rates["one_program_chunk_s"])
+    for n in KERNEL_NAMES.values():
+        check(prof["named_kernels"][n] > 0,
+              f"{name}: {n} ran inside the seeded replays")
+    unit = "of the step" if algo == "trpo" else "of max|params|"
+    print(f"{name} (--vmap_seeds, S = {S}, {MULTISEED_ITERATIONS} iterations "
+          f"at --fuse {MULTISEED_FUSE}): {res['counts']}; per seeded "
+          f"iteration {per_iteration} recorded, one seed's; launched "
+          f"{res['launches']} with {S} meta-tests; first rows as the solo "
+          f"runs'; one iteration from the initial states "
+          f"{[e for e, _ in one] or 'not run'} {unit}; after "
+          f"{MULTISEED_ITERATIONS} iterations each seed vs its solo run "
+          f"{ends} {unit}; seed-iterations/s one program "
+          f"{rates['one_program']}, serial replays {rates['serial']} "
+          f"({rates['speedup']}x); idle {100 * prof['idle_share']:.1f} % of "
+          f"a seeded chunk ({prof['busy_union_us']} us busy of "
+          f"{prof['wall_us']}), kernels a seeded iteration "
+          f"{prof['kernel_launches'] / MULTISEED_FUSE}; sweep wall "
+          f"{res['wall_s']} s [{gpu}]", flush=True)
+    del seeded_train, state, gens, solos
+    return {"counts": res["counts"], "launches": res["launches"],
+            "captured": res["captured"], "per_iteration": per_iteration,
+            "one_iteration_vs_solo": [e for e, _ in one],
+            "end_vs_solo": ends, "seed_iterations_per_s": rates,
+            "profile": prof, "wall_s": res["wall_s"],
+            "finals": [r["eval_reward"] for r in res["summary"]["runs"]]}
+
+
+def seeded_cnn4_kernels(tc, F, torch, gpu, b: int) -> dict:
+    """The three CNN4 kernels at the one-program vision sweep's B = S x 32
+    tasks, N = 25 (a support or query set of 5-way 5-shot), held against
+    their twins at each block shape in f32 and bf16 (TOL, DB_TOL) and
+    timed in f32 (CUDA events): kernel, twin, library."""
+    n, co = WAYS * SHOTS, HIDDEN
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+               "library_ms": 0.0, "bound_ms": 0.0} for k in tc.KERNELS}
+    out["cnn4_block_bwd_params"]["library_ms"] = None
+    for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        for blk, (h, ci) in enumerate(BLOCKS):
+            x, w, bb, sc, be, g = block_inputs(torch, tc, gen, b, n, h, ci, dt)
+            what = f"B {b} block {blk + 1}"
+            r = out["cnn4_block_fwd"]
+            r["max_abs_err"] = max(r["max_abs_err"], held(
+                torch, tc.block_fwd(x, w, bb, sc, be),
+                tc.block_fwd_plain(x, w, bb, sc, be), dname, what))
+            got = tc.block_bwd_params(x, w, bb, sc, be, g)
+            want = tc.block_bwd_params_plain(x, w, bb, sc, be, g)
+            dy_abs = want[0].abs().sum(dim=(1, 2, 3))
+            r = out["cnn4_block_bwd_params"]
+            r["max_abs_err"] = max(r["max_abs_err"], *(
+                held(torch, got[i], want[i], dname, f"{what} output {i}",
+                     db=dy_abs + 1e-30 if i == 2 else None)
+                for i in range(5)))
+            dy = got[0]
+            r = out["cnn4_block_bwd_input"]
+            r["max_abs_err"] = max(r["max_abs_err"], held(
+                torch, tc.block_bwd_input(dy, w, h, h),
+                tc.block_bwd_input_plain(dy, w, h, h), dname, what))
+            if dt != torch.float32:
+                continue
+            xg = x.permute(1, 0, 4, 2, 3).reshape(n, b * ci, h, h).contiguous()
+            wg = w.permute(0, 4, 3, 1, 2).reshape(b * co, ci, 3, 3).contiguous()
+            ho = (h - 1) // 2 + 1
+            dyg = dy.permute(1, 0, 4, 2, 3).reshape(n, b * co, ho,
+                                                    ho).contiguous()
+            runs = {
+                "cnn4_block_fwd": (
+                    lambda: tc.block_fwd(x, w, bb, sc, be),
+                    lambda: tc.block_fwd_plain(x, w, bb, sc, be),
+                    lambda: torch.relu(F.batch_norm(
+                        F.conv2d(xg, wg, bb.reshape(-1), stride=2, padding=1,
+                                 groups=b), None, None, sc.reshape(-1),
+                        be.reshape(-1), training=True, eps=tc.EPS))),
+                "cnn4_block_bwd_params": (
+                    lambda: tc.block_bwd_params(x, w, bb, sc, be, g),
+                    lambda: tc.block_bwd_params_plain(x, w, bb, sc, be, g),
+                    None),
+                "cnn4_block_bwd_input": (
+                    lambda: tc.block_bwd_input(dy, w, h, h),
+                    lambda: tc.block_bwd_input_plain(dy, w, h, h),
+                    lambda: torch.nn.grad.conv2d_input(
+                        xg.shape, wg, dyg, stride=2, padding=1, groups=b)),
+            }
+            for name, (kern, plain, lib) in runs.items():
+                if name == "cnn4_block_bwd_input" and blk == 0:
+                    continue            # block 1 takes no dx on the path
+                r = out[name]
+                r["ms"] += time_ms(kern)
+                r["plain_ms"] += time_ms(plain)
+                if lib:
+                    r["library_ms"] += time_ms(lib)
+                r["bound_ms"] += max(bound(name, b, n, h, ci, co, 4))
+            torch.cuda.synchronize()
+    for name, r in out.items():
+        print(f"  {name} at B = {b}, N = {n}, the path's blocks: ms {r['ms']} "
+              f"plain_ms {r['plain_ms']} library_ms {r['library_ms']} "
+              f"bound_ms {r['bound_ms']} max_abs_err {r['max_abs_err']} "
+              f"[{gpu}]", flush=True)
+    return out
+
+
+def vision_one_iteration(torch, spec, cfg, sampler, S: int) -> list:
+    """One f32 seeded meta-iteration (valid pass and meta-step) from the
+    seeds' initial states against each seed's solo one -> per seed (the
+    largest relative row difference, the meta-gradient's largest |error|
+    over max|grad|, the params past VISION_TOL of max|params|, their
+    count), the conv biases aside."""
+    from exploring_meta_tpu_torch.adapt.maml import adam, make_train_scan
+    from exploring_meta_tpu_torch.adapt.vision import make_vision_fast_adapt
+    from exploring_meta_tpu_torch.models.cnn4 import init_cnn4
+    from exploring_meta_tpu_torch.parallel.multiseed import stack_seed_states
+    from exploring_meta_tpu_torch.trainers.fused import fetch
+    from exploring_meta_tpu_torch.utils.tree import tree_items, tree_map
+
+    def scan(seeds):
+        return make_train_scan(
+            make_vision_fast_adapt(spec, cfg.inner_lr, cfg.adapt_steps,
+                                   cfg.shots, cfg.ways, seeds=seeds),
+            sampler("train"), 1, eval_sample_fn=sampler("valid"),
+            seeds=seeds)
+
+    params, opt, gens = stack_seed_states(
+        lambda g: init_cnn4(g, spec, device="cuda"), range(S), "cuda",
+        outer_lr=cfg.outer_lr)
+    ms = fetch(scan(S)(params, opt, gens)[-1])
+    out = []
+    for s in range(S):
+        gen = torch.Generator(device="cuda").manual_seed(s)
+        p = tree_map(torch.Tensor.requires_grad_,
+                     init_cnn4(gen, spec, device="cuda"))
+        m1 = fetch(scan(None)(p, adam(p, cfg.outer_lr), gen)[-1])
+        rows = max(abs(float(ms[k][0][s]) - float(m1[k][0]))
+                   / max(abs(float(m1[k][0])), 1.0) for k in m1)
+        keep = [k for k, _ in tree_items(p) if not k.endswith("conv/b")]
+        got, want = dict(tree_items(params)), dict(tree_items(p))
+        gmax = max(float(want[k].grad.abs().max()) for k in keep)
+        grad = max(float((got[k].grad[s] - want[k].grad).abs().max())
+                   for k in keep) / gmax
+        top = max(float(want[k].detach().abs().max()) for k in keep)
+        diff = torch.cat([(got[k][s] - want[k]).detach().abs().reshape(-1)
+                          for k in keep])
+        out.append((rows, grad, int((diff > VISION_TOL * top).sum()),
+                    diff.numel()))
+    return out
+
+
+def multiseed_vision_case(torch, tc, F, gc, gpu, tmp, S: int) -> dict:
+    """The one-program maml_omni sweep (S seeds, B = S x 32 tasks) through
+    ``sweep.main --vmap_seeds`` with the counters zeroed just before; each
+    seed's first row against its solo scan's on the sweep's dataset, one
+    f32 seeded iteration against the solo ones; the CNN4 kernels at B = S x
+    32 against their twins; tasks/s in turns and the idle share."""
+    import math
+    from exploring_meta_tpu_torch.adapt.maml import (
+        adam, cast_compute, make_train_scan,
+    )
+    from exploring_meta_tpu_torch.adapt.vision import make_vision_fast_adapt
+    from exploring_meta_tpu_torch.models.cnn4 import init_cnn4, omniglot_spec
+    from exploring_meta_tpu_torch.parallel.multiseed import stack_seed_states
+    from exploring_meta_tpu_torch.tasks.datasets import get_dataset
+    from exploring_meta_tpu_torch.tasks.sampler import sample_task_batch
+    from exploring_meta_tpu_torch.trainers.fused import fetch
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+
+    cfg = vision_config(num_iterations=MULTISEED_ITERATIONS,
+                        fuse=MULTISEED_FUSE)
+    name = "multiseed_omniglot"
+    res = run_sweep(torch, gc, tc, ["maml_vision", "--seeds", ",".join(
+        str(s) for s in range(S)), "--vmap_seeds"] + sweep_flags(cfg),
+                    os.path.join(tmp, name))
+    check_summary(res, name)
+    check(res["counts"] == {"captures": 1,
+                            "replays": MULTISEED_ITERATIONS - 1},
+          f"{name}: one capture for all seeds, {res['counts']}")
+    # one seed's iteration: the valid pass and the meta-step; the
+    # meta-test once, for all seeds at once (a solo run's: once)
+    per_iteration = {k: META_STEP_CALLS[k] + META_EVAL_CALLS[k]
+                     for k in tc.KERNELS}
+    for k in tc.KERNELS:
+        check(res["captured"][k] == per_iteration[k]
+              and res["launches"][k] == per_iteration[k]
+              + META_EVAL_CALLS[k],
+              f"{name}: {k} recorded {res['captured'][k]}, launched "
+              f"{res['launches'][k]}: one seed's iteration "
+              f"{per_iteration[k]} and one meta-test")
+
+    # the sweep's dataset, sampled again with its seed
+    datasets = dict(zip(("train", "valid"), get_dataset(
+        "omni", seed=cfg.seed, synthetic=True,
+        synth_classes=cfg.synth_classes, synth_per_class=cfg.synth_per_class,
+        device="cuda")[:2]))
+    spec = omniglot_spec(cfg.ways)
+
+    def sampler(split):
+        return lambda g: sample_task_batch(g, datasets[split], cfg.ways,
+                                           cfg.shots, cfg.meta_batch_size)
+
+    def scan(seeds):
+        fa = cast_compute(make_vision_fast_adapt(
+            spec, cfg.inner_lr, cfg.adapt_steps, cfg.shots, cfg.ways,
+            seeds=seeds))
+        return make_train_scan(fa, sampler("train"), MULTISEED_FUSE,
+                               eval_sample_fn=sampler("valid"), seeds=seeds)
+
+    solos, first, later = [], 0.0, 0.0
+    names = {"loss": "train_loss", "metric": "train_acc",
+             "valid_loss": "valid_loss", "valid_metric": "valid_acc"}
+    for run in res["summary"]["runs"]:
+        s = run["seed"]
+        gen = torch.Generator(device="cuda").manual_seed(s)
+        p = tree_map(torch.Tensor.requires_grad_,
+                     init_cnn4(gen, spec, device="cuda"))
+        solo = (scan(None), (p, adam(p, cfg.outer_lr)), gen)
+        rows = fetch(solo[0](*solo[1], gen)[-1])
+        solos.append(solo)
+        metrics, _ = read_run(run["run_dir"])
+        for k, key in names.items():
+            got = metrics[key]
+            check(len(got) == MULTISEED_ITERATIONS
+                  and all(math.isfinite(v) for v in got),
+                  f"{name} seed {s}: finite {key}")
+            err = abs(got[0] - float(rows[k][0]))
+            check(err <= MULTISEED_VISION_TOL,
+                  f"{name} seed {s}: first {key} {got[0]} vs its solo "
+                  f"scan's {float(rows[k][0])}")
+            first = max(first, err)
+            later = max(later, max(abs(a - float(b)) for a, b in
+                                   zip(got[1:], rows[k][1:])))
+    one = vision_one_iteration(torch, spec, cfg, sampler, S)
+    for s, (rows, grad, flips, n) in enumerate(one):
+        check(rows <= MULTISEED_ROW_TOL and grad <= SO_FLIP_TOL
+              and flips <= VISION_FLIP_SHARE * n,
+              f"{name} f32 seed {s}: one seeded iteration against its solo "
+              f"one: rows {rows} (limit {MULTISEED_ROW_TOL}), meta-gradient "
+              f"{grad} of max|grad| (limit {SO_FLIP_TOL}), {flips} of {n} "
+              f"params past {VISION_TOL} of max|params| (limit "
+              f"{VISION_FLIP_SHARE})")
+    kernels = seeded_cnn4_kernels(tc, F, torch, gpu, S * cfg.meta_batch_size)
+    params, opt, gens = stack_seed_states(
+        lambda g: init_cnn4(g, spec, device="cuda"), range(S), "cuda",
+        outer_lr=cfg.outer_lr)
+    seeded = (scan(S), (params, opt), gens)
+    rates = in_turns(torch, seeded, solos,
+                     S * MULTISEED_FUSE * cfg.meta_batch_size)
+    prof = seeded_profile(torch, seeded, CNN4_KERNEL_NAMES,
+                          rates["one_program_chunk_s"])
+    for n in ("fwd_conv_stats_kernel", "bwd_dw_kernel", "bwd_input_kernel"):
+        check(prof["named_kernels"][n] > 0,
+              f"{name}: {n} ran inside the seeded replays")
+    print(f"{name} (--vmap_seeds, S = {S}, meta-batch {cfg.meta_batch_size}"
+          f", bf16: the CNN4 kernels at B = {S * cfg.meta_batch_size}; "
+          f"{MULTISEED_ITERATIONS} iterations at --fuse {MULTISEED_FUSE}): "
+          f"{res['counts']}; recorded {res['captured']}, launched "
+          f"{res['launches']}; first rows vs the solo scans' max |err| "
+          f"{first}, later rows {later}; one f32 iteration from the initial "
+          f"states (rows, meta-gradient, params past {VISION_TOL}, of) "
+          f"{one}; tasks/s one program {rates['one_program']}, serial "
+          f"replays {rates['serial']} ({rates['speedup']}x); idle "
+          f"{100 * prof['idle_share']:.1f} % of a seeded chunk "
+          f"({prof['busy_union_us']} us busy of {prof['wall_us']}); sweep "
+          f"wall {res['wall_s']} s [{gpu}]", flush=True)
+    del seeded, solos, params, opt, gens
+    return {"counts": res["counts"], "launches": res["launches"],
+            "captured": res["captured"], "first_rows_vs_solo": first,
+            "later_rows_vs_solo": later, "one_iteration_f32": one,
+            "tasks_per_s": rates, "profile": prof, "kernels": kernels,
+            "wall_s": res["wall_s"],
+            "finals": [r["test_acc"] for r in res["summary"]["runs"]]}
+
+
+def seed_sweep_phase(tc, gc, F, torch, gpu, tmp) -> dict:
+    """Phase 13: seed sweeps (slice 12), serial and one-program."""
+    import dataclasses
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+
+    start = time.perf_counter()
+    out = {"serial": serial_sweep_phase(torch, gc, tc, gpu, tmp)}
+    cases = {
+        "multiseed_trpo": ("trpo", RLScriptConfig(**MULTISEED_TRPO), 4),
+        "multiseed_trpo_defaults": ("trpo", RLScriptConfig(), 2),
+        "multiseed_ppo": ("ppo", RLScriptConfig(outer_lr=0.01), 2)}
+    for name, (algo, cfg, S) in cases.items():
+        cfg = dataclasses.replace(cfg, num_iterations=MULTISEED_ITERATIONS,
+                                  fuse=MULTISEED_FUSE)
+        out[name] = multiseed_rl_case(torch, gc, tc, gpu, tmp, name, algo,
+                                      cfg, S)
+    out["multiseed_omniglot"] = multiseed_vision_case(torch, tc, F, gc, gpu,
+                                                      tmp, 4)
+    launches: dict = {}
+    for paths in (*(r["launches"] for r in out["serial"].values()),
+                  *(out[k]["launches"] for k in cases),
+                  out["multiseed_omniglot"]["launches"]):
+        for k, n in paths.items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - start
+    print(f"phase 13 (seed sweeps): {out['wall_s']:.2f} s [{gpu}]",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3709,6 +4401,8 @@ def main() -> int:
         slice10 = slice10_phase(tc, gc, F, torch, gpu, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         slice11 = run_utilities_phase(torch, gc, tc, gpu, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        slice12 = seed_sweep_phase(tc, gc, F, torch, gpu, tmp)
 
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -3720,7 +4414,8 @@ def main() -> int:
                    "policy_serve": policy_serve, "adam_rl": adam_rl,
                    "replay_meta_grad": replay_grad, "fused": fused,
                    "analysis": analysis, "slice10": slice10,
-                   "slice11": slice11}, f, indent=1, default=str)
+                   "slice11": slice11, "slice12": slice12}, f, indent=1,
+                  default=str)
 
     replaces = {
         "cnn4_block_fwd": "exploring_meta_tpu/pallas/cnn4_pallas.py:295",
@@ -3739,8 +4434,10 @@ def main() -> int:
     # ppo RC runs the sweeps; the baselines' (the RL ones the sweeps, the
     # vision one the CNN4 kernels at B = 1 and its meta-eval's) and the
     # bf16 runs' (the fused maml_trpo's warm-up and meta-test, the eager
-    # maml_ppo's); and the run utilities' (the resumed and uninterrupted
-    # runs, the imported model's request and batch, the profiled runs)
+    # maml_ppo's); the run utilities' (the resumed and uninterrupted
+    # runs, the imported model's request and batch, the profiled runs);
+    # and the seed sweeps' (the serial sweeps' trainers, the one-program
+    # sweeps' warm-up iterations and meta-tests)
     for paths in (vision["launches"], policy_serve["launches"],
                   adam_rl["launches"],
                   *(r["launches"] for r in fused.values()),
@@ -3752,7 +4449,7 @@ def main() -> int:
                   slice10["vision_baseline"]["launches"],
                   slice10["bf16"]["fused_trpo"]["launches"],
                   slice10["bf16"]["eager_ppo"]["launches"],
-                  slice11["launches"]):
+                  slice11["launches"], slice12["launches"]):
         for name, n in paths.items():
             launches[name] += n
     kernels = []

@@ -22,6 +22,9 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from exploring_meta_tpu_torch.parallel.multiseed import (
+    seed_draws, seed_means, seeded,
+)
 from exploring_meta_tpu_torch.utils.graphs import FusedIterations, bind_once
 from exploring_meta_tpu_torch.utils.tree import (
     tree_leaves, tree_map, tree_unflatten,
@@ -40,6 +43,16 @@ def per_task(params, B: int):
     """Shared params -> ``[B, ...]`` copies, one per task (or request)."""
     return tree_map(lambda t: t.unsqueeze(0).expand((B,) + tuple(t.shape))
                     .contiguous(), params)
+
+
+def task_copies(params, n_tasks: int, seeds: int | None = None):
+    """Per-task copies of a run's params for ``n_tasks`` tasks:
+    :func:`per_task` of shared params, or, for ``seeds`` seeds' stacked
+    ``[S, ...]`` params, each seed's copied to its ``n_tasks // S`` tasks
+    (``parallel/multiseed.py:seeded``)."""
+    if seeds is None:
+        return per_task(params, n_tasks)
+    return seeded(params, n_tasks // seeds)
 
 
 def inner_sgd(loss_fn: Callable, params, batch, inner_lr: float,
@@ -159,12 +172,12 @@ def apply_meta_gradient(opt: torch.optim.Adam, loss: torch.Tensor,
     opt.step()
 
 
-def _batch_loss(fast_adapt, params, task_batch):
+def _batch_loss(fast_adapt, params, task_batch, seeds=None):
     res = fast_adapt(params, *task_batch)
-    return res.loss.mean(), res.metric.mean()
+    return seed_means(res.loss, seeds), seed_means(res.metric, seeds)
 
 
-def make_meta_step(fast_adapt: Callable):
+def make_meta_step(fast_adapt: Callable, seeds: int | None = None):
     """Build the outer step: ``meta_step(params, opt, *task_batch) ->
     (params, opt, {"loss", "metric"})``.
 
@@ -172,20 +185,28 @@ def make_meta_step(fast_adapt: Callable):
     accumulation and ``p.grad.mul_(1/B)``, ``vision/maml_vision.py:139-
     141``) is differentiated through everything and ``opt`` (from
     :func:`adam`) steps the params in place; the returned metrics are
-    detached scalars on the device (no host sync)."""
+    detached scalars on the device (no host sync).
+
+    ``seeds``: ``fast_adapt`` takes ``S`` seeds' stacked params and a task
+    batch of ``S·B`` tasks, seed-major (``parallel/multiseed.py``); the
+    loss differentiated is the sum over seeds of each seed's mean query
+    loss (the seeds' params are disjoint, so each seed's gradient is its
+    own) and the metrics are ``[S]``."""
 
     def meta_step(params, opt, *task_batch):
-        loss, metric = _batch_loss(fast_adapt, params, task_batch)
-        apply_meta_gradient(opt, loss, params)
+        loss, metric = _batch_loss(fast_adapt, params, task_batch, seeds)
+        apply_meta_gradient(opt, loss if seeds is None else loss.sum(),
+                            params)
         return params, opt, {"loss": loss.detach(), "metric": metric.detach()}
 
     return meta_step
 
 
-def make_meta_eval(fast_adapt: Callable):
+def make_meta_eval(fast_adapt: Callable, seeds: int | None = None):
     """Meta-evaluation over a task batch, no outer update (reference
     ``core_functions/vision.py:26-42``): ``meta_eval(params, *task_batch)
-    -> {"loss", "metric"}``.
+    -> {"loss", "metric"}`` (``[S]`` each with ``seeds``, as
+    :func:`make_meta_step`).
 
     It runs ``fast_adapt`` under ``torch.no_grad()``: the inner loop then
     adapts first order (:func:`inner_sgd`) and the query pass builds no
@@ -194,14 +215,15 @@ def make_meta_eval(fast_adapt: Callable):
 
     def meta_eval(params, *task_batch):
         with torch.no_grad():
-            loss, metric = _batch_loss(fast_adapt, params, task_batch)
+            loss, metric = _batch_loss(fast_adapt, params, task_batch, seeds)
         return {"loss": loss, "metric": metric}
 
     return meta_eval
 
 
 def make_train_scan(fast_adapt: Callable, sample_fn: Callable, n_steps: int,
-                    eval_sample_fn: Callable | None = None):
+                    eval_sample_fn: Callable | None = None,
+                    seeds: int | None = None):
     """``n_steps`` whole meta-iterations in one call (the port of the JAX
     ``lax.scan``): on the card the first iteration runs eagerly, then one
     iteration is captured as a CUDA graph and each later one is a replay;
@@ -217,26 +239,39 @@ def make_train_scan(fast_adapt: Callable, sample_fn: Callable, n_steps: int,
     Returns ``train(params, opt, gen, n=n_steps) -> (params, opt,
     metrics)``, ``n <= n_steps`` iterations with each metric stacked
     ``[n]``; the params are stepped in place. ``train`` is bound to the
-    params, optimizer and generator of its first call."""
-    meta_step = make_meta_step(fast_adapt)
-    meta_eval = make_meta_eval(fast_adapt)
+    params, optimizer and generator of its first call.
 
-    def make(params, opt, gen):
+    ``seeds``: the one-program sweep of ``S`` seeds (JAX's ``vmap_seeds``
+    of this scan): ``fast_adapt`` is built with ``seeds=S``, ``params``
+    are stacked ``[S, ...]``, ``gen`` is the tuple of the seeds'
+    generators, each seed's batches are drawn from its own generator as
+    its solo run draws them and concatenated, and each metric is ``[n,
+    S]``. Every kernel runs once an iteration for all seeds."""
+    meta_step = make_meta_step(fast_adapt, seeds)
+    meta_eval = make_meta_eval(fast_adapt, seeds)
+
+    def make(params, opt, *gens):
+        gen = gens[0] if seeds is None else gens
+
         def step():
-            batch = sample_fn(gen)
+            batch = seed_draws(sample_fn, gen, seeds)
             row = {}
             if eval_sample_fn is not None:
-                valid = meta_eval(params, *eval_sample_fn(gen))
+                valid = meta_eval(params,
+                                  *seed_draws(eval_sample_fn, gen, seeds))
                 row = {"valid_loss": valid["loss"],
                        "valid_metric": valid["metric"]}
             _, _, out = meta_step(params, opt, *batch)
             return {**out, **row}
-        return FusedIterations(step, n_steps, gen.device, (gen,))
+        return FusedIterations(step, n_steps, gens[0].device, gens,
+                               metric_shape=() if seeds is None
+                               else (seeds,))
 
     loop = bind_once(make)
 
     def train(params, opt, gen, n=None):
-        return params, opt, loop(params, opt, gen)(n)
+        gens = (gen,) if seeds is None else tuple(gen)
+        return params, opt, loop(params, opt, *gens)(n)
 
     train.fused = loop     # its FusedIterations: train.fused.bound()
     return train

@@ -18,7 +18,7 @@ from __future__ import annotations
 from typing import Callable
 
 from exploring_meta_tpu_torch.adapt.maml import (
-    TaskResult, inner_sgd, make_fast_adapt, per_task,
+    TaskResult, inner_sgd, make_fast_adapt, task_copies,
 )
 from exploring_meta_tpu_torch.models.cnn4 import (
     CNN4Spec, cnn4_apply, cnn4_features, cnn4_head_apply,
@@ -30,12 +30,18 @@ from exploring_meta_tpu_torch.tasks.sampler import split_support_query
 def make_vision_fast_adapt(spec: CNN4Spec, inner_lr: float, adapt_steps: int,
                            shots: int, ways: int, anil: bool = False,
                            first_order: bool = False,
-                           remat_body: bool = False) -> Callable:
+                           remat_body: bool = False,
+                           seeds: int | None = None) -> Callable:
     """-> ``fast_adapt(params, data, labels) -> TaskResult`` (``[B]`` loss
     and accuracy) for a task batch; ``params`` are shared by the tasks.
 
     ``remat_body`` (ANIL only): checkpoint each body conv block
-    (``torch.utils.checkpoint``), trading FLOPs for memory."""
+    (``torch.utils.checkpoint``), trading FLOPs for memory.
+
+    ``seeds``: ``params`` are ``S`` seeds' stacked ``[S, ...]`` params and
+    the batch holds ``S·B`` tasks, seed-major; each task runs on its seed's
+    params (``adapt/maml.py:task_copies``), the CNN4 kernels once for all
+    ``S·B`` tasks. BN statistics are per task either way."""
 
     if not anil:
         def loss_and_metric(params, batch):
@@ -48,7 +54,8 @@ def make_vision_fast_adapt(spec: CNN4Spec, inner_lr: float, adapt_steps: int,
 
         def fast_adapt(params, data, labels) -> TaskResult:
             support, query = split_support_query(data, labels, shots, ways)
-            return adapt_eval(per_task(params, data.shape[0]), support, query)
+            return adapt_eval(task_copies(params, data.shape[0], seeds),
+                              support, query)
 
         return fast_adapt
 
@@ -57,11 +64,15 @@ def make_vision_fast_adapt(spec: CNN4Spec, inner_lr: float, adapt_steps: int,
         return cross_entropy(cnn4_head_apply({"head": head}, f), y).sum()
 
     def fast_adapt_anil(params, data, labels) -> TaskResult:
-        # Encode the whole task batch once with the (inner-frozen) body.
-        feats = cnn4_features(params, spec, data, remat=remat_body)
+        # Encode the whole task batch once with the (inner-frozen) body;
+        # seeds' bodies are per task (their own seed's)
+        body = params if seeds is None else task_copies(
+            {"base": params["base"]}, data.shape[0], seeds)
+        feats = cnn4_features(body, spec, data, remat=remat_body)
         (f_s, y_s), (f_q, y_q) = split_support_query(feats, labels, shots,
                                                      ways)
-        head = inner_sgd(head_loss, per_task(params["head"], data.shape[0]),
+        head = inner_sgd(head_loss,
+                         task_copies(params["head"], data.shape[0], seeds),
                          (f_s, y_s), inner_lr, adapt_steps,
                          first_order=first_order)
         logits = cnn4_head_apply({"head": head}, f_q)

@@ -13,6 +13,8 @@
         results/<run>/model_checkpoints/model_<i>.npz
     python -m exploring_meta_tpu_torch.cli import_reference_ckpt <src> <dst>
     python -m exploring_meta_tpu_torch.cli pack_datasets omniglot --src <dir>
+    python -m exploring_meta_tpu_torch.cli sweep maml_trpo --seeds 42,7 \
+        [--vmap_seeds --fuse 10]
     EMT_FORCE_CPU=1 python -m exploring_meta_tpu_torch.cli maml_vision ...
 
 Runs go to the card unless ``EMT_FORCE_CPU=1`` asks for the CPU; the two
@@ -240,6 +242,13 @@ def pack_datasets(argv=None) -> None:
         pack_mini_imagenet(args.src, args.out)
 
 
+def sweep(argv=None) -> dict:
+    """A seed sweep of one trainer configuration, serial or as one
+    program (``--vmap_seeds``) (``scripts/sweep.py``; ``sweep.py``)."""
+    from exploring_meta_tpu_torch.sweep import main
+    return main(argv)
+
+
 COMMANDS = {"maml_vision": maml_vision, "anil_vision": anil_vision,
             "maml_trpo": maml_trpo, "anil_trpo": anil_trpo,
             "maml_ppo": maml_ppo, "anil_ppo": anil_ppo,
@@ -249,7 +258,7 @@ COMMANDS = {"maml_vision": maml_vision, "anil_vision": anil_vision,
             "random_baseline": random_baseline,
             "vision_baseline": vision_baseline,
             "import_reference_ckpt": import_reference_ckpt,
-            "pack_datasets": pack_datasets}
+            "pack_datasets": pack_datasets, "sweep": sweep}
 
 if __name__ == "__main__":
     if len(sys.argv) < 2 or sys.argv[1] not in COMMANDS:

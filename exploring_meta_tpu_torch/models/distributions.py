@@ -17,12 +17,25 @@ def normal_log_prob(loc, scale, value) -> torch.Tensor:
     return -((value - loc) ** 2) / (2 * var) - torch.log(scale) - _LOG_SQRT_2PI
 
 
-def normal_sample(gen: torch.Generator, loc, scale) -> torch.Tensor:
+def normal_sample(gen, loc, scale) -> torch.Tensor:
     """``loc + scale * eps`` with ``eps ~ N(0, 1)`` drawn from ``gen`` (on
-    the generator's device, which must be the tensors' device)."""
-    eps = torch.randn(loc.shape, generator=gen, dtype=loc.dtype,
-                      device=loc.device)
+    the generator's device, which must be the tensors' device).
+
+    ``gen`` may be a tuple of ``S`` seeds' generators (a one-program seed
+    sweep, ``parallel/multiseed.py``): the leading axis of ``loc`` is then
+    ``S`` equal shares, seed-major, and each share's noise is drawn from
+    its seed's generator in the shape its solo run draws."""
+    if isinstance(gen, tuple):
+        eps = torch.cat([_standard_normal(g, part)
+                         for g, part in zip(gen, loc.chunk(len(gen)))])
+    else:
+        eps = _standard_normal(gen, loc)
     return loc + scale * eps
+
+
+def _standard_normal(gen: torch.Generator, like) -> torch.Tensor:
+    return torch.randn(like.shape, generator=gen, dtype=like.dtype,
+                       device=like.device)
 
 
 def normal_kl(loc_p, scale_p, loc_q, scale_q) -> torch.Tensor:

@@ -6,6 +6,11 @@ JAX runs CG as a ``lax.while_loop`` that exits once the residual is below
 ``tol``. Here the loop always runs ``num_iterations`` times and freezes
 ``x, r, p`` with ``torch.where`` once ``r.r < tol``: the same result with
 no read back to the host.
+
+A one-program seed sweep solves ``S`` systems at once on flat ``[S, P]``
+vectors (JAX ``vmap``-s the solve over seeds): every dot product is per
+row, and ``alpha``, ``beta`` and the ``live`` mask are ``[S, 1]``, so each
+seed's solve is its own and freezes on its own residual.
 """
 
 from __future__ import annotations
@@ -15,21 +20,31 @@ from typing import Callable
 import torch
 
 
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a . b`` of flat vectors; of ``[S, P]`` rows, ``[S, 1]``, each row's
+    the very ``torch.dot`` a solo run takes (one launch a row: a batched
+    reduction may sum in another order)."""
+    if a.ndim == 1:
+        return torch.dot(a, b)
+    return torch.stack([torch.dot(x, y) for x, y in zip(a, b)]).unsqueeze(-1)
+
+
 def conjugate_gradient(Ax: Callable[[torch.Tensor], torch.Tensor],
                        b: torch.Tensor, num_iterations: int = 10,
                        tol: float = 1e-10) -> torch.Tensor:
-    """Solve ``A x = b`` for SPD ``A`` given ``v -> A v``; x0 = 0."""
+    """Solve ``A x = b`` for SPD ``A`` given ``v -> A v``; x0 = 0. ``b``
+    may be ``[S, P]``: ``S`` independent systems, ``A`` block-diagonal."""
     x = torch.zeros_like(b)
     r = b
     p = b
-    rdotr = torch.dot(r, r)
+    rdotr = dot(r, r)
     for _ in range(num_iterations):
         live = rdotr >= tol
         ap = Ax(p)
-        alpha = rdotr / torch.dot(p, ap)
+        alpha = rdotr / dot(p, ap)
         x_new = x + alpha * p
         r_new = r - alpha * ap
-        new_rdotr = torch.dot(r_new, r_new)
+        new_rdotr = dot(r_new, r_new)
         p_new = r_new + (new_rdotr / rdotr) * p
         x = torch.where(live, x_new, x)
         r = torch.where(live, r_new, r)
@@ -54,10 +69,14 @@ def hvp(f: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
 def grad_vector_product(grad_f: torch.Tensor, x: torch.Tensor,
                         damping: float):
     """``v -> d(grad_f . v)/dx + damping * v`` for a ``grad_f`` computed
-    from ``x`` with ``create_graph=True``."""
+    from ``x`` with ``create_graph=True``. For ``[S, P]`` rows whose
+    function is a sum of per-row terms (a seed sweep's summed KLs) the
+    Hessian is block-diagonal, so one product of the sum is every row's
+    own product."""
     def Ax(v):
         with torch.enable_grad():
-            (hv,) = torch.autograd.grad(grad_f @ v.detach(), x,
-                                        retain_graph=True)
+            gv = (grad_f @ v.detach() if v.ndim == 1
+                  else (grad_f * v.detach()).sum())
+            (hv,) = torch.autograd.grad(gv, x, retain_graph=True)
         return hv + damping * v
     return Ax

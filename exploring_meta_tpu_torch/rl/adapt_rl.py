@@ -9,6 +9,12 @@ carry a leading ``[B]`` on every leaf, and every loss and metric is a
 of the per-task losses with respect to per-task params, so each task
 adapts on its own data only.
 
+A one-program seed sweep (``parallel/multiseed.py``) passes ``seeds=S``:
+the params are ``S`` seeds' stacked ``[S, ...]`` params, the task batch
+holds ``S·B`` tasks seed-major, and ``gen`` is the tuple of the seeds'
+generators, which the rollout's action noise draws from per seed
+(``models/distributions.py:normal_sample``).
+
 Masking: trajectories are fixed-shape with a ``valid`` mask, and every
 reduction is valid-weighted (PARITY D7). Sampled actions are data
 (rollout.py), so no reparameterization path reaches the meta-gradient,
@@ -26,7 +32,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from exploring_meta_tpu_torch.adapt.maml import inner_sgd, per_task
+from exploring_meta_tpu_torch.adapt.maml import inner_sgd, task_copies
 from exploring_meta_tpu_torch.models.policies import DiagNormalPolicyANIL
 from exploring_meta_tpu_torch.ops.gae import compute_advantages, discount
 from exploring_meta_tpu_torch.ops.losses import (
@@ -186,12 +192,13 @@ def vpg_a2c_loss(policy, params, traj: Trajectory, cfg: RLConfig,
 
 
 def fast_adapt_vpg(policy, params, rollout_fn: Callable, tasks,
-                   gen: torch.Generator, cfg: RLConfig, dice: bool = False):
+                   gen: torch.Generator, cfg: RLConfig, dice: bool = False,
+                   seeds: int | None = None):
     """VPG inner loop for a task batch ``tasks [B, ...]`` from the shared
-    ``params`` -> (adapted per-task params, differentiable query losses
-    ``[B]``, query metrics) (reference ``fast_adapt_vpg``,
-    ``rl.py:229-254``)."""
-    params = per_task(params, tasks.shape[0])
+    ``params`` (or ``seeds`` seeds' stacked ones) -> (adapted per-task
+    params, differentiable query losses ``[B]``, query metrics) (reference
+    ``fast_adapt_vpg``, ``rl.py:229-254``)."""
+    params = task_copies(params, tasks.shape[0], seeds)
     for _ in range(cfg.adapt_steps):
         support = rollout_fn(params, tasks, gen)
         params = _inner_update(
@@ -229,14 +236,15 @@ def _ppo_updates(policy, params, support: Trajectory, cfg: RLConfig,
 
 
 def fast_adapt_ppo(policy, params, rollout_fn: Callable, tasks,
-                   gen: torch.Generator, cfg: RLConfig):
+                   gen: torch.Generator, cfg: RLConfig,
+                   seeds: int | None = None):
     """PPO inner loop with differentiable query losses ``[B]`` (reference
     ``fast_adapt_ppo``, ``rl.py:264-316``): ``cfg.ppo_epochs`` clipped
     updates per support batch, each kept to second order unless
     ``cfg.first_order`` (the outer step differentiates through all of
     them, ``maml_ppo.py:128-130``) -> (adapted per-task params, query
-    losses, query metrics)."""
-    params = per_task(params, tasks.shape[0])
+    losses, query metrics). ``seeds``: as :func:`fast_adapt_vpg`."""
+    params = task_copies(params, tasks.shape[0], seeds)
     for _ in range(cfg.adapt_steps):
         support = rollout_fn(params, tasks, gen)
         params = _ppo_updates(policy, params, support, cfg, cfg.ppo_epochs)
@@ -303,13 +311,16 @@ def trpo_update(policy, params, traj: Trajectory, cfg: RLConfig,
 
 
 def fast_adapt_trpo(policy, params, rollout_fn: Callable, tasks,
-                    gen: torch.Generator, cfg: RLConfig):
+                    gen: torch.Generator, cfg: RLConfig,
+                    seeds: int | None = None):
     """First-order TRPO collection for a task batch ``tasks [B, ...]`` from
     the shared ``params`` -> (adapted per-task params, valid losses ``[B]``,
     replay [Trajectory ``[B, T, E, ...]`` x (adapt_steps + 1)], query
     metrics). The outer step rebuilds the second-order graph from the
-    replay (reference ``rl/maml_trpo.py:113``, ``rl.py:441-473``)."""
-    params = per_task(tree_map(torch.Tensor.detach, params), tasks.shape[0])
+    replay (reference ``rl/maml_trpo.py:113``, ``rl.py:441-473``).
+    ``seeds``: as :func:`fast_adapt_vpg`."""
+    params = task_copies(tree_map(torch.Tensor.detach, params),
+                         tasks.shape[0], seeds)
     replay = []
     baseline_w = None
     for _ in range(cfg.adapt_steps):
@@ -330,13 +341,15 @@ def fast_adapt_trpo(policy, params, rollout_fn: Callable, tasks,
     return params, valid_loss, replay, _query_metrics(query)
 
 
-def trpo_collect_body(policy, rollout_fn: Callable, cfg: RLConfig):
+def trpo_collect_body(policy, rollout_fn: Callable, cfg: RLConfig,
+                      seeds: int | None = None):
     """``(params, tasks [B, ...], gen) -> (adapted params, valid losses,
     stacked replays [B, steps+1, T, E, ...], query metrics)``: the
-    collection half of a MAML-TRPO iteration over a task batch."""
+    collection half of a MAML-TRPO iteration over a task batch
+    (``seeds``: as :func:`fast_adapt_vpg`)."""
     def collect(params, tasks, gen):
         adapted, losses, replay, metrics = fast_adapt_trpo(
-            policy, params, rollout_fn, tasks, gen, cfg)
+            policy, params, rollout_fn, tasks, gen, cfg, seeds=seeds)
         return adapted, losses, stack_trajectories(replay, dim=1), metrics
     return collect
 

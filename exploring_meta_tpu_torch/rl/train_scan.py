@@ -10,7 +10,12 @@ here one iteration is captured as a CUDA graph and replayed
 (:class:`exploring_meta_tpu_torch.utils.graphs.FusedIterations`; on the
 CPU it runs eagerly). Every metric stays a device tensor.
 
-Used by ``trainers/rl.py`` ``--fuse N``.
+Used by ``trainers/rl.py`` ``--fuse N``. The seeded builders
+(:func:`make_seeded_trpo_train_scan`, :func:`make_seeded_adam_train_scan`)
+train ``S`` seeds as one program (``sweep.py --vmap_seeds``; JAX's
+``vmap_seeds`` of these scans): the seed axis folds into the task axis
+(``parallel/multiseed.py``), so each kernel launches as many times a
+seeded iteration as a solo one.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from exploring_meta_tpu_torch.adapt.maml import apply_meta_gradient
+from exploring_meta_tpu_torch.parallel.multiseed import seed_draws, seed_means
 from exploring_meta_tpu_torch.rl.adapt_rl import (
     RLConfig, fast_adapt_ppo, fast_adapt_vpg, make_trpo_collect,
 )
@@ -31,28 +37,34 @@ from exploring_meta_tpu_torch.utils.tree import tree_leaves
 
 def make_trpo_iteration(env, policy, rollout_fn, cfg: RLConfig,
                         trpo_cfg: TRPOConfig, meta_batch_size: int,
-                        host_free: bool = False, phase=no_phase):
+                        host_free: bool = False, phase=no_phase,
+                        seeds: int | None = None):
     """-> ``iteration(params, gen) -> (new params, metrics)``: one
     MAML-TRPO meta-iteration (first-order collection, then the
     second-order CG / line-search outer step). ``host_free`` takes the
     line search that reads nothing back (``rl/trpo_meta.py``).
     ``phase(name)`` (``PhaseTimer.phase`` under ``--profile``) times JAX's
     eager phases ``collect`` and ``meta_step``; a fused iteration takes
-    none, since its phases would sync inside a capture."""
-    collect = make_trpo_collect(policy, rollout_fn, cfg)
+    none, since its phases would sync inside a capture.
+
+    ``seeds``: ``params`` are ``S`` seeds' stacked params, ``gen`` the
+    tuple of their generators; each seed samples its own
+    ``meta_batch_size`` tasks, and every metric is ``[S]``."""
+    collect = make_trpo_collect(policy, rollout_fn, cfg, seeds=seeds)
     meta_step = make_trpo_meta_step(policy, cfg, trpo_cfg, cfg.adapt_steps,
-                                    host_free=host_free)
+                                    host_free=host_free, seeds=seeds)
 
     def iteration(params, gen):
-        tasks = env.sample_tasks(gen, meta_batch_size)
+        tasks = seed_draws(lambda g: env.sample_tasks(g, meta_batch_size),
+                           gen, seeds)
         with phase("collect") as sync:
             old_params, _, replays, ms = collect(params, tasks, gen)
             sync.append(replays)
         with phase("meta_step") as sync:
             params, info = meta_step(params, old_params, replays)
             sync.append(params)
-        return params, {"adapt_reward": ms["reward"].mean(),
-                        "adapt_success": ms["success"].mean(),
+        return params, {"adapt_reward": seed_means(ms["reward"], seeds),
+                        "adapt_success": seed_means(ms["success"], seeds),
                         "meta_loss": info["old_loss"],
                         "ls_accepted": info["accepted"]}
 
@@ -60,26 +72,82 @@ def make_trpo_iteration(env, policy, rollout_fn, cfg: RLConfig,
 
 
 def make_adam_iteration(env, policy, rollout_fn, cfg: RLConfig, algo: str,
-                        meta_batch_size: int, phase=no_phase):
+                        meta_batch_size: int, phase=no_phase,
+                        seeds: int | None = None):
     """-> ``iteration(params, opt, gen) -> metrics``: second-order PPO or
     VPG adaptation of a task batch and one step of ``opt`` (from
     ``adapt/maml.py:adam``) on the mean query loss, in place. As in JAX
-    the whole of it is one ``phase`` (``meta_step``)."""
+    the whole of it is one ``phase`` (``meta_step``). ``seeds``: as
+    :func:`make_trpo_iteration`; the step is taken on the sum of the
+    seeds' mean query losses, each seed's gradient its own."""
     fast_adapt = {"ppo": fast_adapt_ppo, "vpg": fast_adapt_vpg}[algo]
 
     def iteration(params, opt, gen):
-        tasks = env.sample_tasks(gen, meta_batch_size)
+        tasks = seed_draws(lambda g: env.sample_tasks(g, meta_batch_size),
+                           gen, seeds)
         with phase("meta_step") as sync:
             _, losses, ms = fast_adapt(policy, params, rollout_fn, tasks,
-                                       gen, cfg)
-            loss = losses.mean()
-            apply_meta_gradient(opt, loss, params)
+                                       gen, cfg, seeds=seeds)
+            loss = seed_means(losses, seeds)
+            apply_meta_gradient(opt, loss if seeds is None else loss.sum(),
+                                params)
             sync.append(params)
         return {"meta_loss": loss.detach(),
-                "adapt_reward": ms["reward"].mean(),
-                "adapt_success": ms["success"].mean()}
+                "adapt_reward": seed_means(ms["reward"], seeds),
+                "adapt_success": seed_means(ms["success"], seeds)}
 
     return iteration
+
+
+def _trpo_train_scan(env, policy, rollout_fn, cfg, trpo_cfg, meta_batch_size,
+                     n_steps, seeds=None):
+    iteration = make_trpo_iteration(env, policy, rollout_fn, cfg, trpo_cfg,
+                                    meta_batch_size, host_free=True,
+                                    seeds=seeds)
+
+    def make(params, *gens):
+        gen = gens[0] if seeds is None else gens
+
+        def step():
+            new, metrics = iteration(params, gen)
+            with torch.no_grad():
+                for p, q in zip(tree_leaves(params), tree_leaves(new)):
+                    p.copy_(q)
+            return metrics
+        return FusedIterations(step, n_steps, gens[0].device, gens,
+                               metric_shape=() if seeds is None
+                               else (seeds,))
+
+    loop = bind_once(make)
+
+    def train(params, gen, n=None):
+        gens = (gen,) if seeds is None else tuple(gen)
+        return params, loop(params, *gens)(n)
+
+    train.fused = loop     # its FusedIterations: train.fused.bound()
+    return train
+
+
+def _adam_train_scan(env, policy, rollout_fn, cfg, algo, meta_batch_size,
+                     n_steps, seeds=None):
+    iteration = make_adam_iteration(env, policy, rollout_fn, cfg, algo,
+                                    meta_batch_size, seeds=seeds)
+
+    def make(params, opt, *gens):
+        gen = gens[0] if seeds is None else gens
+        return FusedIterations(lambda: iteration(params, opt, gen), n_steps,
+                               gens[0].device, gens,
+                               metric_shape=() if seeds is None
+                               else (seeds,))
+
+    loop = bind_once(make)
+
+    def train(params, opt, gen, n=None):
+        gens = (gen,) if seeds is None else tuple(gen)
+        return params, opt, loop(params, opt, *gens)(n)
+
+    train.fused = loop     # its FusedIterations: train.fused.bound()
+    return train
 
 
 def make_trpo_train_scan(env, policy, rollout_fn, cfg: RLConfig,
@@ -90,25 +158,8 @@ def make_trpo_train_scan(env, policy, rollout_fn, cfg: RLConfig,
     place; metrics ``adapt_reward``, ``adapt_success``, ``meta_loss``,
     ``ls_accepted``, each ``[n]`` on the device. The function is bound to
     the params and generator of its first call."""
-    iteration = make_trpo_iteration(env, policy, rollout_fn, cfg, trpo_cfg,
-                                    meta_batch_size, host_free=True)
-
-    def make(params, gen):
-        def step():
-            new, metrics = iteration(params, gen)
-            with torch.no_grad():
-                for p, q in zip(tree_leaves(params), tree_leaves(new)):
-                    p.copy_(q)
-            return metrics
-        return FusedIterations(step, n_steps, gen.device, (gen,))
-
-    loop = bind_once(make)
-
-    def train(params, gen, n=None):
-        return params, loop(params, gen)(n)
-
-    train.fused = loop     # its FusedIterations: train.fused.bound()
-    return train
+    return _trpo_train_scan(env, policy, rollout_fn, cfg, trpo_cfg,
+                            meta_batch_size, n_steps)
 
 
 def make_adam_train_scan(env, policy, rollout_fn, cfg: RLConfig, algo: str,
@@ -118,17 +169,26 @@ def make_adam_train_scan(env, policy, rollout_fn, cfg: RLConfig, algo: str,
     losses, reference ``rl/maml_ppo.py:128-130``); metrics ``meta_loss``,
     ``adapt_reward``, ``adapt_success``, each ``[n]``. Bound to the
     params, optimizer and generator of its first call."""
-    iteration = make_adam_iteration(env, policy, rollout_fn, cfg, algo,
-                                    meta_batch_size)
+    return _adam_train_scan(env, policy, rollout_fn, cfg, algo,
+                            meta_batch_size, n_steps)
 
-    def make(params, opt, gen):
-        return FusedIterations(lambda: iteration(params, opt, gen), n_steps,
-                               gen.device, (gen,))
 
-    loop = bind_once(make)
+def make_seeded_trpo_train_scan(env, policy, rollout_fn, cfg: RLConfig,
+                                trpo_cfg: TRPOConfig, meta_batch_size: int,
+                                n_steps: int, seeds: int):
+    """:func:`make_trpo_train_scan` for ``seeds`` seeds as one program:
+    ``train(params [S, ...], gens, n)``, ``gens`` the seeds' generators
+    (``parallel/multiseed.py:stack_seed_states``); each metric ``[n,
+    S]``; one capture for all seeds, one replay a seeded iteration."""
+    return _trpo_train_scan(env, policy, rollout_fn, cfg, trpo_cfg,
+                            meta_batch_size, n_steps, seeds=seeds)
 
-    def train(params, opt, gen, n=None):
-        return params, opt, loop(params, opt, gen)(n)
 
-    train.fused = loop     # its FusedIterations: train.fused.bound()
-    return train
+def make_seeded_adam_train_scan(env, policy, rollout_fn, cfg: RLConfig,
+                                algo: str, meta_batch_size: int,
+                                n_steps: int, seeds: int):
+    """:func:`make_adam_train_scan` for ``seeds`` seeds as one program:
+    ``train(params [S, ...], opt, gens, n)``, ``opt`` the one Adam over
+    the stacked leaves; each metric ``[n, S]``."""
+    return _adam_train_scan(env, policy, rollout_fn, cfg, algo,
+                            meta_batch_size, n_steps, seeds=seeds)

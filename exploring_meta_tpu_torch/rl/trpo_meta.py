@@ -20,6 +20,14 @@ candidates and selects the first accepted one on the device, with no read
 back. Both give the same params. The step itself
 (:func:`natural_gradient_step`) also takes the single-task TRPO
 baseline's (``trainers/baselines.py``).
+
+A one-program seed sweep (``seeds=S``, ``parallel/multiseed.py``) steps
+``S`` seeds' stacked params as flat ``[S, P]`` rows: the surrogate and KL
+come out per seed, their sums are differentiated (the Fisher of the summed
+KLs is block-diagonal over seeds, so one Fisher-vector product gives every
+seed's), CG runs per row (``ops/cg.py``), and the host-free line search
+takes each seed's first accepted candidate on its own: a seed that accepts
+nothing keeps its params whatever the others do.
 """
 
 from __future__ import annotations
@@ -29,14 +37,15 @@ from typing import NamedTuple
 
 import torch
 
-from exploring_meta_tpu_torch.adapt.maml import per_task
+from exploring_meta_tpu_torch.adapt.maml import task_copies
 from exploring_meta_tpu_torch.models.distributions import (
     normal_kl, normal_log_prob,
 )
 from exploring_meta_tpu_torch.ops.cg import (
-    conjugate_gradient, grad_vector_product,
+    conjugate_gradient, dot, grad_vector_product,
 )
 from exploring_meta_tpu_torch.ops.losses import trpo_policy_loss
+from exploring_meta_tpu_torch.parallel.multiseed import seed_means
 from exploring_meta_tpu_torch.rl.adapt_rl import (
     RLConfig, masked_mean, masked_normalize, traj_advantages, trpo_update,
 )
@@ -63,13 +72,16 @@ def stack_replays(replay) -> Trajectory:
 
 
 def meta_surrogate_loss(policy, params, old_params_stack, replays: Trajectory,
-                        cfg: RLConfig, adapt_steps: int):
+                        cfg: RLConfig, adapt_steps: int,
+                        seeds: int | None = None):
     """-> (mean surrogate loss, mean KL(new || old)) over the tasks.
 
     ``params`` are the shared meta-params; ``replays`` is ``[B, steps+1,
     T, E, ...]`` with the query set last on axis 1; ``old_params_stack``
-    are the per-task adapted params of collection time."""
-    new_params = per_task(params, replays.reward.shape[0])
+    are the per-task adapted params of collection time. With ``seeds``,
+    ``params`` are stacked ``[S, ...]`` and both means are ``[S]``, one a
+    seed over its share of the tasks."""
+    new_params = task_copies(params, replays.reward.shape[0], seeds)
     # re-run the inner adaptation with the full second-order graph
     for i in range(adapt_steps):
         support = replays.map(lambda x: x[:, i])
@@ -92,22 +104,25 @@ def meta_surrogate_loss(policy, params, old_params_stack, replays: Trajectory,
         dim=-1, keepdim=True)
     surrogate = trpo_policy_loss(new_lp, old_lp, adv.unsqueeze(-1),
                                  valid=valid)
-    return surrogate.mean(), kl.mean()
+    return seed_means(surrogate, seeds), seed_means(kl, seeds)
 
 
-def ravel(params):
+def ravel(params, seeds: int | None = None):
     """Params tree -> (flat detached vector, unravel: vector -> tree of
-    views, differentiable)."""
+    views, differentiable). ``seeds``: stacked ``[S, ...]`` params ->
+    ``[S, P]`` rows, one a seed."""
+    lead = () if seeds is None else (seeds,)
     leaves = tree_leaves(params)
-    shapes = [leaf.shape for leaf in leaves]
+    shapes = [tuple(leaf.shape[len(lead):]) for leaf in leaves]
     sizes = [math.prod(s) for s in shapes]
 
     def unravel(flat):
-        pieces = torch.split(flat, sizes)
-        return tree_unflatten(params, [p.reshape(s)
+        pieces = torch.split(flat, sizes, dim=-1)
+        return tree_unflatten(params, [p.reshape(lead + s)
                                        for p, s in zip(pieces, shapes)])
 
-    flat = torch.cat([leaf.detach().reshape(-1) for leaf in leaves])
+    flat = torch.cat([leaf.detach().reshape(lead + (-1,))
+                      for leaf in leaves], dim=-1)
     return flat, unravel
 
 
@@ -119,17 +134,28 @@ def natural_gradient_step(loss_kl, flat0: torch.Tensor,
     the backtracking line search -> (the first accepted candidate, or
     ``flat0``; ``{"old_loss", "accepted"}``, and on the early-exit path
     ``"index"``, the accepted candidate's, -1 for none). ``accepted`` is a
-    Python bool, or with ``host_free`` a device bool (no host sync)."""
+    Python bool, or with ``host_free`` a device bool (no host sync).
+
+    ``flat0`` may be ``[S, P]``, one row a seed, with ``loss_kl`` giving
+    ``[S]`` surrogates and KLs: every step is then per row (the line
+    search host-free, each row taking its own first accepted candidate)
+    and ``old_loss`` and ``accepted`` are ``[S]``."""
+    rows = flat0.ndim == 2
+    if rows and not host_free:
+        raise ValueError("a step of several seeds' rows runs the host-free "
+                         "line search (host_free=True)")
+    total = (lambda v: v.sum()) if rows else (lambda v: v)
     x = flat0.clone().requires_grad_()
     with torch.enable_grad():
         old_loss, kl = loss_kl(x)
-        (grad_flat,) = torch.autograd.grad(old_loss, x, retain_graph=True)
-        (grad_kl,) = torch.autograd.grad(kl, x, create_graph=True)
+        (grad_flat,) = torch.autograd.grad(total(old_loss), x,
+                                           retain_graph=True)
+        (grad_kl,) = torch.autograd.grad(total(kl), x, create_graph=True)
     Fvp = grad_vector_product(grad_kl, x, trpo_cfg.damping)
 
     step = conjugate_gradient(Fvp, grad_flat,
                               num_iterations=trpo_cfg.cg_iterations)
-    shs = 0.5 * torch.dot(step, Fvp(step))
+    shs = 0.5 * dot(step, Fvp(step))
     step = step / torch.sqrt(shs / trpo_cfg.max_kl)
     del Fvp, grad_kl
     old_loss = old_loss.detach()
@@ -138,7 +164,8 @@ def natural_gradient_step(loss_kl, flat0: torch.Tensor,
     # surrogate inside the KL bound is taken
     final, accepted, index = flat0, False, -1
     if host_free:
-        accepted = torch.zeros((), dtype=torch.bool, device=flat0.device)
+        accepted = torch.zeros(old_loss.shape, dtype=torch.bool,
+                               device=flat0.device)
     with torch.no_grad(), torch.profiler.record_function("trpo_line_search"):
         for ls_step in range(trpo_cfg.ls_max_steps):
             stepsize = (trpo_cfg.backtrack_factor ** ls_step
@@ -148,7 +175,7 @@ def natural_gradient_step(loss_kl, flat0: torch.Tensor,
             ok = (new_loss < old_loss) & (kl < trpo_cfg.max_kl)
             if host_free:
                 take = ok & ~accepted
-                final = torch.where(take, candidate, final)
+                final = torch.where(take.unsqueeze(-1), candidate, final)
                 accepted = accepted | take
             elif bool(ok):
                 final, accepted, index = candidate, True, ls_step
@@ -161,15 +188,17 @@ def natural_gradient_step(loss_kl, flat0: torch.Tensor,
 
 def meta_optimize_trpo(policy, params, old_params_stack, replays,
                        cfg: RLConfig, trpo_cfg: TRPOConfig,
-                       adapt_steps: int, host_free: bool = False):
+                       adapt_steps: int, host_free: bool = False,
+                       seeds: int | None = None):
     """One TRPO outer step -> (new params, the info of
     :func:`natural_gradient_step`) (reference ``meta_optimize_trpo``,
-    ``rl.py:409-438``)."""
-    flat0, unravel = ravel(params)
+    ``rl.py:409-438``); with ``seeds``, one step of each seed's stacked
+    params on its share of the replays."""
+    flat0, unravel = ravel(params, seeds)
 
     def loss_kl(flat):
         return meta_surrogate_loss(policy, unravel(flat), old_params_stack,
-                                   replays, cfg, adapt_steps)
+                                   replays, cfg, adapt_steps, seeds)
 
     final, info = natural_gradient_step(loss_kl, flat0, trpo_cfg,
                                         host_free=host_free)
@@ -178,10 +207,11 @@ def meta_optimize_trpo(policy, params, old_params_stack, replays,
 
 
 def make_trpo_meta_step(policy, cfg: RLConfig, trpo_cfg: TRPOConfig,
-                        adapt_steps: int, host_free: bool = False):
+                        adapt_steps: int, host_free: bool = False,
+                        seeds: int | None = None):
     """``(params, old_params_stack, replays) -> (params, info)``."""
     def step(params, old_params_stack, replays):
         return meta_optimize_trpo(policy, params, old_params_stack, replays,
                                   cfg, trpo_cfg, adapt_steps,
-                                  host_free=host_free)
+                                  host_free=host_free, seeds=seeds)
     return step

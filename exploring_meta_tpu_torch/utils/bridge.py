@@ -17,18 +17,22 @@ from exploring_meta_tpu_torch.utils.tree import (
 )
 
 
-def params_from_jax(src, device, dtype=torch.float32, template=None):
+def params_from_jax(src, device, dtype=torch.float32, template=None,
+                    seeds: int | None = None):
     """JAX params -> torch params on ``device``.
 
     ``src`` is a params tree (dicts/lists of JAX or numpy arrays) or a flat
     ``{slash/path: array}`` dict as ``flatten_params`` writes it. With a
     ``template`` (e.g. ``init_cnn4(..., device="cpu")``) the keys and
-    shapes must match it exactly."""
+    shapes must match it exactly; with ``seeds`` too, ``src`` is a stacked
+    tree (JAX's ``stack_seed_states``: a leading seed axis on every leaf)
+    and each shape must be the template's behind ``seeds``."""
     # a flat dict's keys are already slash paths, so both forms flatten
     # to the same items
     items = [(k, np.array(v)) for k, v in tree_items(src)]
     if template is not None:
-        want = {k: tuple(v.shape) for k, v in tree_items(template)}
+        lead = () if seeds is None else (seeds,)
+        want = {k: lead + tuple(v.shape) for k, v in tree_items(template)}
         got = {k: tuple(v.shape) for k, v in items}
         if want != got:
             raise ValueError(f"params do not match the template: "
@@ -38,5 +42,7 @@ def params_from_jax(src, device, dtype=torch.float32, template=None):
 
 
 def params_to_numpy(params):
-    """Torch params -> the same tree of float32 numpy arrays."""
+    """Torch params -> the same tree of float32 numpy arrays (a stacked
+    ``[S, ...]`` tree stays stacked, as JAX's ``vmap_seeds`` returns it)."""
     return tree_map(lambda t: t.detach().float().cpu().numpy(), params)
+

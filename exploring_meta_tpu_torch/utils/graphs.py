@@ -53,14 +53,17 @@ def count_launch(wrapper) -> None:
 class FusedIterations:
     """``loop(n) -> {metric: [n] tensor}``: ``n <= n_steps`` iterations of
     ``iteration() -> {metric: 0-dim tensor}``, which must update its state
-    in place and draw only from ``generators``."""
+    in place and draw only from ``generators``. With ``metric_shape``
+    (``(S,)`` for a one-program seed sweep) every metric of an iteration
+    has that shape, and the loop returns ``[n, *metric_shape]``."""
 
     def __init__(self, iteration: Callable[[], dict], n_steps: int, device,
-                 generators=()):
+                 generators=(), metric_shape: tuple = ()):
         self.iteration = iteration
         self.n_steps = n_steps
         self.device = torch.device(device)
         self.generators = tuple(generators)
+        self.metric_shape = tuple(metric_shape)
         self.keys: tuple = ()
         self.buffer = None
         self.row = torch.zeros((), dtype=torch.long, device=self.device)
@@ -72,11 +75,12 @@ class FusedIterations:
         metrics = self.iteration()
         if self.buffer is None:
             self.keys = tuple(metrics)
-            self.buffer = torch.zeros(self.n_steps, len(self.keys),
-                                      device=self.device)
-        row = torch.stack([metrics[k].detach().to(torch.float32).reshape(())
-                           for k in self.keys])
-        self.buffer.index_copy_(0, self.row.view(1), row.view(1, -1))
+            self.buffer = torch.zeros(
+                (self.n_steps, len(self.keys)) + self.metric_shape,
+                device=self.device)
+        row = torch.stack([metrics[k].detach().to(torch.float32)
+                           .reshape(self.metric_shape) for k in self.keys])
+        self.buffer.index_copy_(0, self.row.view(1), row.unsqueeze(0))
         self.row.add_(1)
 
     def _warm_up(self) -> None:

@@ -710,3 +710,79 @@ def test_async_checkpoints_equal_sync_under_replays(cuda_device, tmp_path):
         for k, v in flat.items():
             np.testing.assert_array_equal(runs[True][f][k], v,
                                           err_msg=f"{f} {k}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["trpo", "ppo"])
+def test_seeded_scan_one_capture_and_one_seeds_launches(cuda_device, algo):
+    """A tiny one-program sweep of 3 seeds (``make_seeded_*_train_scan``,
+    3 iterations: the eager warm-up, one capture, two replays) records
+    each sweep kernel as often a seeded iteration as one seed's solo scan
+    does. Seed 1's first row (the rollouts of its initial params) is its
+    solo scan's within 1e-5; PPO's whole run within 1e-4 of max|params|.
+    TRPO's later iterations are not held: batched GEMMs at S·B tasks round
+    otherwise than at B, and f32 CG and the next rollouts amplify that
+    (chip_smoke.py phase 13 holds one iteration and reports the rest)."""
+    from exploring_meta_tpu_torch.adapt.maml import adam
+    from exploring_meta_tpu_torch.envs.particles2d import Particles2D
+    from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
+    from exploring_meta_tpu_torch.parallel.multiseed import (
+        seed_params, stack_seed_states,
+    )
+    from exploring_meta_tpu_torch.rl import train_scan as ts
+    from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
+    from exploring_meta_tpu_torch.rl.rollout import make_rollout
+    from exploring_meta_tpu_torch.rl.trpo_meta import TRPOConfig
+    from exploring_meta_tpu_torch.utils import graphs
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves, tree_map
+    S, mb, n = 3, 4, 3
+    env, pol = Particles2D(), DiagNormalPolicy(2, 2)
+    cfg = RLConfig(inner_lr=0.05, adapt_batch_size=5, max_path_length=20)
+    roll = make_rollout(env, pol.sample, 5, 20)
+    lr = None if algo == "trpo" else 0.01
+
+    def run(seeds):
+        gc.reset_launch_counts()
+        graphs.reset_counts()
+        if seeds is None:
+            gen = torch.Generator(device=cuda_device).manual_seed(1)
+            params = pol.init(gen)
+            opt = None
+            if lr is not None:
+                params = tree_map(torch.Tensor.requires_grad_, params)
+                opt = adam(params, lr)
+        else:
+            params, opt, gen = stack_seed_states(pol.init, range(S),
+                                                 cuda_device, outer_lr=lr)
+        if algo == "trpo":
+            args = (env, pol, roll, cfg, TRPOConfig(), mb, n)
+            train = (ts.make_trpo_train_scan(*args) if seeds is None
+                     else ts.make_seeded_trpo_train_scan(*args, seeds))
+            ms = train(params, gen)[-1]
+        else:
+            args = (env, pol, roll, cfg, algo, mb, n)
+            train = (ts.make_adam_train_scan(*args) if seeds is None
+                     else ts.make_seeded_adam_train_scan(*args, seeds))
+            ms = train(params, opt, gen)[-1]
+        torch.cuda.synchronize()
+        return (params, ms, dict(graphs.COUNTS), gc.launch_counts(),
+                gc.captured_counts())
+
+    params, ms, counts, launches, captured = run(S)
+    solo_params, solo_ms, solo_counts, solo_launches, solo_captured = run(
+        None)
+    assert counts == solo_counts == {"captures": 1, "replays": n - 1}
+    assert launches == solo_launches and captured == solo_captured
+    assert all(v > 0 for v in captured.values())
+    assert all(v.shape == (n, S) for v in ms.values())
+    # seed 1 against its solo scan
+    for k in ("adapt_reward", "adapt_success"):
+        torch.testing.assert_close(ms[k][0, 1], solo_ms[k][0], rtol=1e-5,
+                                   atol=1e-5)
+    got = [t.detach() for t in tree_leaves(seed_params(params, 1))]
+    want = [t.detach() for t in tree_leaves(solo_params)]
+    assert all(bool(torch.isfinite(g).all()) for g in got)
+    if algo == "ppo":
+        top = max(float(w.abs().max()) for w in want)
+        assert max(float((g - w).abs().max())
+                   for g, w in zip(got, want)) <= 1e-4 * top

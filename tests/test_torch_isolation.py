@@ -24,6 +24,7 @@ print(",".join(bad))
 print(",".join(sorted(m for m in sys.modules if m.split(".")[0] == "matplotlib")))
 print(",".join(sorted(m for m in sys.modules
                       if m.split(".")[0] in ("PIL", "wandb"))))
+print(",".join(sorted(m for m in sys.modules if m.split(".")[0] == "scipy")))
 """
 
 
@@ -61,6 +62,18 @@ def test_no_port_module_imports_pillow_or_wandb_when_imported():
     assert lines[3] == "", lines[3]
 
 
+def test_no_port_module_imports_scipy_when_imported():
+    """scipy (the sweep band's Student-t, ``utils/plotter.py``) is imported
+    inside the functions that use it, as matplotlib is: the seed-sweep
+    modules (``parallel/multiseed.py``, ``sweep.py``) import neither."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    assert lines[4] == "", lines[4]
+
+
 def test_port_module_list_is_complete():
     import exploring_meta_tpu_torch as pkg
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -91,7 +104,9 @@ def test_port_module_list_is_complete():
                 "trainers.baselines",
                 # slice 11: the run utilities and the offline tools
                 "utils.compile_cache", "utils.dcp_ckpt", "utils.profiling",
-                "utils.import_torch", "tasks.pack"):
+                "utils.import_torch", "tasks.pack",
+                # slice 12: seed sweeps
+                "parallel", "parallel.multiseed", "sweep"):
         assert f"exploring_meta_tpu_torch.{mod}" in names
 
 
