@@ -156,7 +156,31 @@ Phases, each of which fails the run (non-zero exit) on any error:
     after another, in turns, and the idle share of a profiled seeded
     chunk; the three CNN4 kernels at B = 128 against their twins (f32,
     bf16) and timed;
-14. print one ``{"kernels": [...]}`` line, the card line again, and last
+14. host envs (slice 13): build ``native/vecenv.cpp`` with ``g++``
+    (timed); ``NativeVecEnv("particles2d")`` against the device
+    Particles2D on the card for 100 steps (obs within 1e-6, ``done``
+    equal); with ``tests/fake_metaworld.py`` installed as ``metaworld``
+    (the card's machine has no metaworld, gymnasium or mujoco), the
+    process pinned to 2 CPUs (the pools then run 2 threads), at the
+    ``RLScriptConfig`` defaults on ML10 (meta-tests cut to 2 tasks) and
+    with the counters zeroed just before each: maml_trpo for 2 iterations
+    collected per task, maml_ppo ``--task_batch`` for 2 iterations (Adam
+    0.01), ``meta_test`` with ``each3`` and ``eval_rl --each3 --task_batch
+    --cl --rc`` on the run dir, both sweeps launched in every iteration
+    and on every path, the per-task JSON keyed by ML10's eval names, the
+    bar plots written or one line each; one ``--host_policy cpu``
+    iteration (no round trip to the card, the rollouts shipped there, the
+    sweeps on the card); card against CPU: ``HostVecEnv.collect`` under
+    one action table bit for bit, and on the replays of the trainers'
+    last outer steps a TRPO inner step (1e-5 of max|params|), the TRPO
+    outer step (the same line-search outcome, 2e-2 of the step), the PPO
+    meta-gradient and one Adam step on it (1e-5 of lr); AntDirection-v1
+    where gymnasium and mujoco import, else one line; every vec env that
+    steps on the native pool; s per iteration per task (the trainer's)
+    against one task-batched iteration, round trips and shipments per
+    iteration, a profiled iteration's idle share, the pool's env steps/s
+    at 400 slots on all CPUs and on 2, against the Python loop;
+15. print one ``{"kernels": [...]}`` line, the card line again, and last
     ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports neither
@@ -4338,6 +4362,524 @@ def seed_sweep_phase(tc, gc, F, torch, gpu, tmp) -> dict:
     return out
 
 
+# Phase 14 (slice 13): host envs. Meta-World runs on the repo's point-mass
+# stand-in (tests/fake_metaworld.py, JAX's own ML10 test fixture): the
+# card's machine has neither metaworld nor gymnasium and mujoco.
+HOST_ITERATIONS = 2
+# the phase's host paths run with the process pinned to HOST_CPUS CPUs
+# (os.sched_setaffinity), so that every pool counts that many workers: the
+# stand-in env holds the GIL through its step, and 8 pool threads step it
+# several times slower than 2 (PERF.md); the pool is also measured
+# unpinned
+HOST_CPUS = 2
+# the trainers' final meta-tests, cut from the default 10 tasks (depth)
+HOST_EVAL_TASKS = 2
+NATIVE_STEPS, NATIVE_TOL = 100, 1e-6
+POOL_SLOTS, POOL_STEPS = 400, 20
+ADAM_STEP_TOL = 1e-5    # of lr: one Adam step on the same gradients
+DEVICES = (("card", "cuda"), ("cpu", "cpu"))
+
+
+@contextlib.contextmanager
+def pinned_cpus(n: int):
+    """The process (its calling thread, and the threads it starts) on the
+    first ``n`` CPUs of its affinity mask, restored on exit."""
+    mask = os.sched_getaffinity(0)
+    os.sched_setaffinity(0, sorted(mask)[:n])
+    try:
+        yield
+    finally:
+        os.sched_setaffinity(0, mask)
+
+
+def installed_fake_metaworld(repo: str):
+    """``tests/fake_metaworld.py`` as the ``metaworld`` package, as JAX's
+    ``fake_metaworld`` fixture installs it -> a function that removes it."""
+    sys.path.insert(0, os.path.join(repo, "tests"))
+    import fake_metaworld
+    had = sys.modules.get("metaworld")
+    sys.modules["metaworld"] = fake_metaworld
+
+    def remove():
+        sys.path.remove(os.path.join(repo, "tests"))
+        if had is None:
+            del sys.modules["metaworld"]
+        else:
+            sys.modules["metaworld"] = had
+    return remove
+
+
+def native_particles_vs_device(torch, np, binding) -> dict:
+    """``NativeVecEnv("particles2d")`` against the port's device Particles2D
+    on the card, 20 goals one episode each, the same actions (uniform in
+    +-0.15: the clip at 0.1 acts) for NATIVE_STEPS steps."""
+    from exploring_meta_tpu_torch.envs.particles2d import Particles2D
+    env, E = Particles2D(), 20
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    tasks = env.sample_tasks(gen, E)
+    actions = 0.3 * torch.rand((NATIVE_STEPS, E, 1, 2), generator=gen,
+                               device="cuda") - 0.15
+    state, _ = env.reset(tasks, 1)
+    nat = binding.NativeVecEnv("particles2d", n_envs=E)
+    nat.reset(tasks.double().cpu().numpy())
+    worst, dones = 0.0, 0
+    for t in range(NATIVE_STEPS):
+        state, obs, _, done, _ = env.step(state, actions[t], tasks)
+        nobs, _, ndone, _ = nat.step(actions[t, :, 0].double().cpu().numpy())
+        worst = max(worst, float(np.abs(obs[:, 0].double().cpu().numpy()
+                                        - nobs).max()))
+        check(np.array_equal(done[:, 0].cpu().numpy(), ndone > 0.5),
+              f"native particles2d done equals the device env's, step {t}")
+        dones = int((ndone > 0.5).sum())
+    check(worst <= NATIVE_TOL, f"native particles2d obs vs the device env: "
+                               f"{worst}, limit {NATIVE_TOL}")
+    return {"obs_max_abs_err": worst, "done_at_end": dones}
+
+
+class HostCounted:
+    """Per-iteration wall time, sweep launches and collection counts of a
+    trainer's host iteration (``make`` the name of its factory method)."""
+
+    def __init__(self, torch, gc, host):
+        self.torch, self.gc, self.host, self.rows = torch, gc, host, []
+
+    def wrap(self, step):
+        def counted(*args):
+            self.torch.cuda.synchronize()
+            before = {**self.gc.launch_counts(), **self.host.COUNTS}
+            t0 = time.perf_counter()
+            out = step(*args)
+            self.torch.cuda.synchronize()
+            after = {**self.gc.launch_counts(), **self.host.COUNTS}
+            self.rows.append({"s": time.perf_counter() - t0,
+                              **{k: after[k] - before[k] for k in after}})
+            return out
+        return counted
+
+    def trainer(self, base, make: str):
+        wrap = self.wrap
+
+        class Trainer(base):
+            pass
+        setattr(Trainer, make, lambda tr, *a: wrap(getattr(base, make)(
+            tr, *a)))
+        return Trainer
+
+
+def counted_call(torch, gc, host, fn) -> tuple:
+    """``fn()`` with the sweep and collection counters zeroed just before
+    -> (its result, the launches, the collection counts, seconds)."""
+    torch.cuda.synchronize()
+    gc.reset_launch_counts()
+    host.reset_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return (res, gc.launch_counts(), dict(host.COUNTS),
+            time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def recording_outer_steps(recorded: dict):
+    """Keep the inputs of the trainers' last outer step: ``recorded
+    ["trpo"] = (params, old params, replays)`` of a TRPO meta-step and
+    ``recorded["ppo"] = (params, replays)`` of a replay meta-loss (params
+    copied before the step moves them)."""
+    from exploring_meta_tpu_torch.trainers import rl as trl
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+    trpo, loss = trl.make_trpo_meta_step, trl.make_replay_meta_loss
+    copy = lambda p: tree_map(lambda t: t.detach().clone(), p)
+
+    def make_trpo(*args, **kwargs):
+        step = trpo(*args, **kwargs)
+
+        def recorded_step(params, old, replays):
+            recorded["trpo"] = (copy(params), old, replays)
+            return step(params, old, replays)
+        return recorded_step
+
+    def make_loss(*args, **kwargs):
+        meta_loss = loss(*args, **kwargs)
+
+        def recorded_loss(params, replays):
+            recorded["ppo"] = (copy(params), replays)
+            return meta_loss(params, replays)
+        return recorded_loss
+
+    trl.make_trpo_meta_step, trl.make_replay_meta_loss = make_trpo, make_loss
+    try:
+        yield recorded
+    finally:
+        trl.make_trpo_meta_step, trl.make_replay_meta_loss = trpo, loss
+
+
+def host_trainer_run(torch, gc, host, tmp, algo: str, make: str,
+                     **change) -> dict:
+    """One RLTrainer run on ML10, HOST_ITERATIONS iterations at the
+    RLScriptConfig defaults, with ``change`` -> its run dir, launches (all,
+    per iteration, the meta-test's), collection counts and seconds."""
+    import math
+    from exploring_meta_tpu_torch.trainers.rl import RLTrainer
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+    counter = HostCounted(torch, gc, host)
+    cfg = RLScriptConfig(**{"env": "ML10", "num_iterations": HOST_ITERATIONS,
+                            **change})
+    trainer = counter.trainer(RLTrainer, make)(cfg, algo=algo,
+                                               path=tmp + "/")
+    final, launches, counts, s = counted_call(torch, gc, host, trainer.run)
+    with open(os.path.join(trainer.model_path, "metrics.json")) as f:
+        metrics = json.load(f)
+    check(len(counter.rows) == cfg.num_iterations
+          and all(all(math.isfinite(v) for v in vals)
+                  for vals in metrics.values()),
+          f"{algo} {change}: {cfg.num_iterations} finite rows: {metrics}")
+    check(math.isfinite(final["mean_reward"]), f"{algo}: finite meta-test")
+    for i, row in enumerate(counter.rows):
+        for name in gc.KERNELS:
+            check(row[name] > 0, f"{algo} {change}: {name} in iteration {i}")
+    return {"run": trainer.model_path, "launches": launches,
+            "per_iteration": counter.rows, "s": s, "counts": counts,
+            "meta_test": final["mean_reward"],
+            "meta_test_launches": {k: launches[k] - sum(
+                r[k] for r in counter.rows) for k in launches}}
+
+
+def host_eval_paths(torch, np, gc, host, ppo_run: str, trpo_run: str,
+                    gpu) -> dict:
+    """``meta_test`` with ``each3`` (per task) on the maml_trpo run's
+    params, and ``eval_rl.run(each3, task_batch, cl, rc)`` on the
+    maml_ppo run dir: both sweeps launched on each; the per-task JSON keyed
+    by ML10's eval names; the bar plots written, or one printed line each
+    where matplotlib is missing."""
+    import io
+    import math
+    from exploring_meta_tpu_torch.analysis import eval_rl
+    from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
+    from exploring_meta_tpu_torch.rl.evaluate import (
+        ML10_EVAL_TASK_NAMES, meta_test,
+    )
+    from exploring_meta_tpu_torch.trainers.rl import rl_config
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+    from exploring_meta_tpu_torch.utils.experiment import load_params
+
+    out = {}
+    policy = DiagNormalPolicy(9, 4)
+    params = load_params(os.path.join(trpo_run, "model.npz"), policy.init(
+        torch.Generator(device="cuda").manual_seed(0)))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    cfg = RLScriptConfig(env="ML10")
+    res, launches, counts, s = counted_call(
+        torch, gc, host, lambda: meta_test(
+            "trpo", "ML10", policy, params, rl_config(cfg), cfg.n_eval_tasks,
+            gen, each3=True))
+    names = set(ML10_EVAL_TASK_NAMES.values())
+    check(set(res["rewards_per_task"]) == names
+          and len(res["tasks_rewards"]) == 15
+          and all(math.isfinite(r) for r in res["tasks_rewards"]),
+          f"meta_test each3: 3 trials of each ML10 eval task: {res}")
+    out["meta_test_each3"] = {"launches": launches, "counts": counts, "s": s,
+                              "mean_reward": res["mean_reward"]}
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res, launches, counts, s = counted_call(
+            torch, gc, host, lambda: eval_rl.run(
+                ppo_run, run_cl=True, run_rc=True, each3=True,
+                task_batch=True))
+    printed = buf.getvalue()
+    print(printed, end="")
+    stem = os.path.join(ppo_run, "maml_ppo_test_42")
+    with open(stem + ".json") as f:
+        per_task = json.load(f)
+    check(set(per_task) == names and per_task == res["eval"][
+        "rewards_per_task"], f"eval_rl per-task JSON keyed by ML10's eval "
+                             f"names: {per_task}")
+    missing = printed.count("matplotlib is not installed")
+    plots = {"bar_plot_ml10": os.path.exists(stem + ".png")}
+    check(plots["bar_plot_ml10"] or printed.count(
+        "bar_plot_ml10: matplotlib is not installed") == 1,
+        "the ML10 bar plot is written, or one line says why not")
+    for part in ("cl_exp/adapt_progress.json", "cl_exp/cl_res_rew.json",
+                 "rep_exp/cca_rl_results.json", "eval_results.json"):
+        check(os.path.exists(os.path.join(ppo_run, part)), f"eval_rl {part}")
+    for name in gc.KERNELS:
+        check(out["meta_test_each3"]["launches"][name] > 0
+              and launches[name] > 0, f"{name} ran in meta_test and eval_rl")
+    out["eval_rl"] = {"launches": launches, "counts": counts, "s": s,
+                      "mean_reward": res["eval"]["mean_reward"],
+                      "cl_res_rew": res["cl_res_rew"],
+                      "matplotlib_missing_lines": missing, "plots": plots}
+    print(f"host eval paths: {out} [{gpu}]", flush=True)
+    return out
+
+
+def host_card_vs_cpu(torch, np, host, gpu, recorded: dict) -> dict:
+    """Card against CPU: ``HostVecEnv.collect`` under a fixed action table
+    on either device, bit for bit; then, on the card's own replays that
+    the trainer runs recorded (``recorded``: maml_trpo's last outer step,
+    per task at full width; maml_ppo's last ``--task_batch`` meta-loss),
+    one first-order TRPO inner step (within ADAPT_TOL of max|params|), one
+    TRPO outer step (the same line-search outcome, within 2e-2 of the
+    step), a PPO replay meta-gradient (:func:`ppo_replay_card_vs_cpu`) and
+    one Adam step on the card's gradient (within ADAM_STEP_TOL of lr); the
+    CPU runs on the card's baseline fits."""
+    from exploring_meta_tpu_torch.adapt.maml import adam, per_task
+    from exploring_meta_tpu_torch.envs.factory import make_env
+    from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
+    from exploring_meta_tpu_torch.rl.adapt_rl import trpo_update
+    from exploring_meta_tpu_torch.rl.replay_meta import make_replay_meta_loss
+    from exploring_meta_tpu_torch.rl.trpo_meta import meta_optimize_trpo
+    from exploring_meta_tpu_torch.trainers.rl import rl_config, trpo_config
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+    from exploring_meta_tpu_torch.utils.tree import (
+        tree_items, tree_leaves, tree_map,
+    )
+
+    cfg = RLScriptConfig(env="ML10")
+    rl_cfg, trpo_cfg = rl_config(cfg), trpo_config(cfg)
+    T, E = cfg.max_path_length, cfg.adapt_batch_size
+    out = {}
+    table = np.random.default_rng(SEED + 16).uniform(
+        -1.5, 1.5, (T, E, 4)).astype(np.float32)
+    trajs = {}
+    for key, dev in DEVICES:
+        vec, _ = make_env("ML10", workers=E, seed=cfg.seed,
+                          max_path_length=T, n_threads=HOST_CPUS)
+        vec.set_task(vec.sample_tasks(None, 1)[0])
+        steps = iter(range(T))
+        trajs[key] = vec.collect(lambda g, o: table[next(steps)], None, T,
+                                 device=dev)
+    check(trajs["card"].reward.device.type == "cuda"
+          and all(torch.equal(a.cpu(), b) for a, b in zip(trajs["card"],
+                                                         trajs["cpu"])),
+          "HostVecEnv.collect: card and CPU trajectories bit for bit")
+
+    policy = DiagNormalPolicy(9, 4)
+    params, old, replays = recorded["trpo"]
+    params = tree_map(lambda t: t.cpu(), params)
+    support = replays.map(lambda x: x[:, 0])
+    inner = {}
+    fits = None
+    for key, dev in DEVICES:
+        p = per_task(tree_map(lambda t: t.to(dev), params),
+                     cfg.meta_batch_size)
+        inner[key], fits = with_baseline_fits(
+            lambda: trpo_update(policy, p, support.map(lambda x: x.to(dev)),
+                                rl_cfg, first_order=True), fits)
+    out["inner_step_err"] = tree_close(torch, inner["card"], inner["cpu"],
+                                       ADAPT_TOL, "host TRPO inner step")
+    steps_out, fits = {}, None
+    for key, dev in DEVICES:
+        to = lambda x: tree_map(lambda t: t.to(dev), x)
+        (new, info), fits = with_baseline_fits(
+            lambda: meta_optimize_trpo(
+                policy, to(params), to(old), replays.map(lambda x: x.to(dev)),
+                rl_cfg, trpo_cfg, cfg.adapt_steps), fits)
+        steps_out[key] = (torch.cat([t.reshape(-1).cpu()
+                                     for t in tree_leaves(new)]),
+                          bool(info["accepted"]), int(info["index"]))
+    flat0 = torch.cat([t.reshape(-1) for t in tree_leaves(params)])
+    step = float((steps_out["cpu"][0] - flat0).norm())
+    err = float((steps_out["card"][0] - steps_out["cpu"][0]).norm())
+    check(steps_out["card"][1:] == steps_out["cpu"][1:],
+          f"host TRPO outer step: the same line-search outcome "
+          f"{steps_out['card'][1:]} vs {steps_out['cpu'][1:]}")
+    check(err <= 2e-2 * step, f"host TRPO outer step: |card - CPU| {err} "
+                              f"vs step {step}")
+    out["trpo_step"] = {"param_err_l2": err, "step_norm": step,
+                        "accepted_index": steps_out["cpu"][2]}
+
+    ppo_params, ppo_replays = recorded["ppo"]
+    ppo_params = tree_map(lambda t: t.cpu(), ppo_params)
+    meta_loss = make_replay_meta_loss("ppo", policy, rl_cfg)
+    out["ppo_meta_grad"] = ppo_replay_card_vs_cpu(
+        torch, meta_loss, ppo_params, ppo_replays, rl_cfg.ppo_clip_ratio)
+    _, grads, _ = replay_meta_grad(torch, meta_loss, ppo_params, ppo_replays,
+                                   "cuda")
+    lr, stepped = 0.01, {}
+    for key, dev in DEVICES:
+        p = tree_map(lambda t: t.detach().to(dev, copy=True)
+                     .requires_grad_(), ppo_params)
+        opt = adam(p, lr)
+        for leaf_key, leaf in tree_items(p):
+            leaf.grad = grads[leaf_key].float().to(dev)
+        opt.step()
+        stepped[key] = [t.detach().cpu().double() for t in tree_leaves(p)]
+    out["adam_step_err_lr"] = max(
+        float((a - b).abs().max()) for a, b in zip(stepped["card"],
+                                                   stepped["cpu"])) / lr
+    check(out["adam_step_err_lr"] <= ADAM_STEP_TOL,
+          f"one Adam step on the card's meta-gradient, card vs CPU: "
+          f"{out['adam_step_err_lr']} of lr")
+    print(f"host envs, card vs CPU: {out} [{gpu}]", flush=True)
+    return out
+
+
+def host_timing(torch, np, gc, host, binding, tmp, gpu,
+                per_task: list) -> dict:
+    """s per maml_trpo iteration on ML10 at the defaults with
+    ``--task_batch``, against the maml_trpo trainer's per-task iterations
+    of the same call (``per_task``), with the policy round trips and
+    shipments of each, and one more batched iteration profiled (idle
+    share), pinned to HOST_CPUS CPUs; the pool's
+    env steps/s at POOL_SLOTS slots (fake ML10) on all the process's CPUs
+    and on HOST_CPUS, against the Python loop, and native Particles2D's."""
+    from exploring_meta_tpu_torch.envs.factory import make_env
+    from exploring_meta_tpu_torch.trainers.rl import (
+        RLTrainer, build_policy, rl_config,
+    )
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+
+    cfg = RLScriptConfig(env="ML10")
+    rl_cfg = rl_config(cfg)
+    trainer = RLTrainer(cfg, algo="trpo", path=tmp + "/")
+    with pinned_cpus(HOST_CPUS):
+        big, _ = make_env("ML10", workers=cfg.meta_batch_size
+                          * cfg.adapt_batch_size, seed=cfg.seed,
+                          max_path_length=cfg.max_path_length)
+        policy = build_policy(big, False)
+        params = policy.init(torch.Generator(device="cuda").manual_seed(SEED))
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+        iterations = {
+            "task_batch": trainer._make_host_batched_iteration(
+                big, policy, host.make_grouped_host_rollout(
+                    big, policy, cfg.max_path_length, cfg.meta_batch_size,
+                    cfg.adapt_batch_size), rl_cfg)}
+        counter = HostCounted(torch, gc, host)
+        counter.wrap(iterations["task_batch"])(params, None, gen)
+        turns = ([{"path": "per_task", **r} for r in per_task]
+                 + [{"path": "task_batch", **counter.rows[-1]}])
+        s = {name: [t["s"] for t in turns if t["path"] == name]
+             for name in ("per_task", "task_batch")}
+        prof = profiled(torch, lambda: iterations["task_batch"](
+            params, None, gen), min(s["task_batch"]))
+    pool = {}
+    acts = np.zeros((POOL_SLOTS, 4))
+    for cpus in (len(os.sched_getaffinity(0)), HOST_CPUS):
+        with pinned_cpus(cpus):
+            vec, _ = make_env("ML10", workers=POOL_SLOTS, seed=cfg.seed,
+                              max_path_length=cfg.max_path_length)
+            vec.set_task(vec.sample_tasks(None, 1)[0])
+            t0 = time.perf_counter()
+            for _ in range(POOL_STEPS):
+                vec._pool.step(acts)
+            pool[f"metaworld_native_{cpus}_cpus"] = (
+                POOL_SLOTS * POOL_STEPS / (time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    for _ in range(POOL_STEPS):
+        for i, e in enumerate(vec.envs):
+            e.step(acts[i])
+    pool["metaworld_python_loop"] = (POOL_SLOTS * POOL_STEPS
+                                     / (time.perf_counter() - t0))
+    nat = binding.NativeVecEnv("particles2d", n_envs=POOL_SLOTS)
+    nat.reset(np.zeros(2))
+    t0 = time.perf_counter()
+    for _ in range(10 * POOL_STEPS):
+        nat.step(np.zeros((POOL_SLOTS, 2)))
+    pool["particles2d_native"] = (POOL_SLOTS * 10 * POOL_STEPS
+                                  / (time.perf_counter() - t0))
+    out = {"turns": turns, "s_per_iteration": s,
+           "idle_share": prof["idle_share"],
+           "profile": {k: prof[k] for k in ("busy_union_us", "wall_us",
+                                            "kernel_launches",
+                                            "sweep_kernels_us", "top")},
+           "pool_env_steps_per_s": pool}
+    print(f"host timing: s per maml_trpo ML10 iteration, per task "
+          f"{s['per_task']} vs task-batched {s['task_batch']}; round trips "
+          f"per iteration {[t['round_trips'] for t in turns]}, shipments "
+          f"{[t['shipments'] for t in turns]}; profiled task-batched "
+          f"iteration idle {prof['idle_share']}; env steps/s at "
+          f"{POOL_SLOTS} slots {pool} [{gpu}]", flush=True)
+    return out
+
+
+def host_env_phase(torch, np, gc, gpu, tmp) -> dict:
+    """Phase 14: host envs (slice 13)."""
+    from exploring_meta_tpu_torch.envs import host
+    from exploring_meta_tpu_torch.native import binding
+
+    start = time.perf_counter()
+    t0 = time.perf_counter()
+    check(binding.load_vecenv_library() is not None,
+          "native/vecenv.cpp builds with g++")
+    out = {"build_s": time.perf_counter() - t0}
+    print(f"vecenv.cpp (g++): {out['build_s']:.2f} s -> "
+          f"{binding.library_path()}", flush=True)
+    # every vec env that collects; a 1-slot env that only samples tasks
+    # (meta_test under task_batch, as in JAX) takes the loop and never steps
+    stepped, collect = {}, host.HostVecEnv.collect
+
+    def recording(self, *args, **kwargs):
+        stepped[id(self)] = self.backend
+        return collect(self, *args, **kwargs)
+
+    host.HostVecEnv.collect = recording
+    remove = installed_fake_metaworld(os.path.dirname(
+        os.path.abspath(__file__)))
+    try:
+        out["native_particles2d"] = native_particles_vs_device(torch, np,
+                                                               binding)
+        with pinned_cpus(HOST_CPUS):
+            with recording_outer_steps({}) as recorded:
+                out["maml_trpo"] = host_trainer_run(
+                    torch, gc, host, tmp, "trpo",
+                    "_make_host_trpo_iteration",
+                    n_eval_tasks=HOST_EVAL_TASKS)
+                out["maml_ppo_task_batch"] = host_trainer_run(
+                    torch, gc, host, tmp, "ppo",
+                    "_make_host_batched_iteration", task_batch=True,
+                    outer_lr=0.01, n_eval_tasks=HOST_EVAL_TASKS)
+            out.update(host_eval_paths(torch, np, gc, host,
+                                       out["maml_ppo_task_batch"]["run"],
+                                       out["maml_trpo"]["run"], gpu))
+            cpu_run = host_trainer_run(
+                torch, gc, host, tmp, "ppo", "_make_host_batched_iteration",
+                task_batch=True, outer_lr=0.01, host_policy="cpu",
+                num_iterations=1, n_eval_tasks=1)
+        host.set_host_policy_device("device")
+        out["card_vs_cpu"] = host_card_vs_cpu(torch, np, host, gpu,
+                                              recorded)
+        check(cpu_run["counts"]["steps"] > 0
+              and cpu_run["counts"]["round_trips"] == 0
+              and cpu_run["counts"]["shipments"] > 0,
+              f"--host_policy cpu: every forward on the CPU, the rollouts "
+              f"shipped to the card: {cpu_run['counts']}")
+        out["host_policy_cpu"] = cpu_run
+        out["timing"] = host_timing(torch, np, gc, host, binding, tmp, gpu,
+                                    out["maml_trpo"]["per_iteration"])
+    finally:
+        host.HostVecEnv.collect = collect
+        host.set_host_policy_device("device")
+        remove()
+    try:
+        import gymnasium  # noqa: F401
+        import mujoco  # noqa: F401
+    except ImportError as e:
+        print(f"AntDirection-v1 not run: the image lacks gymnasium or "
+              f"mujoco ({e})", flush=True)
+        out["ant"] = None
+    else:
+        out["ant"] = host_trainer_run(
+            torch, gc, host, tmp, "trpo", "_make_host_trpo_iteration",
+            env="AntDirection-v1", num_iterations=1, n_eval_tasks=2)
+    check(stepped and set(stepped.values()) == {"native"},
+          f"every vec env of the phase steps on the native pool: "
+          f"{sorted(set(stepped.values()))}")
+    out["vec_envs_stepped"] = len(stepped)
+    launches: dict = {}
+    for paths in (out["maml_trpo"]["launches"],
+                  out["maml_ppo_task_batch"]["launches"],
+                  out["meta_test_each3"]["launches"],
+                  out["eval_rl"]["launches"], cpu_run["launches"],
+                  *([out["ant"]["launches"]] if out["ant"] else [])):
+        for k, n in paths.items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - start
+    print(f"phase 14 (host envs): {out['wall_s']:.2f} s, launches "
+          f"{launches} [{gpu}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4403,6 +4945,8 @@ def main() -> int:
         slice11 = run_utilities_phase(torch, gc, tc, gpu, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         slice12 = seed_sweep_phase(tc, gc, F, torch, gpu, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        slice13 = host_env_phase(torch, np, gc, gpu, tmp)
 
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -4414,8 +4958,8 @@ def main() -> int:
                    "policy_serve": policy_serve, "adam_rl": adam_rl,
                    "replay_meta_grad": replay_grad, "fused": fused,
                    "analysis": analysis, "slice10": slice10,
-                   "slice11": slice11, "slice12": slice12}, f, indent=1,
-                  default=str)
+                   "slice11": slice11, "slice12": slice12,
+                   "slice13": slice13}, f, indent=1, default=str)
 
     replaces = {
         "cnn4_block_fwd": "exploring_meta_tpu/pallas/cnn4_pallas.py:295",
@@ -4437,7 +4981,9 @@ def main() -> int:
     # maml_ppo's); the run utilities' (the resumed and uninterrupted
     # runs, the imported model's request and batch, the profiled runs);
     # and the seed sweeps' (the serial sweeps' trainers, the one-program
-    # sweeps' warm-up iterations and meta-tests)
+    # sweeps' warm-up iterations and meta-tests); and the host envs' (the
+    # per-task and task-batched trainers, meta_test each3, eval_rl, the
+    # --host_policy cpu run, Ant where the image has it)
     for paths in (vision["launches"], policy_serve["launches"],
                   adam_rl["launches"],
                   *(r["launches"] for r in fused.values()),
@@ -4449,7 +4995,8 @@ def main() -> int:
                   slice10["vision_baseline"]["launches"],
                   slice10["bf16"]["fused_trpo"]["launches"],
                   slice10["bf16"]["eager_ppo"]["launches"],
-                  slice11["launches"], slice12["launches"]):
+                  slice11["launches"], slice12["launches"],
+                  slice13["launches"]):
         for name, n in paths.items():
             launches[name] += n
     kernels = []

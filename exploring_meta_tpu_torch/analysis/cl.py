@@ -15,8 +15,14 @@ replayed) can be fed to the matrix; ``run_*`` composes them under the JAX
 signature, with a ``torch.Generator`` in place of the key. Batch-stat BN
 stays per task: the eval sets are one ``[n, N, ...]`` task batch, never
 ``n * N`` images.
-Host envs (their per-step adaptation progress and one-per-task matrices)
-are not ported yet.
+
+On a host env (MuJoCo, Meta-World) each row adapts step by step with the
+analysis-side inner update (``single_adapt_step``, one clipped PPO update)
+and records its per-step progress in ``cl_exp/adapt_progress.json``;
+``one_per_task`` builds the matrix over one task of every distinct task id
+(the reference's ML10 mode), and a ``grouped_roll_factory``
+(``envs/host.py``) adapts all rows in lockstep and measures each row in one
+grouped rollout.
 """
 
 from __future__ import annotations
@@ -28,12 +34,15 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from exploring_meta_tpu_torch.adapt.maml import inner_sgd
-from exploring_meta_tpu_torch.envs.factory import HOST_ENVS
+from exploring_meta_tpu_torch.adapt.maml import inner_sgd, per_task
 from exploring_meta_tpu_torch.ops.cl_metrics import calc_cl_metrics
 from exploring_meta_tpu_torch.ops.losses import accuracy, cross_entropy
-from exploring_meta_tpu_torch.rl.adapt_rl import _query_metrics
-from exploring_meta_tpu_torch.rl.evaluate import adapt_tasks
+from exploring_meta_tpu_torch.rl.adapt_rl import (
+    _query_metrics, single_adapt_step,
+)
+from exploring_meta_tpu_torch.rl.evaluate import (
+    adapt_tasks, sample_3_from_each_task,
+)
 from exploring_meta_tpu_torch.tasks.sampler import (
     sample_task_batch, split_support_query,
 )
@@ -121,24 +130,88 @@ def run_cl_exp(path, apply_fn: Callable, params, dataset, ways: int,
     return acc_matrix, cl_res
 
 
+def _as_np(rows: list) -> np.ndarray:
+    return torch.stack(rows).cpu().numpy().astype(np.float64)
+
+
+def _wide(adapted, n: int):
+    """One task's adapted params ``[1, ...]`` broadcast to ``n`` tasks."""
+    return tree_map(lambda x: x.expand((n,) + tuple(x.shape[1:])), adapted)
+
+
 def cl_rl_matrix(algo: str, policy, params, tasks, rollout_fn: Callable,
                  eval_roll: Callable, cfg, gen: torch.Generator) -> tuple:
     """The RL CL matrices of a task batch ``tasks [n, ...]`` -> ``(reward
     [n, n], success [n, n])`` float64: row i adapts ``params`` on task i
     (``fast_adapt_<algo>``, no graph), broadcasts the adapted policy to all
     n tasks and measures it in one batched ``eval_roll``."""
-    n = tasks.shape[0]
+    n = len(tasks)
     rews, sucs = [], []
     for i in range(n):
         adapted = adapt_tasks(algo, policy, params, rollout_fn,
                               tasks[i:i + 1], gen, cfg)
-        wide = tree_map(lambda x: x.expand((n,) + tuple(x.shape[1:])),
-                        adapted)
-        m = _query_metrics(eval_roll(wide, tasks, gen))
+        m = _query_metrics(eval_roll(_wide(adapted, n), tasks, gen))
         rews.append(m["reward"])
         sucs.append(m["success"])
-    as_np = lambda rows: torch.stack(rows).cpu().numpy().astype(np.float64)
-    return as_np(rews), as_np(sucs)
+    return _as_np(rews), _as_np(sucs)
+
+
+def sample_one_from_each_task(env, gen, pool: int = 50) -> list:
+    """One task of every distinct task id (reference
+    ``sample_from_each_task``, ``cl_rl.py:187-198``): the ML10 CL matrix
+    covers each benchmark task once."""
+    return sample_3_from_each_task(env, gen, pool=pool, per_task=1)
+
+
+def _record(progress: dict, step: int, rews, sucs, first: int = 0) -> None:
+    """The support reward and success of adaptation ``step`` of tasks
+    ``first``, ``first + 1``, ..."""
+    for i, (r, s) in enumerate(zip(rews.tolist(), sucs.tolist()), first):
+        key = f"task_{i + 1}"
+        progress["reward"].setdefault(key, {})[f"step_{step}"] = r
+        progress["success"].setdefault(key, {})[f"step_{step}"] = s
+
+
+@torch.no_grad()
+def cl_rl_host_matrix(algo: str, policy, params, tasks, rollout_fn: Callable,
+                      cfg, gen: torch.Generator,
+                      grouped_roll_factory: Callable | None = None) -> tuple:
+    """The RL CL matrices on a host env -> ``(reward [n, n], success [n,
+    n], progress)``: row i adapts ``params`` on task i step by step
+    (``single_adapt_step``, the analysis-side update), recording each
+    step's support reward and success in ``progress`` (reference
+    ``cl_rl.py:59-91``), then measures the adapted policy on every task.
+    Per task (JAX's eager loop: row i's adaptation, then its n rollouts,
+    one task at a time), or with ``grouped_roll_factory`` all n
+    adaptations in lockstep and each row in one grouped rollout."""
+    n = len(tasks)
+    progress: dict = {"reward": {}, "success": {}}
+    rews, sucs = [], []
+    if grouped_roll_factory is not None:
+        grouped = grouped_roll_factory(n)
+        cur = per_task(params, n)
+        for step in range(cfg.adapt_steps):
+            support = grouped(cur, tasks, gen)
+            m = _query_metrics(support)
+            _record(progress, step, m["reward"], m["success"])
+            cur = single_adapt_step(algo, policy, cur, support, cfg)
+        for i in range(n):
+            m = _query_metrics(grouped(_wide(tree_map(lambda x: x[i:i + 1],
+                                                      cur), n), tasks, gen))
+            rews.append(m["reward"])
+            sucs.append(m["success"])
+        return _as_np(rews), _as_np(sucs), progress
+    for i in range(n):
+        p = per_task(params, 1)
+        for step in range(cfg.adapt_steps):
+            support = rollout_fn(p, tasks[i:i + 1], gen)
+            p = single_adapt_step(algo, policy, p, support, cfg)
+            m = _query_metrics(support)
+            _record(progress, step, m["reward"], m["success"], first=i)
+        m = _query_metrics(rollout_fn(_wide(p, n), tasks, gen))
+        rews.append(m["reward"])
+        sucs.append(m["success"])
+    return _as_np(rews), _as_np(sucs), progress
 
 
 def run_cl_rl_exp(path, policy, params, env, rollout_fn: Callable, cfg,
@@ -147,29 +220,41 @@ def run_cl_rl_exp(path, policy, params, env, rollout_fn: Callable, cfg,
                   normalize_rewards: bool = False,
                   one_per_task: bool = False,
                   grouped_roll_factory: Callable | None = None) -> tuple:
-    """RL CL experiment on a device env -> ``(rew_matrix, cl_res_rew,
-    cl_res_suc)`` (reference ``run_cl_rl_exp``, ``cl_rl.py:26-153``),
-    written to ``<path>/cl_exp/``. Matrix cells are measured with
+    """RL CL experiment -> ``(rew_matrix, cl_res_rew, cl_res_suc)``
+    (reference ``run_cl_rl_exp``, ``cl_rl.py:26-153``), written to
+    ``<path>/cl_exp/``. On a device env, matrix cells are measured with
     ``eval_batch_size`` episodes where given (reference
-    ``cl_rl.py:105-107``); ``normalize_rewards`` scales each row to unit
-    L2 norm (sklearn ``normalize``, ``cl_rl.py:127-133``)."""
+    ``cl_rl.py:105-107``; a host vec env's slot count is fixed, as in JAX).
+    ``normalize_rewards`` scales each row to unit L2 norm (sklearn
+    ``normalize``, ``cl_rl.py:127-133``). ``one_per_task`` and
+    ``grouped_roll_factory``: see :func:`cl_rl_host_matrix` and
+    :func:`sample_one_from_each_task`; a host env also writes
+    ``adapt_progress.json``."""
     if algo not in ("vpg", "ppo", "trpo"):
         raise ValueError(f"unknown adaptation algo {algo!r}")
-    if one_per_task or grouped_roll_factory is not None \
-            or hasattr(env, "collect"):
-        raise NotImplementedError(f"run_cl_rl_exp: {HOST_ENVS}")
     cl_path = os.path.join(path, "cl_exp")
     os.makedirs(cl_path, exist_ok=True)
 
-    tasks = env.sample_tasks(gen, n_tasks)
-    eval_roll = rollout_fn
-    if eval_batch_size is not None:
-        from exploring_meta_tpu_torch.rl.rollout import make_rollout
-        eval_roll = make_rollout(env, policy.sample,
-                                 episodes=eval_batch_size,
-                                 horizon=cfg.max_path_length)
-    rew_matrix, suc_matrix = cl_rl_matrix(algo, policy, params, tasks,
-                                          rollout_fn, eval_roll, cfg, gen)
+    if one_per_task:
+        tasks = sample_one_from_each_task(env, gen)
+        n_tasks = len(tasks)
+    else:
+        tasks = env.sample_tasks(gen, n_tasks)
+    host_env = hasattr(env, "collect")
+    if host_env:
+        rew_matrix, suc_matrix, progress = cl_rl_host_matrix(
+            algo, policy, params, tasks, rollout_fn, cfg, gen,
+            grouped_roll_factory)
+    else:
+        eval_roll = rollout_fn
+        if eval_batch_size is not None:
+            from exploring_meta_tpu_torch.rl.rollout import make_rollout
+            eval_roll = make_rollout(env, policy.sample,
+                                     episodes=eval_batch_size,
+                                     horizon=cfg.max_path_length)
+        rew_matrix, suc_matrix = cl_rl_matrix(algo, policy, params, tasks,
+                                              rollout_fn, eval_roll, cfg,
+                                              gen)
     if normalize_rewards:
         norms = np.linalg.norm(rew_matrix, axis=1, keepdims=True)
         rew_matrix = rew_matrix / np.maximum(norms, 1e-12)
@@ -187,4 +272,6 @@ def run_cl_rl_exp(path, policy, params, env, rollout_fn: Callable, cfg,
         "max_path_length": cfg.max_path_length,
         "normalize_rewards": normalize_rewards,
         "one_per_task": one_per_task})
+    if host_env:
+        _write_json(os.path.join(cl_path, "adapt_progress.json"), progress)
     return rew_matrix, cl_res_rew, cl_res_suc

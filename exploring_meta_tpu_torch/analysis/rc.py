@@ -9,8 +9,7 @@ sanity check (``rc_rl.py:34-80``): identical params on identical inputs
 must give bit-identical representations.
 
 Activations stay on their device: the CCA covariance and the CKA
-products run there (``ops/cca.py``, ``ops/cka.py``). Host envs
-(``eval_each_task``, grouped collection) are not ported yet.
+products run there (``ops/cca.py``, ``ops/cka.py``).
 """
 
 from __future__ import annotations
@@ -23,7 +22,6 @@ import numpy as np
 import torch
 
 from exploring_meta_tpu_torch.adapt.maml import inner_sgd, per_task
-from exploring_meta_tpu_torch.envs.factory import HOST_ENVS
 from exploring_meta_tpu_torch.ops.cca import get_cca_similarity
 from exploring_meta_tpu_torch.ops.cka import get_kernel_CKA, get_linear_CKA
 from exploring_meta_tpu_torch.ops.losses import cross_entropy
@@ -169,9 +167,9 @@ def run_rep_rl_exp(path, policy, params, env, rollout_fn: Callable, cfg,
                    compare: tuple = ("cca",), algo: str = "trpo",
                    eval_each_task: bool = False,
                    grouped_roll_factory: Callable | None = None) -> dict:
-    """RL representation-change experiment on a device env (reference
-    ``rc_rl.py:83-221``). Per task, adapt step by step
-    (``single_adapt_step``: vpg / ppo / trpo, first order), tracking
+    """RL representation-change experiment (reference ``rc_rl.py:83-221``).
+    Per task, adapt step by step (``single_adapt_step``: vpg / ppo / trpo,
+    first order), tracking
 
     - across steps: per-state similarity (mean, stdev) of the initial and
       the post-step model, and of consecutive models, on the support
@@ -186,10 +184,15 @@ def run_rep_rl_exp(path, policy, params, env, rollout_fn: Callable, cfg,
     then averages the layer changes over tasks and writes
     ``rep_params.json``, ``<metric>_rl_results.json``, ``rep_extra.json``
     and the layer-average plot (``layer_changes_average.png``, where
-    matplotlib is installed)."""
-    if eval_each_task or grouped_roll_factory is not None \
-            or hasattr(env, "collect"):
-        raise NotImplementedError(f"run_rep_rl_exp: {HOST_ENVS}")
+    matplotlib is installed).
+
+    ``eval_each_task`` probes 3 trials of every distinct task id
+    (Meta-World; reference ``rep_params['eval_each_task']``). A
+    ``grouped_roll_factory`` (host envs, ``envs/host.py``) collects all
+    tasks' rollouts in lockstep, ``adapt_steps + 1`` grouped rollouts in
+    all, with the same probes and artifacts (lists stay task-major)."""
+    from exploring_meta_tpu_torch.rl.evaluate import sample_3_from_each_task
+
     # the reference eval config's layers (eval_rl.py:77), module-counted
     # (models/policies.py get_representation): 2 / 4 Linear outputs, -1
     # the pre-head tap
@@ -199,42 +202,80 @@ def run_rep_rl_exp(path, policy, params, env, rollout_fn: Callable, cfg,
     rep_path = os.path.join(path, "rep_exp")
     os.makedirs(rep_path, exist_ok=True)
 
-    tasks = env.sample_tasks(gen, rep_params["n_tasks"])
+    tasks = (sample_3_from_each_task(env, gen) if eval_each_task
+             else env.sample_tasks(gen, rep_params["n_tasks"]))
+    n = len(tasks)
     rep = policy.get_representation
     results = {m: {str(l): [] for l in layers} for m in compare}
     across_steps = {"init_mean": [], "init_var": [],
                     "adapt_mean": [], "adapt_var": []}
     performance = []
-    with torch.no_grad():
-        for i in range(tasks.shape[0]):
-            task = tasks[i:i + 1]
-            before = per_task(params, 1)
-            suc_before = suc_after = 0.0
-            for step in range(adapt_steps):
-                support = rollout_fn(before, task, gen)
-                after = single_adapt_step(algo, policy, before, support, cfg)
-                suc_after = float(support.episode_successes().mean())
-                if step == 0:
-                    suc_before = suc_after
-                states = real_states(_task(support))
-                rep_after = rep(_task(after), states)
-                im, iv = _per_state_similarity(rep(params, states), rep_after)
-                am, av = _per_state_similarity(rep(_task(before), states),
-                                               rep_after)
-                for k, v in zip(across_steps, (im, iv, am, av)):
-                    across_steps[k].append(v)
-                before = after
-            performance.append({"success_before": suc_before,
-                                "success_after": suc_after})
 
-            states = real_states(_task(rollout_fn(before, task, gen)))
-            sanity_check(rep, params, states)
-            for layer in layers:
-                sims = _similarities(rep(params, states, layer),
-                                     rep(_task(before), states, layer),
-                                     compare)
-                for metric, value in sims.items():
-                    results[metric][str(layer)].append(float(value))
+    def probe_step(support, before, after) -> tuple:
+        """One task's across-steps probes on its support states."""
+        states = real_states(support)
+        rep_after = rep(after, states)
+        return (*_per_state_similarity(rep(params, states), rep_after),
+                *_per_state_similarity(rep(before, states), rep_after))
+
+    def probe_layers(query, adapted) -> None:
+        """One task's across-layers probes on its query states."""
+        states = real_states(query)
+        for layer in layers:
+            sims = _similarities(rep(params, states, layer),
+                                 rep(adapted, states, layer), compare)
+            for metric, value in sims.items():
+                results[metric][str(layer)].append(float(value))
+
+    def success(support, i: int) -> float:
+        return float(_task(support, i).episode_successes().mean())
+
+    with torch.no_grad():
+        if grouped_roll_factory is not None:
+            grouped = grouped_roll_factory(n)
+            cur = per_task(params, n)
+            bufs = [[] for _ in range(n)]
+            suc = [[0.0, 0.0] for _ in range(n)]
+            for step in range(adapt_steps):
+                support = grouped(cur, tasks, gen)
+                after = single_adapt_step(algo, policy, cur, support, cfg)
+                for i in range(n):
+                    suc[i][1] = success(support, i)
+                    if step == 0:
+                        suc[i][0] = suc[i][1]
+                    bufs[i].append(probe_step(_task(support, i),
+                                              _task(cur, i), _task(after, i)))
+                cur = after
+            query = grouped(cur, tasks, gen)
+            sanity_check(rep, params, real_states(_task(query)))
+            for i in range(n):  # task-major, as the per-task loop
+                for probes in bufs[i]:
+                    for k, v in zip(across_steps, probes):
+                        across_steps[k].append(v)
+                performance.append({"success_before": suc[i][0],
+                                    "success_after": suc[i][1]})
+                probe_layers(_task(query, i), _task(cur, i))
+        else:
+            for i in range(n):
+                task = tasks[i:i + 1]
+                before = per_task(params, 1)
+                suc_before = suc_after = 0.0
+                for step in range(adapt_steps):
+                    support = rollout_fn(before, task, gen)
+                    after = single_adapt_step(algo, policy, before, support,
+                                              cfg)
+                    suc_after = success(support, 0)
+                    if step == 0:
+                        suc_before = suc_after
+                    for k, v in zip(across_steps, probe_step(
+                            _task(support), _task(before), _task(after))):
+                        across_steps[k].append(v)
+                    before = after
+                performance.append({"success_before": suc_before,
+                                    "success_after": suc_after})
+                query = _task(rollout_fn(before, task, gen))
+                sanity_check(rep, params, real_states(query))
+                probe_layers(query, _task(before))
 
     # the layer change averaged over tasks (reference av_layer_changes)
     av_mean, av_std = {}, {}

@@ -7,6 +7,9 @@
     python -m exploring_meta_tpu_torch.cli anil_ppo --num_iterations 3
     python -m exploring_meta_tpu_torch.cli eval_vision <run_dir>
     python -m exploring_meta_tpu_torch.cli eval_rl <run_dir> --cl --rc
+    python -m exploring_meta_tpu_torch.cli maml_ppo --env ML10 --task_batch
+    python -m exploring_meta_tpu_torch.cli eval_rl <run_dir> --each3 \
+        --task_batch --cl --rc
     python -m exploring_meta_tpu_torch.cli ppo_baseline --num_iterations 3
     python -m exploring_meta_tpu_torch.cli vision_baseline --synthetic
     python -m exploring_meta_tpu_torch.cli maml_ppo --resume \
@@ -156,9 +159,7 @@ def eval_vision(argv=None) -> dict:
 
 def eval_rl(argv=None) -> dict:
     """Offline RL evaluation of a run directory (``emt-eval-rl``; reference
-    ``misc_scripts/eval_rl.py``). The host-env flags (``--workers``,
-    ``--task_batch``, ``--host_policy cpu``) raise
-    ``NotImplementedError``."""
+    ``misc_scripts/eval_rl.py``)."""
     from exploring_meta_tpu_torch.utils.config import requested_device
 
     p = argparse.ArgumentParser(description="Evaluate an RL run directory")
@@ -191,8 +192,8 @@ def eval_rl(argv=None) -> dict:
                         "during collection")
     args = p.parse_args(argv)
     if args.host_policy != "device":
-        from exploring_meta_tpu_torch.envs.factory import HOST_ENVS
-        raise NotImplementedError(f"eval_rl: --host_policy: {HOST_ENVS}")
+        from exploring_meta_tpu_torch.envs.host import set_host_policy_device
+        set_host_policy_device(args.host_policy)
     from exploring_meta_tpu_torch.analysis import eval_rl as er
     return er.run(args.path, run_cl=args.cl, run_rc=args.rc,
                   n_eval_tasks=args.task or args.n_eval_tasks,

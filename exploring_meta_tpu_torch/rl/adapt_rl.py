@@ -7,7 +7,9 @@ out: every trajectory is a task batch ``[B, T, E, ...]``, per-task params
 carry a leading ``[B]`` on every leaf, and every loss and metric is a
 ``[B]`` vector, one value per task. An inner step differentiates the sum
 of the per-task losses with respect to per-task params, so each task
-adapts on its own data only.
+adapts on its own data only. A task batch is a tensor ``[B, ...]`` on a
+device env, or a host env's list (Meta-World dicts) or array of ``B``
+tasks: only its length is read here, and the rollout takes it as it is.
 
 A one-program seed sweep (``parallel/multiseed.py``) passes ``seeds=S``:
 the params are ``S`` seeds' stacked ``[S, ...]`` params, the task batch
@@ -198,7 +200,7 @@ def fast_adapt_vpg(policy, params, rollout_fn: Callable, tasks,
     ``params`` (or ``seeds`` seeds' stacked ones) -> (adapted per-task
     params, differentiable query losses ``[B]``, query metrics) (reference
     ``fast_adapt_vpg``, ``rl.py:229-254``)."""
-    params = task_copies(params, tasks.shape[0], seeds)
+    params = task_copies(params, len(tasks), seeds)
     for _ in range(cfg.adapt_steps):
         support = rollout_fn(params, tasks, gen)
         params = _inner_update(
@@ -244,7 +246,7 @@ def fast_adapt_ppo(policy, params, rollout_fn: Callable, tasks,
     ``cfg.first_order`` (the outer step differentiates through all of
     them, ``maml_ppo.py:128-130``) -> (adapted per-task params, query
     losses, query metrics). ``seeds``: as :func:`fast_adapt_vpg`."""
-    params = task_copies(params, tasks.shape[0], seeds)
+    params = task_copies(params, len(tasks), seeds)
     for _ in range(cfg.adapt_steps):
         support = rollout_fn(params, tasks, gen)
         params = _ppo_updates(policy, params, support, cfg, cfg.ppo_epochs)
@@ -320,7 +322,7 @@ def fast_adapt_trpo(policy, params, rollout_fn: Callable, tasks,
     replay (reference ``rl/maml_trpo.py:113``, ``rl.py:441-473``).
     ``seeds``: as :func:`fast_adapt_vpg`."""
     params = task_copies(tree_map(torch.Tensor.detach, params),
-                         tasks.shape[0], seeds)
+                         len(tasks), seeds)
     replay = []
     baseline_w = None
     for _ in range(cfg.adapt_steps):

@@ -17,8 +17,11 @@ shots`` images as one batch-stat BN batch: on the Omniglot spec under
 
 As in JAX, the meta-trainers' extras (``_UNSUPPORTED``) are ignored with a
 printed note, and the run utilities that JAX's ``Experiment`` honours
-(``--wandb``, ``--compile_cache``) are honoured. Device envs only: a host
-env raises ``NotImplementedError`` naming its ROADMAP item.
+(``--wandb``, ``--compile_cache``) are honoured. On a host env (MuJoCo,
+Meta-World) the rollouts are the per-task host rollout
+(``envs/host.py:make_host_rollout``) with the policy's forwards on the card
+(JAX's baselines always set ``"device"``), and ``--workers`` caps the
+native pool's threads.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ from exploring_meta_tpu_torch.trainers.rl import (
 )
 from exploring_meta_tpu_torch.trainers.vision import _build_spec
 from exploring_meta_tpu_torch.utils.config import (
-    CONV_IMPLS, RLScriptConfig, VisionConfig, raise_unported,
+    CONV_IMPLS, RLScriptConfig, VisionConfig,
 )
 from exploring_meta_tpu_torch.utils.experiment import (
     DivergenceError, Experiment,
@@ -84,33 +87,40 @@ def _warn_unsupported(cfg) -> None:
               f"ignored: {', '.join(ignored)}")
 
 
-def _check_ported(trainer: str, env: str) -> None:
-    """Raise, before a run dir is made, on what JAX's baselines run and the
-    port does not yet: a host ``env``."""
-    raise_unported(trainer, [(not env.startswith("Particles2D"),
-                              f"env={env!r}", "host envs")])
-
-
 # ---------------------------------------------------------------------------
 # RL baselines
 # ---------------------------------------------------------------------------
 
 def _setup_rl_baseline(cfg: RLScriptConfig):
     """Env, policy and rollout shared by the RL baselines -> ``(env,
-    is_device, policy, roll)``. Device envs only: ``make_env`` raises on a
-    host env, naming its ROADMAP item."""
+    is_device, policy, roll)``: the device rollout, or on a host env the
+    per-task host rollout (the reference baselines train on whatever
+    ``make_env`` yields, multitask Meta-World included,
+    ``baselines/ppo.py:42-48``)."""
     _warn_unsupported(cfg)
     env, is_device = make_env(cfg.env, workers=cfg.adapt_batch_size,
                               seed=cfg.seed,
-                              max_path_length=cfg.max_path_length)
+                              max_path_length=cfg.max_path_length,
+                              n_threads=cfg.workers if cfg.workers > 1
+                              else None)
     policy = build_policy(env, anil=False, activation=cfg.activation)
-    roll = make_rollout(env, policy.sample, episodes=cfg.adapt_batch_size,
-                        horizon=cfg.max_path_length)
+    if is_device:
+        roll = make_rollout(env, policy.sample,
+                            episodes=cfg.adapt_batch_size,
+                            horizon=cfg.max_path_length)
+    else:
+        from exploring_meta_tpu_torch.envs import host
+        # collection is forward-only; the baselines keep the policy on the
+        # device, and set it: an earlier trainer in this process may have
+        # left the module default on the CPU
+        host.set_host_policy_device("device")
+        roll = host.make_host_rollout(env, policy, cfg.max_path_length)
     return env, is_device, policy, roll
 
 
-def _task_at(tasks: torch.Tensor, i: int) -> torch.Tensor:
-    """Task ``i`` of a sampled batch as a task batch of one, ``[1, ...]``."""
+def _task_at(tasks, i: int):
+    """Task ``i`` of a sampled batch (a tensor, or a host env's list or
+    array of tasks) as a task batch of one."""
     return tasks[i:i + 1]
 
 
@@ -191,7 +201,6 @@ class _RLBaseline(Experiment):
 
     def __init__(self, cfg: RLScriptConfig, path: str | None = None,
                  device=None):
-        _check_ported(type(self).__name__, cfg.env)
         self.device = resolve_device(device)
         super().__init__(self.name, cfg.env, cfg.to_params(),
                          path=path or self.default_path,

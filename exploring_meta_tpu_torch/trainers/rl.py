@@ -1,5 +1,5 @@
-"""Meta-RL trainer on device envs: MAML/ANIL x TRPO/PPO/VPG (port of the
-device-env paths of ``exploring_meta_tpu/trainers/rl.py``; reference
+"""Meta-RL trainer: MAML/ANIL x TRPO/PPO/VPG (port of
+``exploring_meta_tpu/trainers/rl.py``; reference
 ``rl/maml_trpo.py``, ``rl/anil_trpo.py``, ``rl/maml_ppo.py``,
 ``rl/anil_ppo.py``, ``rl/maml_vpg.py``).
 
@@ -28,8 +28,16 @@ on a background thread, ``--ckpt_backend orbax`` as
 into ``phase_times.json`` and ``--trace`` records the training loop
 (``utils/profiling.py``); ``--wandb`` logs the metrics rows.
 
-Every option the JAX trainer has and the port does not run yet (host
-envs, ``--mesh``) raises ``NotImplementedError`` naming its ROADMAP item.
+Host envs (MuJoCo AntDirection, Meta-World) collect on the host
+(``envs/host.py``) and take the outer steps on the card from the stored
+replays: per task, in JAX's order (task i's support rollout, its inner
+step, its query rollout, then task i + 1), or with ``--task_batch`` all
+tasks in lockstep through one ``meta_batch x episodes``-slot vec env
+(``rl/host_batched.py``). ``--workers`` caps the native pool's threads,
+``--host_policy cpu`` runs the per-step policy forwards on the CPU, and
+``--fuse N`` is ignored on host envs, as in JAX (a host step cannot be
+captured). ``--mesh`` raises ``NotImplementedError`` naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -40,20 +48,25 @@ import time
 
 import torch
 
-from exploring_meta_tpu_torch.adapt.maml import adam
+from exploring_meta_tpu_torch.adapt.maml import adam, apply_meta_gradient
 from exploring_meta_tpu_torch.device import resolve_device
 from exploring_meta_tpu_torch.envs.factory import make_env
 from exploring_meta_tpu_torch.models.policies import (
     DiagNormalPolicy, DiagNormalPolicyANIL,
 )
-from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
+from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig, make_trpo_collect
 from exploring_meta_tpu_torch.rl.evaluate import meta_test
-from exploring_meta_tpu_torch.rl.rollout import make_rollout
+from exploring_meta_tpu_torch.rl.replay_meta import (
+    collect_replays, make_replay_meta_loss,
+)
+from exploring_meta_tpu_torch.rl.rollout import Trajectory, make_rollout
 from exploring_meta_tpu_torch.rl.train_scan import (
     make_adam_iteration, make_adam_train_scan, make_trpo_iteration,
     make_trpo_train_scan,
 )
-from exploring_meta_tpu_torch.rl.trpo_meta import TRPOConfig
+from exploring_meta_tpu_torch.rl.trpo_meta import (
+    TRPOConfig, make_trpo_meta_step,
+)
 from exploring_meta_tpu_torch.trainers.fused import host_metrics, run_fused
 from exploring_meta_tpu_torch.utils.config import (
     RLScriptConfig, raise_unported,
@@ -102,18 +115,20 @@ def trpo_config(cfg: RLScriptConfig) -> TRPOConfig:
 
 
 def _check_ported(cfg: RLScriptConfig) -> None:
-    unported = [
-        (not cfg.env.startswith("Particles2D"), f"env={cfg.env!r}",
-         "host envs"),
-        (cfg.task_batch, "task_batch", "host envs"),
-        (cfg.mesh > 1, "mesh > 1", "scale-out"),
-    ]
-    raise_unported("RLTrainer", unported)
+    raise_unported("RLTrainer", [(cfg.mesh > 1, "mesh > 1", "scale-out")])
+
+
+def _cat_tasks(rows: list):
+    """Per-task results ``[1, ...]`` (params trees or Trajectories) -> one
+    ``[B, ...]`` along the task axis."""
+    if isinstance(rows[0], Trajectory):
+        return Trajectory(*(torch.cat(xs) for xs in zip(*rows)))
+    return tree_map(lambda *xs: torch.cat(xs), *rows)
 
 
 class RLTrainer(Experiment):
-    """Meta-RL training loop for device envs; ``algo`` is ``"trpo"``,
-    ``"ppo"`` or ``"vpg"``.
+    """Meta-RL training loop; ``algo`` is ``"trpo"``, ``"ppo"`` or
+    ``"vpg"``.
 
     ``device`` defaults to the card; pass ``device="cpu"`` to train on the
     CPU. Without a card the default raises before any run dir is made."""
@@ -164,6 +179,99 @@ class RLTrainer(Experiment):
 
         return step
 
+    def _make_host_trpo_iteration(self, env, policy, roll, rl_cfg: RLConfig):
+        """Host-env TRPO, per task in JAX's order: each task's first-order
+        collection is the batched one on a ``[1]`` task slice, and the
+        stacked replays take the device path's outer step."""
+        collect = make_trpo_collect(policy, roll, rl_cfg)
+        meta_step = make_trpo_meta_step(policy, rl_cfg, trpo_config(self.cfg),
+                                        rl_cfg.adapt_steps)
+
+        def step(params, _, gen):
+            tasks = env.sample_tasks(gen, self.cfg.meta_batch_size)
+            with self._ph("collect"):
+                rows = [collect(params, tasks[i:i + 1], gen)
+                        for i in range(len(tasks))]
+            with self._ph("meta_step") as sync:
+                params, info = meta_step(params,
+                                         _cat_tasks([r[0] for r in rows]),
+                                         _cat_tasks([r[2] for r in rows]))
+                sync.append(params)
+            return params, None, {
+                "adapt_reward": torch.cat([r[3]["reward"]
+                                           for r in rows]).mean(),
+                "adapt_success": torch.cat([r[3]["success"]
+                                            for r in rows]).mean(),
+                "meta_loss": info["old_loss"],
+                "ls_accepted": info["accepted"]}
+
+        return step
+
+    def _make_host_adam_iteration(self, env, policy, roll, rl_cfg: RLConfig):
+        """Host-env PPO / VPG, per task in JAX's order: each task's
+        collection records its replays without a graph
+        (``rl/replay_meta.py:collect_replays`` on a ``[1]`` task slice);
+        the Adam step takes the second-order meta-gradient of the mean
+        query loss rederived from all of them."""
+        meta_loss = make_replay_meta_loss(self.algo, policy, rl_cfg)
+
+        def step(params, opt, gen):
+            tasks = env.sample_tasks(gen, self.cfg.meta_batch_size)
+            with self._ph("collect"):
+                rows = [collect_replays(self.algo, policy, params, roll,
+                                        tasks[i:i + 1], gen, rl_cfg)
+                        for i in range(len(tasks))]
+            with self._ph("meta_step") as sync:
+                loss = meta_loss(params, _cat_tasks([r[0] for r in rows]))
+                apply_meta_gradient(opt, loss, params)
+                sync.append(params)
+            return params, opt, {
+                "meta_loss": loss.detach(),
+                "adapt_reward": torch.cat([r[1]["reward"]
+                                           for r in rows]).mean(),
+                "adapt_success": torch.cat([r[1]["success"]
+                                            for r in rows]).mean()}
+
+        return step
+
+    def _make_host_batched_iteration(self, env, policy, roll,
+                                     rl_cfg: RLConfig):
+        """``--task_batch`` on a host env: the whole meta-batch collects in
+        lockstep (``rl/host_batched.py``), ``meta_batch`` times fewer
+        policy round trips than per task, then the replay outer step (TRPO's
+        natural gradient, or Adam through the rederived query losses)."""
+        from exploring_meta_tpu_torch.rl.host_batched import (
+            collect_task_batched,
+        )
+        if self.algo == "trpo":
+            meta_step = make_trpo_meta_step(policy, rl_cfg,
+                                            trpo_config(self.cfg),
+                                            rl_cfg.adapt_steps)
+        else:
+            meta_loss = make_replay_meta_loss(self.algo, policy, rl_cfg)
+
+        def step(params, opt, gen):
+            tasks = env.sample_tasks(gen, self.cfg.meta_batch_size)
+            with self._ph("collect") as sync:
+                old, replays, m = collect_task_batched(
+                    self.algo, policy, params, roll, tasks, gen, rl_cfg)
+                sync.append(replays.reward)
+            with self._ph("meta_step") as sync:
+                if self.algo == "trpo":
+                    params, info = meta_step(params, old, replays)
+                    loss = info["old_loss"]
+                    extra = {"ls_accepted": info["accepted"]}
+                else:
+                    loss = meta_loss(params, replays)
+                    apply_meta_gradient(opt, loss, params)
+                    loss, extra = loss.detach(), {}
+                sync.append(params)
+            return params, opt, {"meta_loss": loss,
+                                 "adapt_reward": m["reward"],
+                                 "adapt_success": m["success"], **extra}
+
+        return step
+
     def _fused_loop(self, env, policy, roll, rl_cfg: RLConfig, params, opt,
                     gen, start: int = 0) -> int:
         """All iterations in chunks of ``cfg.fuse`` (``rl/train_scan.py``,
@@ -191,8 +299,15 @@ class RLTrainer(Experiment):
 
     def run(self) -> dict:
         cfg = self.cfg
-        env, _ = make_env(cfg.env, seed=cfg.seed,
-                          max_path_length=cfg.max_path_length)
+        # task-batched host collection steps the whole meta-batch through
+        # one meta_batch x episodes-slot vec env; per-task collection
+        # reuses episodes slots. --workers caps the native pool's threads.
+        workers = cfg.adapt_batch_size * (
+            cfg.meta_batch_size if cfg.task_batch else 1)
+        env, is_device = make_env(
+            cfg.env, workers=workers, seed=cfg.seed,
+            max_path_length=cfg.max_path_length,
+            n_threads=cfg.workers if cfg.workers > 1 else None)
         policy = build_policy(env, self.anil, fc_neurons=cfg.fc_neurons,
                               activation=cfg.activation)
         if cfg.bf16:
@@ -204,18 +319,38 @@ class RLTrainer(Experiment):
         params = policy.init(gen)
         self.log_model(params)
         rl_cfg = rl_config(cfg, self.anil)
-        roll = make_rollout(env, policy.sample,
-                            episodes=cfg.adapt_batch_size,
-                            horizon=cfg.max_path_length)
+        if is_device:
+            roll = make_rollout(env, policy.sample,
+                                episodes=cfg.adapt_batch_size,
+                                horizon=cfg.max_path_length)
+        else:
+            from exploring_meta_tpu_torch.envs import host
+            # always set: an earlier trainer in this process may have left
+            # the module default on the other placement
+            host.set_host_policy_device(cfg.host_policy)
+            roll = (host.make_grouped_host_rollout(
+                env, policy, cfg.max_path_length, cfg.meta_batch_size,
+                cfg.adapt_batch_size) if cfg.task_batch else
+                host.make_host_rollout(env, policy, cfg.max_path_length))
+        use_fused = cfg.fuse > 1 and is_device
         if self.algo == "trpo":
             # TRPO's natural-gradient step is stateless
             state = None
-            step_fn = self._make_trpo_iteration(env, policy, roll, rl_cfg)
         else:
             # the Adam leaves, stepped in place
             params = tree_map(torch.Tensor.requires_grad_, params)
             state = adam(params, cfg.outer_lr)
-            step_fn = self._make_adam_iteration(env, policy, roll, rl_cfg)
+        if not is_device and cfg.task_batch:
+            step_fn = self._make_host_batched_iteration(env, policy, roll,
+                                                        rl_cfg)
+        elif self.algo == "trpo":
+            step_fn = (self._make_trpo_iteration if is_device else
+                       self._make_host_trpo_iteration)(env, policy, roll,
+                                                       rl_cfg)
+        else:
+            step_fn = (self._make_adam_iteration if is_device else
+                       self._make_host_adam_iteration)(env, policy, roll,
+                                                       rl_cfg)
         start_iteration = 0
         if cfg.resume:
             # in place, before the first chunk: a capture takes the loaded
@@ -229,7 +364,7 @@ class RLTrainer(Experiment):
                  else contextlib.nullcontext())
         try:
             with trace:
-                if cfg.fuse > 1:
+                if use_fused:
                     iteration = self._fused_loop(env, policy, roll, rl_cfg,
                                                  params, state, gen,
                                                  start=start_iteration)
@@ -247,7 +382,7 @@ class RLTrainer(Experiment):
                                 params, iteration, opt_state=state, gen=gen,
                                 async_write=cfg.async_ckpt)
         except (KeyboardInterrupt, DivergenceError) as stop:
-            if cfg.fuse > 1:
+            if use_fused:
                 # the COUNT of iterations in whole chunks (= rows of
                 # metrics.json before the stop) and their params
                 iteration, params = self._fused_count, self._fused_params
@@ -265,7 +400,8 @@ class RLTrainer(Experiment):
         # the generator only moves forward, so the meta-test draws numbers
         # that no training iteration (eager or replayed) drew
         final = meta_test(self.algo, cfg.env, policy, params, rl_cfg,
-                          n_tasks=cfg.n_eval_tasks, gen=gen, seed=cfg.seed)
+                          n_tasks=cfg.n_eval_tasks, gen=gen, seed=cfg.seed,
+                          task_batch=cfg.task_batch)
         print("Final evaluation:", final["mean_reward"],
               "success:", final["mean_success"])
         self.logger["final_eval"] = final

@@ -7,8 +7,9 @@ The fields, defaults and flag names are the JAX package's, so a run's
 ``logger.json`` config reads the same. One default differs: the vision
 ``conv_impl`` is ``"fused"`` (the CNN4 kernels; JAX's ``"pallas"`` is
 accepted and means the same), where JAX has ``"direct"``. Options the
-port does not run yet are still accepted here; the trainers raise
-``NotImplementedError`` on a non-default value (:func:`raise_unported`).
+port does not run yet (``--mesh``) are still accepted here; the trainers
+raise ``NotImplementedError`` on a non-default value
+(:func:`raise_unported`).
 """
 
 from __future__ import annotations

@@ -1,5 +1,4 @@
-"""Result plots (port of ``exploring_meta_tpu/utils/plotter.py`` but for
-the ML10 bar plots, which belong to the host envs; reference
+"""Result plots (port of ``exploring_meta_tpu/utils/plotter.py``; reference
 ``utils/plotter.py`` and ``misc_scripts/plot_stuff.py``).
 
 Each function computes what it returns first, with numpy and
@@ -79,6 +78,54 @@ def plot_dict_explicit(plot: dict, save: bool = False,
     if isinstance(ys, dict):
         ax.legend()
     _finish(plt, fig, ax, plot, save, path)
+
+
+def bar_plot_ml10(rewards_per_task: dict,
+                  save_path: str | None = None) -> None:
+    """Per-task reward bars coloured by success rate (reference
+    ``plotter.py:51-111``); ``rewards_per_task = {task name: [reward,
+    success, ...]}``."""
+    names = list(rewards_per_task)
+    rews = [np.mean(v[0::2]) for v in rewards_per_task.values()]
+    sucs = [np.mean(v[1::2]) for v in rewards_per_task.values()]
+    plt = _pyplot("bar_plot_ml10", save_path)
+    if plt is None:
+        return
+    fig, ax = plt.subplots(figsize=(10, 4))
+    cmap = plt.get_cmap("RdYlGn")
+    bars = ax.bar(names, rews, color=[cmap(s) for s in sucs])
+    for bar, s in zip(bars, sucs):
+        ax.text(bar.get_x() + bar.get_width() / 2, bar.get_height(),
+                f"{s * 100:.0f}%", ha="center", va="bottom", fontsize=8)
+    ax.set_ylabel("Average reward")
+    ax.set_title("Per-task reward (bar label = success rate)")
+    plt.xticks(rotation=30, ha="right")
+    if save_path:
+        fig.savefig(save_path, dpi=120, bbox_inches="tight")
+    plt.close(fig)
+
+
+def bar_plot_ml10_one_task(rewards_per_task: dict,
+                           save_path: str | None = None) -> None:
+    """Per-trial reward bars of one explicitly evaluated task (reference
+    ``plotter.py:114-137``): green where the trial's success rate clears
+    0.9, else red; the y axis inverted so that Trial 1 reads on top."""
+    trials, colors = [], []
+    for val in rewards_per_task.values():
+        trials.extend(val[0::2])
+        colors.extend("green" if s > 0.9 else "red" for s in val[1::2])
+    plt = _pyplot("bar_plot_ml10_one_task", save_path)
+    if plt is None:
+        return
+    fig, ax = plt.subplots()
+    y_pos = np.arange(len(trials))
+    ax.barh(y_pos, trials, color=colors, align="center")
+    ax.set_yticks(y_pos)
+    ax.set_yticklabels([f"Trial {i + 1}" for i in range(len(trials))])
+    ax.invert_yaxis()
+    if save_path:
+        fig.savefig(save_path, dpi=120, bbox_inches="tight")
+    plt.close(fig)
 
 
 def plot_sim_across_layers_average(mean_per_layer: dict,

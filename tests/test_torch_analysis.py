@@ -14,6 +14,7 @@ covariances are well conditioned here: 10 variables over 32 or 1,568
 datapoints).
 """
 
+import json
 import os
 
 import jax
@@ -211,7 +212,11 @@ def test_rep_exp_matches_jax_on_its_pool(tmp_path, test_ds):
                                    rtol=0, atol=CCA_TOL)
 
 
-def test_make_env_signature_returns_what_jax_does():
+def test_make_env_signature_returns_what_jax_does(fake_metaworld):
+    """Every name JAX's factory builds, the port builds: the device env,
+    and the host envs (real MuJoCo Ant; Meta-World on the fake package)
+    with JAX's slot count, sizes and backend; an unknown name raises
+    JAX's ValueError."""
     import inspect
     from exploring_meta_tpu.envs.factory import make_env as jmake
     assert list(inspect.signature(make_env).parameters) == \
@@ -222,9 +227,15 @@ def test_make_env_signature_returns_what_jax_does():
     assert is_device is jis_device is True
     assert type(env).__name__ == type(jenv).__name__
     assert tuple(env) == tuple(jenv)
-    for name in ("AntDirection-v1", "ML10", "ML1_push"):
-        with pytest.raises(NotImplementedError, match="host envs"):
-            make_env(name)
+    for name in ("AntDirection-v1", "ML10", "ML1_push", "ML45"):
+        env, is_device = make_env(name, **kw)
+        jenv, jis_device = jmake_env(name, **kw)
+        assert is_device is jis_device is False
+        assert (env.n_envs, env.obs_size, env.action_size, env.backend) == \
+            (jenv.n_envs, jenv.obs_size, jenv.action_size, jenv.backend)
+    for mk in (make_env, jmake_env):
+        with pytest.raises(ValueError, match="unknown environment"):
+            mk("CartPole-v1")
 
 
 @pytest.fixture(scope="module")
@@ -272,9 +283,16 @@ def test_eval_clis_on_the_cpu_only_when_asked(run_dirs, monkeypatch):
 @pytest.mark.parametrize("flags", [["--workers", "2"], ["--task_batch"],
                                    ["--host_policy", "cpu"]])
 def test_eval_rl_host_env_flags_raise(run_dirs, monkeypatch, flags):
+    """The host-env flags are accepted, as JAX's are, and on a device env's
+    run dir change nothing: the evaluation equals the flagless one.
+    ``--host_policy cpu`` sets the module default, as in JAX."""
+    from exploring_meta_tpu_torch.envs import host
     monkeypatch.setenv("EMT_FORCE_CPU", "1")
-    with pytest.raises(NotImplementedError, match="host envs"):
-        cli.eval_rl([run_dirs[1]] + flags)
+    monkeypatch.setattr(host, "_POLICY_DEVICE_MODE", "device")
+    want = cli.eval_rl([run_dirs[1]])
+    assert cli.eval_rl([run_dirs[1]] + flags) == want
+    assert host._POLICY_DEVICE_MODE == ("cpu" if "cpu" in flags
+                                        else "device")
 
 
 @pytest.mark.parametrize("flags", [["--each3"], ["--task", "door-close"]])
@@ -291,10 +309,22 @@ def test_eval_rl_task_selection_on_a_device_env_raises_as_jax(
     assert str(got.value) == str(want.value)
 
 
-def test_eval_rl_on_a_host_env_run_dir_raises(tmp_path):
-    exp = Experiment("maml_trpo", "ML10", RLScriptConfig(env="ML10")
-                     .to_params(), path=str(tmp_path) + "/")
-    exp.save_logs_to_file()
+def test_eval_rl_on_a_host_env_run_dir_raises(tmp_path, fake_metaworld):
+    """An ML10 run dir evaluates (on the fake Meta-World package): the
+    per-task rewards keyed by ML10's eval names go to
+    ``<algo>_test_<seed>.json``, as JAX writes them."""
     from exploring_meta_tpu_torch.analysis import eval_rl
-    with pytest.raises(NotImplementedError, match="host envs"):
-        eval_rl.run(exp.model_path, device="cpu")
+    from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
+    from exploring_meta_tpu_torch.rl.evaluate import ML10_EVAL_TASK_NAMES
+    cfg = RLScriptConfig(env="ML10", adapt_batch_size=2, max_path_length=5,
+                         n_eval_tasks=3)
+    exp = Experiment("maml_trpo", "ML10", cfg.to_params(),
+                     path=str(tmp_path) + "/")
+    exp.save_model(DiagNormalPolicy(9, 4).init(torch.Generator()))
+    exp.save_logs_to_file()
+    out = eval_rl.run(exp.model_path, device="cpu")
+    with open(os.path.join(exp.model_path, "maml_trpo_test_42.json")) as f:
+        per_task = json.load(f)
+    assert per_task == out["eval"]["rewards_per_task"]
+    assert set(per_task) <= set(ML10_EVAL_TASK_NAMES.values())
+    assert sum(len(v) for v in per_task.values()) == 2 * 3

@@ -409,17 +409,39 @@ def test_unsupported_flags_print_jax_s_note(capsys):
 
 @pytest.mark.parametrize("cls", [tb.PPOBaseline, tb.TRPOBaseline,
                                  tb.RandomPolicyBaseline])
-def test_host_envs_and_run_utilities_raise(tmp_path, cls):
-    """A host env raises before a run dir is made; the run utilities that
-    JAX's baselines honour (``--wandb``, ``--compile_cache``) are accepted
-    since slice 11 (``test_run_utilities_are_accepted``)."""
-    for env in ("AntDirection-v1", "ML10"):
-        with pytest.raises(NotImplementedError, match="host envs"):
-            cls(RLScriptConfig(env=env), path=str(tmp_path) + "/",
-                device="cpu")
-    assert os.listdir(tmp_path) == []
-    with pytest.raises(NotImplementedError, match="host envs"):
-        tb._setup_rl_baseline(RLScriptConfig(env="AntDirection-v1"))
+def test_host_envs_and_run_utilities_raise(tmp_path, monkeypatch,
+                                           fake_metaworld, cls):
+    """The host envs run (since slice 13): one tiny iteration of each RL
+    baseline on AntDirection (real MuJoCo) and ML10 (the fake Meta-World
+    package), through the per-task host rollout with the policy on the
+    device, as JAX's baselines set it. The run utilities that JAX's
+    baselines honour are accepted since slice 11
+    (``test_run_utilities_are_accepted``)."""
+    from exploring_meta_tpu_torch.envs import host
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(host, "_POLICY_DEVICE_MODE", "cpu")
+    # one intra-op thread: Ant's baseline fit (214 features) is large
+    # enough for the CPU build's multi-threaded solve, which has been seen
+    # to hang after another test set the thread count
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for env in ("AntDirection-v1", "ML10"):
+            cfg = RLScriptConfig(env=env, num_iterations=1,
+                                 meta_batch_size=1, adapt_batch_size=2,
+                                 max_path_length=4, n_eval_tasks=1,
+                                 save_every=1)
+            trainer = cls(cfg, path=str(tmp_path) + "/", device="cpu")
+            final = trainer.run()
+            assert np.isfinite(final["mean_reward"])
+            assert os.path.exists(os.path.join(trainer.model_path,
+                                               "model.npz"))
+    finally:
+        torch.set_num_threads(threads)
+    assert host._POLICY_DEVICE_MODE == "device"
+    env, is_device, _, roll = tb._setup_rl_baseline(RLScriptConfig(
+        env="AntDirection-v1", adapt_batch_size=2))
+    assert not is_device and env.n_envs == 2
 
 
 @pytest.mark.parametrize("change", [{"use_wandb": True},

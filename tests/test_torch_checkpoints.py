@@ -203,8 +203,10 @@ def test_first_adam_step_agrees_within_1e5_lr_as_it_stands():
     """The standing finding itself: from optax's init (count 0) the first
     step agrees within 1e-5 lr with no correction (g = -6.6e-6)."""
     params, opt, _ = _stepped(steps=0)
+    # copies: JAX may take a numpy buffer without copying and read it when
+    # its asynchronous step runs, after the port's step changed it in place
     jtpl = jexp.unflatten_into(JPolicy(2, 2).init(jax.random.key(0)),
-                               {k: v.detach().numpy()
+                               {k: v.detach().numpy().copy()
                                 for k, v in tree_items(params)})
     grads = _grads(3, params)
     jnext = _jax_step(jtpl, optax.adam(LR).init(jtpl),

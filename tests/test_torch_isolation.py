@@ -25,6 +25,8 @@ print(",".join(sorted(m for m in sys.modules if m.split(".")[0] == "matplotlib")
 print(",".join(sorted(m for m in sys.modules
                       if m.split(".")[0] in ("PIL", "wandb"))))
 print(",".join(sorted(m for m in sys.modules if m.split(".")[0] == "scipy")))
+print(",".join(sorted(m for m in sys.modules if m.split(".")[0]
+                      in ("gymnasium", "gym", "mujoco", "metaworld"))))
 """
 
 
@@ -74,6 +76,18 @@ def test_no_port_module_imports_scipy_when_imported():
     assert lines[4] == "", lines[4]
 
 
+def test_no_port_module_imports_the_host_physics_packages():
+    """gymnasium, mujoco and metaworld (absent from the card's machine) are
+    imported when a host env is built (``envs/host.py``,
+    ``envs/metaworld_adapter.py``), never when a module is imported."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    assert lines[5] == "", lines[5]
+
+
 def test_port_module_list_is_complete():
     import exploring_meta_tpu_torch as pkg
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -106,7 +120,10 @@ def test_port_module_list_is_complete():
                 "utils.compile_cache", "utils.dcp_ckpt", "utils.profiling",
                 "utils.import_torch", "tasks.pack",
                 # slice 12: seed sweeps
-                "parallel", "parallel.multiseed", "sweep"):
+                "parallel", "parallel.multiseed", "sweep",
+                # slice 13: host envs
+                "native", "native.binding", "envs.host",
+                "envs.metaworld_adapter", "rl.host_batched"):
         assert f"exploring_meta_tpu_torch.{mod}" in names
 
 
@@ -115,6 +132,7 @@ def test_packaging_ships_the_port_and_its_cuda_source():
         tool = tomllib.load(f)["tool"]["setuptools"]
     assert "exploring_meta_tpu_torch*" in tool["packages"]["find"]["include"]
     assert "csrc/*.cu" in tool["package-data"]["exploring_meta_tpu_torch"]
-    for source in ("cnn4_block.cu", "gae.cu"):
+    assert "native/*.cpp" in tool["package-data"]["exploring_meta_tpu_torch"]
+    for source in ("csrc/cnn4_block.cu", "csrc/gae.cu", "native/vecenv.cpp"):
         assert os.path.exists(os.path.join(
-            REPO, "exploring_meta_tpu_torch", "csrc", source))
+            REPO, "exploring_meta_tpu_torch", source))
