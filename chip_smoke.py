@@ -180,7 +180,35 @@ Phases, each of which fails the run (non-zero exit) on any error:
     against one task-batched iteration, round trips and shipments per
     iteration, a profiled iteration's idle share, the pool's env steps/s
     at 400 slots on all CPUs and on 2, against the Python loop;
-15. print one ``{"kernels": [...]}`` line, the card line again, and last
+15. scale-out (slice 14), ``--mesh`` through ``parallel/launch.py``: (a)
+    NCCL at world size 1, one rank on the card: maml_trpo at
+    ``trpo_particles`` and ``maml_omni`` at ``--fuse 5`` for 5 iterations
+    through the mesh code, each against the same run without a mesh: one
+    capture with the NCCL ``all_reduce`` inside it (collectives counted
+    while capturing), rows and final params bit for bit, each kernel
+    launched and recorded as often; (b) two gloo ranks sharing the one
+    card (devices ``(cuda:0, cuda:0)``; two processes on one card is not
+    scale-out), eager, 3 iterations with a checkpoint each: ``maml_omni``
+    (the CNN4 kernels at B = 16 a rank under second order) and maml_trpo
+    at the ``RLScriptConfig`` defaults (10 tasks a rank in the outer
+    step), each against the 1-rank run from the same state: vision rows
+    before the first update within 1e-2 and the first Adam step's sign
+    flips reported, TRPO's first rows 1e-5, the same line-search outcomes
+    and the first outer step within 2e-2 of the step; the ranks' final
+    params bitwise equal; each rank's launches as predicted (rank 0's the
+    1-rank run's, rank 1's that less the meta-test's); s per warm
+    iteration of both runs (the ranks after an uncounted warm-up run);
+    (c) ``VisionServer`` (64 requests, phase 3's) and
+    ``PolicyServer`` (64, phase 7's, vpg) on a server mesh of ``(cuda:0,
+    cuda:0)`` against the unsharded batch (probabilities within 1e-4, as
+    phase 3 holds a request against the batch; the meta-RL shards on the
+    unsharded fits, adapted params within 1e-5 of max|params|, actions
+    within 1e-5), each kernel launched twice as often; (d)
+    ``DiagNormalPolicyCNN`` and ``BaselineCNN`` at full width
+    (``network=(32, 64, 64)``, 16 states of 64 x 64 x 3) and
+    ``CategoricalPolicy`` on the card against the CPU: density, log-prob,
+    the served act, and sample statistics;
+16. print one ``{"kernels": [...]}`` line, the card line again, and last
     ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports neither
@@ -4880,6 +4908,436 @@ def host_env_phase(torch, np, gc, gpu, tmp) -> dict:
     return out
 
 
+# Phase 15 (slice 14): scale-out. The card's machine has one card, so NCCL
+# runs at world size 1 (the fused path with its all_reduce captured) and
+# two ranks share the card over gloo, eagerly (gloo collectives cannot be
+# captured); NCCL across cards is not run here.
+SCALE_FUSE = SCALE_FUSED_ITERATIONS = 5
+SCALE_EAGER_ITERATIONS = 3
+# a MAML-TRPO meta-test's sweep calls (the trainer's defaults: one support
+# batch's advantages for the inner step, and the query's), which rank 1 of
+# a two-rank run does not make; a vision meta-test's are META_EVAL_CALLS
+TRPO_META_TEST_CALLS = {"gae_sweep": 3, "discount_sweep": 3}
+# two ranks against one: the whole batch's mean against the mean of two
+# shards' means, summed in another order. Vision bf16 rows before the
+# first update within VISION_ROW_TOL (the standing 1e-2 of the non-kernel
+# paths); TRPO's first collection is the same on every rank and the
+# 1-rank run, so its rows within RL_ROW_TOL, its first outer step within
+# TRPO_STEP_TOL of the step (CG in float32; ROADMAP Queue 3)
+VISION_ROW_TOL, RL_ROW_TOL, TRPO_STEP_TOL = 1e-2, 1e-5, 2e-2
+# a server mesh's shard against the unsharded batch: per-request work,
+# but the batched GEMMs of a 32-request shard round otherwise than those
+# of 64 requests (phase 3 holds one request against the batch at 1e-4),
+# so probabilities within SERVER_MESH_TOL (6.05e-6 measured on an H100);
+# the meta-RL shards on the unsharded batch's baseline fits
+# (with_baseline_fits; phase 7 holds one request against the batch so),
+# adapted params within ADAPT_TOL of max|params|, actions within
+# ACT_MESH_TOL of max|act| (phase 7's act_batched bound)
+SERVER_MESH_TOL, ACT_MESH_TOL = 1e-4, 1e-5
+# the new policies, card (TF32 off) against the CPU: f32 outputs within
+# POLICY_TOL of max|out|; CATEGORICAL_DRAWS draws' frequencies within
+# FREQ_TOL of softmax; the Gaussian sample's mean within 5 sigma
+POLICY_STATES, POLICY_TOL = 16, 1e-5
+CATEGORICAL_DRAWS, FREQ_TOL = 20000, 0.02
+
+
+def _counters_zeroed():
+    import torch
+    from exploring_meta_tpu_torch.cuda import cnn4_cuda, gae_cuda
+    from exploring_meta_tpu_torch.parallel import mesh
+    from exploring_meta_tpu_torch.utils import graphs
+    torch.cuda.synchronize()
+    for reset in (graphs.reset_counts, gae_cuda.reset_launch_counts,
+                  cnn4_cuda.reset_launch_counts, mesh.reset_counts):
+        reset()
+
+
+def scale_rank_runs(runs: list, warm: bool = False) -> list:
+    """What a launched rank of phase 15 runs: each ``(kind, kw, cfg,
+    path)`` trainer run with every counter zeroed just before (``warm``:
+    after one uncounted 1-iteration run of it) -> per run its counters,
+    wall time, rank 0's metrics and run dir, and whether the final params
+    are bitwise equal on every rank."""
+    import dataclasses
+    import torch
+    from exploring_meta_tpu_torch.parallel.launch import (
+        current_rank, launch_counts,
+    )
+    from exploring_meta_tpu_torch.parallel.mesh import (
+        make_task_mesh, replicated_equal,
+    )
+    from exploring_meta_tpu_torch.trainers.rl import RLTrainer
+    from exploring_meta_tpu_torch.trainers.vision import VisionTrainer
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves
+
+    def keeping(cls):
+        class Keeping(cls):
+            """Keeps the final params that every rank passes to
+            save_model (rank 0 alone writes them)."""
+
+            def save_model(self, params, name="model"):
+                self.kept = [t.detach().clone() for t in tree_leaves(params)]
+                super().save_model(params, name)
+        return Keeping
+
+    out = []
+    for kind, kw, cfg, path in runs:
+        cls = keeping(checkpoint_timed(RLTrainer if kind == "rl"
+                                       else VisionTrainer))
+        if warm:
+            # a fresh process's first iterations set up the card (cuBLAS
+            # and cuDNN handles, allocator pools): warm up with one run
+            # that is not counted, so that s per iteration compares with
+            # the calling process's warm 1-rank run
+            cls(dataclasses.replace(cfg, num_iterations=1),
+                path=path + "warm/", **kw).run()
+        trainer = cls(cfg, path=path, **kw)
+        _counters_zeroed()
+        t0 = time.perf_counter()
+        trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        equal = replicated_equal(make_task_mesh(), trainer.kept)
+        first = current_rank().rank == 0
+        out.append({**counts, "wall_s": wall, "equal": equal,
+                    "rows_t": trainer.rows_t,
+                    "metrics": trainer.metrics if first else None,
+                    "logger": trainer.logger if first else None,
+                    "run": trainer.model_path if first else None})
+    return out
+
+
+def _model(run_dir: str, name: str = "model.npz") -> dict:
+    import numpy as np
+    with np.load(os.path.join(run_dir, name)) as z:
+        return {k: z[k] for k in z.files}
+
+
+def nccl_world_one(torch, gc, tc, gpu, tmp) -> dict:
+    """(a): the fused path through the mesh code at world size 1 on NCCL
+    against the same run without a mesh."""
+    import dataclasses
+    import numpy as np
+    from exploring_meta_tpu_torch.parallel.launch import launch
+
+    kind_t, kw_t, trpo = fused_configs()["maml_trpo"]
+    cases = {"maml_trpo": (kind_t, kw_t, trpo), "maml_omni": (
+        "vision", {}, vision_config())}
+    runs = []
+    for name, (kind, kw, cfg) in cases.items():
+        cfg = dataclasses.replace(cfg, fuse=SCALE_FUSE,
+                                  num_iterations=SCALE_FUSED_ITERATIONS)
+        runs.append((name, kind, kw, cfg))
+    t0 = time.perf_counter()
+    ranked = launch(scale_rank_runs, args=([
+        (kind, kw, cfg, os.path.join(tmp, f"nccl_{name}") + "/")
+        for name, kind, kw, cfg in runs],), devices=("cuda:0",),
+        backend="nccl")[0]["result"]
+    launch_s = time.perf_counter() - t0
+    out = {"launch_s": launch_s, "launches": {}}
+    for (name, kind, kw, cfg), r in zip(runs, ranked):
+        plain = counted_run(torch, gc, tc, kind, kw, cfg,
+                            os.path.join(tmp, f"plain_{name}"))
+        coll = r["collectives"]
+        print(f"phase 15 NCCL world 1 {name}: graphs {r['graphs']} "
+              f"collectives {coll} launches {r['launches']} captured "
+              f"{r['captured']}; without a mesh graphs {plain['counts']} "
+              f"launches {plain['launches']} captured {plain['captured']}",
+              flush=True)
+        check(r["graphs"] == {"captures": 1,
+                              "replays": SCALE_FUSED_ITERATIONS - 1}
+              == plain["counts"], f"{name}: one capture, the rest replays")
+        check(coll["captured"] > 0 and coll["all_reduce"] > 0,
+              f"{name}: the NCCL all_reduce ran eagerly and inside the "
+              f"capture, {coll}")
+        check(r["launches"] == plain["launches"]
+              and r["captured"] == plain["captured"],
+              f"{name}: each kernel launched and recorded as often as "
+              "without a mesh")
+        check(r["metrics"] == plain["metrics"],
+              f"{name}: rows bit for bit, {r['metrics']} vs "
+              f"{plain['metrics']}")
+        got, want = _model(r["run"]), plain["params"]
+        check(got.keys() == want.keys() and all(
+            np.array_equal(got[k], want[k]) for k in want),
+            f"{name}: final params bit for bit")
+        out[name] = {"graphs": r["graphs"], "collectives": coll,
+                     "launches": r["launches"], "captured": r["captured"],
+                     "wall_s": r["wall_s"], "plain_wall_s": plain["wall_s"]}
+        for part in (r["launches"], plain["launches"]):
+            for k, n in part.items():
+                out["launches"][k] = out["launches"].get(k, 0) + n
+    return out
+
+
+def gloo_two_ranks(torch, gc, tc, gpu, tmp) -> dict:
+    """(b): two gloo ranks sharing the card, eager, against the 1-rank
+    run from the same state."""
+    import dataclasses
+    import numpy as np
+    from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
+    from exploring_meta_tpu_torch.parallel.launch import launch
+    from exploring_meta_tpu_torch.utils.config import RLScriptConfig
+    from exploring_meta_tpu_torch.utils.tree import tree_items
+
+    cases = {"maml_omni": ("vision", {}, vision_config()),
+             "maml_trpo": ("rl", {"algo": "trpo"}, RLScriptConfig(
+                 seed=SEED))}
+    runs = []
+    for name, (kind, kw, cfg) in cases.items():
+        cfg = dataclasses.replace(cfg, num_iterations=SCALE_EAGER_ITERATIONS,
+                                  save_every=1)
+        runs.append((name, kind, kw, cfg))
+    t0 = time.perf_counter()
+    outs = launch(scale_rank_runs, args=([
+        (kind, kw, dataclasses.replace(cfg, mesh=2),
+         os.path.join(tmp, f"gloo_{name}") + "/")
+        for name, kind, kw, cfg in runs], True),
+        devices=("cuda:0", "cuda:0"), backend="gloo")
+    launch_s = time.perf_counter() - t0
+    out = {"launch_s": launch_s, "launches": {}}
+    for i, (name, kind, kw, cfg) in enumerate(runs):
+        r0, r1 = (o["result"][i] for o in outs)
+        one = counted_run(torch, gc, tc, kind, kw, cfg,
+                          os.path.join(tmp, f"one_{name}"))
+        check(r0["equal"] and r1["equal"],
+              f"{name}: the ranks' final params bitwise equal")
+        # rank 0 launches what the 1-rank run does (a kernel call is one
+        # launch whatever the batch); rank 1 no meta-test
+        meta_test = {k: r0["launches"][k] - r1["launches"][k]
+                     for k in r0["launches"]}
+        predicted = (META_EVAL_CALLS if kind == "vision"
+                     else TRPO_META_TEST_CALLS)
+        print(f"phase 15 gloo x2 {name}: rank 0 {r0['launches']} rank 1 "
+              f"{r1['launches']} 1-rank {one['launches']} collectives "
+              f"{r0['collectives']} {r1['collectives']}", flush=True)
+        check(r0["launches"] == one["launches"],
+              f"{name}: rank 0 launches as the 1-rank run")
+        check(all(meta_test[k] == predicted.get(k, 0) for k in meta_test),
+              f"{name}: rank 1 launches all but the meta-test's "
+              f"{predicted}, {meta_test}")
+        a, b = r0["metrics"], one["metrics"]
+        if kind == "vision":
+            for key in ("train_loss", "valid_loss"):
+                check(abs(a[key][0] - b[key][0])
+                      <= VISION_ROW_TOL * abs(b[key][0]),
+                      f"{name}: {key} row 0 {a[key][0]} vs {b[key][0]}")
+            init = _model(r0["run"], os.path.join("model_checkpoints",
+                                                  "model_0.npz"))
+            ref = one["trainer"].model_path
+            ref0 = _model(ref, os.path.join("model_checkpoints",
+                                            "model_0.npz"))
+            flips = sum(int((np.abs(init[k] - ref0[k])
+                             > 0.5 * cfg.outer_lr).sum()) for k in ref0)
+            size = sum(v.size for v in ref0.values())
+            detail = {"flip_share": flips / size}
+        else:
+            for key in ("adapt_reward", "meta_loss"):
+                check(abs(a[key][0] - b[key][0])
+                      <= RL_ROW_TOL * abs(b[key][0]) + 1e-7,
+                      f"{name}: {key} row 0 {a[key][0]} vs {b[key][0]}")
+            check(a["ls_accepted"] == b["ls_accepted"],
+                  f"{name}: the same line-search outcomes")
+            start = DiagNormalPolicy(2, 2).init(
+                torch.Generator(device="cuda").manual_seed(SEED))
+            start = {k: v.cpu().numpy() for k, v in tree_items(start)}
+            got = _model(r0["run"], os.path.join("model_checkpoints",
+                                                 "model_0.npz"))
+            want = _model(one["trainer"].model_path, os.path.join(
+                "model_checkpoints", "model_0.npz"))
+            step = np.concatenate([(want[k] - start[k]).ravel()
+                                   for k in start])
+            err = np.concatenate([(got[k] - want[k]).ravel() for k in start])
+            rel = float(np.linalg.norm(err) / np.linalg.norm(step))
+            check(rel <= TRPO_STEP_TOL, f"{name}: the first outer step "
+                  f"{rel} of the step from the 1-rank run's")
+            detail = {"step_rel": rel}
+        # s per iteration: the mean gap between logged rows after the
+        # first (warm iterations, host clock)
+        s2, s1 = (float(np.diff(t[:SCALE_EAGER_ITERATIONS]).mean())
+                  for t in (r0["rows_t"], one["rows_t"]))
+        print(f"phase 15 gloo x2 {name}: {s2} s per iteration on two ranks "
+              f"sharing the card against {s1} s on one rank (two processes "
+              f"on one card, not scale-out); {detail} [{gpu}]", flush=True)
+        out[name] = {"rank0": r0["launches"], "rank1": r1["launches"],
+                     "one": one["launches"], "meta_test": meta_test,
+                     "collectives": [r0["collectives"], r1["collectives"]],
+                     "s_per_iteration_two": s2, "s_per_iteration_one": s1,
+                     "rows_two": a, "rows_one": b, **detail}
+        for k in r0["launches"]:
+            out["launches"][k] = (out["launches"].get(k, 0)
+                                  + r0["launches"][k] + r1["launches"][k]
+                                  + one["launches"][k])
+    return out
+
+
+def server_meshes(torch, np, gc, tc, gpu) -> dict:
+    """(c): both servers on a server mesh of (cuda:0, cuda:0) against the
+    unsharded batch."""
+    from exploring_meta_tpu_torch.envs.particles2d import Particles2D
+    from exploring_meta_tpu_torch.models.cnn4 import init_cnn4, omniglot_spec
+    from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
+    from exploring_meta_tpu_torch.parallel.mesh import (
+        make_task_mesh, split_requests,
+    )
+    from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
+    from exploring_meta_tpu_torch.rl.rollout import make_rollout
+    from exploring_meta_tpu_torch.serve import PolicyServer, VisionServer
+    from exploring_meta_tpu_torch.tasks import datasets as td
+    from exploring_meta_tpu_torch.tasks import sampler as ts
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+
+    mesh = make_task_mesh(devices=("cuda:0", "cuda:0"))
+    out = {"launches": {}}
+    spec = omniglot_spec(ways=WAYS)
+    params = init_cnn4(torch.Generator().manual_seed(SEED), spec,
+                       device="cpu")
+    kw = dict(inner_lr=INNER_LR, adapt_steps=ADAPT_STEPS)
+    sx, sy, qx, _ = make_requests(torch, td, ts, torch.device("cuda"))
+    counts = {}
+    for name, server in (("plain", VisionServer(spec, params, device="cuda",
+                                                **kw)),
+                         ("mesh", VisionServer(spec, params, mesh=mesh,
+                                               **kw))):
+        _counters_zeroed()
+        counts[name] = (server.batch(sx, sy, qx), tc.launch_counts())
+    (pm, qm), lm = counts["mesh"]
+    (pp, qp), lp = counts["plain"]
+    err = float((qm - qp).abs().max())
+    check(err <= SERVER_MESH_TOL and bool((pm == pp).all()),
+          f"VisionServer on the mesh vs unsharded: {err}")
+    check(lm == {k: 2 * n for k, n in lp.items()},
+          f"VisionServer: each kernel once a shard, {lm} vs {lp}")
+    out["vision"] = {"probs_err": err, "launches": lm}
+
+    env = Particles2D()
+    cfg = RLConfig(**SERVE_RL_CFG)
+    policy = DiagNormalPolicy(env.obs_size, env.action_size)
+    pparams = policy.init(torch.Generator().manual_seed(SEED), device="cpu")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    roll = make_rollout(env, policy.sample, SERVE_RL_EPISODES,
+                        SERVE_RL_HORIZON)
+    stack = roll(tree_map(lambda t: t.cuda(), pparams),
+                 env.sample_tasks(gen, SERVE_RL_REQUESTS), gen)
+    obs = stack.state[:, 0]
+    res, fits = {}, None
+    for name, server in (("plain", PolicyServer(policy, pparams, cfg)),
+                         ("mesh", PolicyServer(policy, pparams, cfg,
+                                               mesh=mesh))):
+        # each shard takes its requests' share of the unsharded fits
+        given = None if fits is None else [
+            (w[a:b], r[a:b]) for _, a, b in split_requests(
+                mesh, SERVE_RL_REQUESTS) for w, r in fits]
+        _counters_zeroed()
+        adapted, got = with_baseline_fits(
+            lambda: server.adapt_batched(stack), given)
+        fits = fits or got
+        res[name] = (adapted, server.act_batched(adapted, obs),
+                     gc.launch_counts())
+    adapted_err = tree_close(torch, res["mesh"][0], res["plain"][0],
+                             ADAPT_TOL, "PolicyServer on the mesh vs "
+                             "unsharded")
+    act_err = float((res["mesh"][1] - res["plain"][1]).abs().max()
+                    / res["plain"][1].abs().max())
+    check(act_err <= ACT_MESH_TOL, f"PolicyServer act_batched {act_err}")
+    check(res["mesh"][2] == {k: 2 * n for k, n in res["plain"][2].items()},
+          f"PolicyServer: each sweep once a shard, {res['mesh'][2]}")
+    out["policy"] = {"adapted_err": adapted_err, "act_err": act_err,
+                     "launches": res["mesh"][2]}
+    for part in (lm, lp, res["mesh"][2], res["plain"][2]):
+        for k, n in part.items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+    print(f"phase 15 server meshes: vision probs {err}, policy adapted "
+          f"{adapted_err} act {act_err} [{gpu}]", flush=True)
+    return out
+
+
+def new_policies(torch, gpu) -> dict:
+    """(d): the three new policies on the card against the CPU."""
+    import math
+    from exploring_meta_tpu_torch.models.policies import (
+        BaselineCNN, CategoricalPolicy, DiagNormalPolicyCNN,
+    )
+    from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
+    from exploring_meta_tpu_torch.serve import PolicyServer
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+
+    def rel(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    cuda = lambda tree: tree_map(lambda t: t.cuda(), tree)  # noqa: E731
+    gen = torch.Generator().manual_seed(SEED + 15)
+    x = torch.rand(POLICY_STATES, 64, 64, 3, generator=gen)
+    act = 0.3 * torch.randn(POLICY_STATES, 2, generator=gen)
+    out = {}
+    cnn = DiagNormalPolicyCNN(3, 2)
+    p = cnn.init(gen, device="cpu")
+    p["sigma"] = p["sigma"] - 0.5
+    loc, scale = cnn.density(cuda(p), x.cuda())
+    wloc, wscale = cnn.density(p, x)
+    out["cnn_density"] = rel(loc, wloc)
+    out["cnn_log_prob"] = rel(cnn.log_prob(cuda(p), x.cuda(), act.cuda()),
+                              cnn.log_prob(p, x, act))
+    served = PolicyServer(cnn, p, RLConfig()).act(cuda(p), x)
+    out["cnn_act"] = rel(served, wloc)
+    draws = torch.stack([cnn.sample(cuda(p), torch.Generator(
+        device="cuda").manual_seed(i), x.cuda()) for i in range(200)])
+    z = float(((draws.mean(0) - loc) / (scale / math.sqrt(200))).abs().max())
+    out["cnn_sample_z"] = z
+    base = BaselineCNN(3)
+    bp = base.init(gen, device="cpu")
+    out["baseline"] = rel(base.apply(cuda(bp), x.cuda()), base.apply(bp, x))
+    for key in ("cnn_density", "cnn_log_prob", "cnn_act", "baseline"):
+        check(out[key] <= POLICY_TOL, f"{key} card vs CPU {out[key]}")
+    check(bool(torch.equal(scale.cpu(), wscale)), "the CNN policy's scale")
+    check(z < 5.0, f"the CNN policy's sample mean within 5 sigma, {z}")
+
+    cat = CategoricalPolicy(10, 4)
+    cp = cat.init(gen, device="cpu")
+    states = torch.randint(0, 10, (CATEGORICAL_DRAWS,), generator=gen)
+    logits = cat.logits(cuda(cp), states.cuda())
+    out["categorical_logits"] = rel(logits, cat.logits(cp, states))
+    acts = torch.randint(0, 4, (CATEGORICAL_DRAWS,), generator=gen)
+    out["categorical_log_prob"] = rel(
+        cat.log_prob(cuda(cp), states.cuda(), acts.cuda()),
+        cat.log_prob(cp, states, acts))
+    one = torch.zeros(CATEGORICAL_DRAWS, dtype=torch.long, device="cuda")
+    action, info = cat.sample(cuda(cp), torch.Generator(
+        device="cuda").manual_seed(1), one)
+    freq = (torch.bincount(action, minlength=4).float().cpu()
+            / CATEGORICAL_DRAWS)
+    probs = torch.softmax(cat.logits(cp, one[:1].cpu()), -1)[0]
+    out["categorical_freq_err"] = float((freq - probs).abs().max())
+    served = PolicyServer(cat, cp, RLConfig()).act(cuda(cp), states[:64])
+    check(bool((served.cpu() == cat.logits(cp, states[:64]).argmax(-1))
+               .all()), "the categorical act is the argmax")
+    for key in ("categorical_logits", "categorical_log_prob"):
+        check(out[key] <= POLICY_TOL, f"{key} card vs CPU {out[key]}")
+    check(out["categorical_freq_err"] <= FREQ_TOL
+          and bool(torch.isfinite(info["log_prob"]).all()),
+          f"categorical frequencies {freq} vs {probs}")
+    print(f"phase 15 new policies card vs CPU: {out} [{gpu}]", flush=True)
+    return out
+
+
+def scale_out_phase(torch, np, gc, tc, gpu, tmp) -> dict:
+    """Phase 15: scale-out (slice 14)."""
+    start = time.perf_counter()
+    out = {"nccl_world_one": nccl_world_one(torch, gc, tc, gpu, tmp),
+           "gloo_two_ranks": gloo_two_ranks(torch, gc, tc, gpu, tmp),
+           "server_meshes": server_meshes(torch, np, gc, tc, gpu),
+           "new_policies": new_policies(torch, gpu)}
+    launches: dict = {}
+    for part in ("nccl_world_one", "gloo_two_ranks", "server_meshes"):
+        for k, n in out[part]["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    out["launches"] = launches
+    out["wall_s"] = time.perf_counter() - start
+    print(f"phase 15 (scale-out): {out['wall_s']:.2f} s [{gpu}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4947,6 +5405,8 @@ def main() -> int:
         slice12 = seed_sweep_phase(tc, gc, F, torch, gpu, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         slice13 = host_env_phase(torch, np, gc, gpu, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        slice14 = scale_out_phase(torch, np, gc, tc, gpu, tmp)
 
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -4959,7 +5419,8 @@ def main() -> int:
                    "replay_meta_grad": replay_grad, "fused": fused,
                    "analysis": analysis, "slice10": slice10,
                    "slice11": slice11, "slice12": slice12,
-                   "slice13": slice13}, f, indent=1, default=str)
+                   "slice13": slice13, "slice14": slice14}, f, indent=1,
+                  default=str)
 
     replaces = {
         "cnn4_block_fwd": "exploring_meta_tpu/pallas/cnn4_pallas.py:295",
@@ -4983,7 +5444,10 @@ def main() -> int:
     # and the seed sweeps' (the serial sweeps' trainers, the one-program
     # sweeps' warm-up iterations and meta-tests); and the host envs' (the
     # per-task and task-batched trainers, meta_test each3, eval_rl, the
-    # --host_policy cpu run, Ant where the image has it)
+    # --host_policy cpu run, Ant where the image has it); and scale-out's
+    # (the NCCL world-1 fused runs' warm-ups and meta-tests and their runs
+    # without a mesh, both gloo ranks' and the 1-rank runs, the server
+    # meshes' and the unsharded batches)
     for paths in (vision["launches"], policy_serve["launches"],
                   adam_rl["launches"],
                   *(r["launches"] for r in fused.values()),
@@ -4996,7 +5460,7 @@ def main() -> int:
                   slice10["bf16"]["fused_trpo"]["launches"],
                   slice10["bf16"]["eager_ppo"]["launches"],
                   slice11["launches"], slice12["launches"],
-                  slice13["launches"]):
+                  slice13["launches"], slice14["launches"]):
         for name, n in paths.items():
             launches[name] += n
     kernels = []

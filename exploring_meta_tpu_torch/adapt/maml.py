@@ -153,12 +153,14 @@ def adam(params, lr: float) -> torch.optim.Adam:
 
 
 def apply_meta_gradient(opt: torch.optim.Adam, loss: torch.Tensor,
-                        params) -> None:
+                        params, reduce=None) -> None:
     """Differentiate ``loss`` with respect to the leaves of ``params`` (a
     leaf it does not reach gets a zero gradient) and step ``opt`` (from
     :func:`adam`), which updates them in place. The gradients are written
     into each leaf's ``.grad`` where it has one, so they stay at the
-    addresses that a captured step reads."""
+    addresses that a captured step reads. ``reduce`` (a mesh's
+    ``pmean_``) averages the gradients over the ranks in place before the
+    step, so every rank steps the same."""
     leaves = tree_leaves(params)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     with torch.no_grad():
@@ -169,6 +171,8 @@ def apply_meta_gradient(opt: torch.optim.Adam, loss: torch.Tensor,
                 p.grad.zero_()
             else:
                 p.grad.copy_(g)
+    if reduce is not None:
+        reduce([p.grad for p in leaves])
     opt.step()
 
 
@@ -177,7 +181,8 @@ def _batch_loss(fast_adapt, params, task_batch, seeds=None):
     return seed_means(res.loss, seeds), seed_means(res.metric, seeds)
 
 
-def make_meta_step(fast_adapt: Callable, seeds: int | None = None):
+def make_meta_step(fast_adapt: Callable, seeds: int | None = None,
+                   mesh=None):
     """Build the outer step: ``meta_step(params, opt, *task_batch) ->
     (params, opt, {"loss", "metric"})``.
 
@@ -191,18 +196,28 @@ def make_meta_step(fast_adapt: Callable, seeds: int | None = None):
     batch of ``S·B`` tasks, seed-major (``parallel/multiseed.py``); the
     loss differentiated is the sum over seeds of each seed's mean query
     loss (the seeds' params are disjoint, so each seed's gradient is its
-    own) and the metrics are ``[S]``."""
+    own) and the metrics are ``[S]``.
+
+    ``mesh`` (``parallel/mesh.py``): the task batch is this rank's shard;
+    the gradients of its mean loss and the metrics are averaged over the
+    ranks (equal shards: the global means), and every rank steps the
+    same."""
 
     def meta_step(params, opt, *task_batch):
         loss, metric = _batch_loss(fast_adapt, params, task_batch, seeds)
         apply_meta_gradient(opt, loss if seeds is None else loss.sum(),
-                            params)
-        return params, opt, {"loss": loss.detach(), "metric": metric.detach()}
+                            params,
+                            reduce=None if mesh is None else mesh.pmean_)
+        loss, metric = loss.detach(), metric.detach()
+        if mesh is not None:
+            loss, metric = mesh.pmean(loss, metric)
+        return params, opt, {"loss": loss, "metric": metric}
 
     return meta_step
 
 
-def make_meta_eval(fast_adapt: Callable, seeds: int | None = None):
+def make_meta_eval(fast_adapt: Callable, seeds: int | None = None,
+                   mesh=None):
     """Meta-evaluation over a task batch, no outer update (reference
     ``core_functions/vision.py:26-42``): ``meta_eval(params, *task_batch)
     -> {"loss", "metric"}`` (``[S]`` each with ``seeds``, as
@@ -211,11 +226,15 @@ def make_meta_eval(fast_adapt: Callable, seeds: int | None = None):
     It runs ``fast_adapt`` under ``torch.no_grad()``: the inner loop then
     adapts first order (:func:`inner_sgd`) and the query pass builds no
     graph. The adapted params, and so the loss and metric, are the same as
-    with a second-order graph, which nothing here would differentiate."""
+    with a second-order graph, which nothing here would differentiate.
+    ``mesh``: the batch is this rank's shard and the metrics are averaged
+    over the ranks."""
 
     def meta_eval(params, *task_batch):
         with torch.no_grad():
             loss, metric = _batch_loss(fast_adapt, params, task_batch, seeds)
+        if mesh is not None:
+            loss, metric = mesh.pmean(loss, metric)
         return {"loss": loss, "metric": metric}
 
     return meta_eval
@@ -223,7 +242,7 @@ def make_meta_eval(fast_adapt: Callable, seeds: int | None = None):
 
 def make_train_scan(fast_adapt: Callable, sample_fn: Callable, n_steps: int,
                     eval_sample_fn: Callable | None = None,
-                    seeds: int | None = None):
+                    seeds: int | None = None, mesh=None):
     """``n_steps`` whole meta-iterations in one call (the port of the JAX
     ``lax.scan``): on the card the first iteration runs eagerly, then one
     iteration is captured as a CUDA graph and each later one is a replay;
@@ -246,11 +265,20 @@ def make_train_scan(fast_adapt: Callable, sample_fn: Callable, n_steps: int,
     are stacked ``[S, ...]``, ``gen`` is the tuple of the seeds'
     generators, each seed's batches are drawn from its own generator as
     its solo run draws them and concatenated, and each metric is ``[n,
-    S]``. Every kernel runs once an iteration for all seeds."""
-    meta_step = make_meta_step(fast_adapt, seeds)
-    meta_eval = make_meta_eval(fast_adapt, seeds)
+    S]``. Every kernel runs once an iteration for all seeds.
+
+    ``mesh`` (JAX's ``make_sharded_train_scan``): ``gen`` is this rank's
+    generator (``parallel/mesh.py:rank_generator``), ``sample_fn`` and
+    ``eval_sample_fn`` draw this rank's share of the tasks, and the
+    gradients and metrics are averaged over the ranks; on the card the
+    collectives are captured in the graph (NCCL only)."""
+    meta_step = make_meta_step(fast_adapt, seeds, mesh)
+    meta_eval = make_meta_eval(fast_adapt, seeds, mesh)
 
     def make(params, opt, *gens):
+        if mesh is not None:
+            from exploring_meta_tpu_torch.parallel.mesh import check_fusable
+            check_fusable(mesh, gens[0].device)
         gen = gens[0] if seeds is None else gens
 
         def step():

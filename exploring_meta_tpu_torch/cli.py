@@ -18,10 +18,15 @@
     python -m exploring_meta_tpu_torch.cli pack_datasets omniglot --src <dir>
     python -m exploring_meta_tpu_torch.cli sweep maml_trpo --seeds 42,7 \
         [--vmap_seeds --fuse 10]
+    python -m exploring_meta_tpu_torch.cli maml_trpo --mesh 2 --fuse 10
     EMT_FORCE_CPU=1 python -m exploring_meta_tpu_torch.cli maml_vision ...
 
 Runs go to the card unless ``EMT_FORCE_CPU=1`` asks for the CPU; the two
-offline tools run on the host.
+offline tools run on the host. ``--mesh N`` launches N ranks
+(``parallel/launch.py``): ``cuda:0 .. cuda:N-1`` with NCCL, or N CPU
+processes with gloo under ``EMT_FORCE_CPU=1``. The ranks are spawned
+processes, which import the calling script again: a script that calls
+these entry points keeps its work under ``if __name__ == "__main__":``.
 """
 
 from __future__ import annotations

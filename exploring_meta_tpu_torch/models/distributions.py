@@ -1,6 +1,7 @@
-"""Diagonal-Gaussian distribution math (port of the Gaussian part of
-``exploring_meta_tpu/models/distributions.py``; ``torch.distributions.Normal``
-and ``kl_divergence`` semantics, written out elementwise)."""
+"""Diagonal-Gaussian and categorical distribution math (port of
+``exploring_meta_tpu/models/distributions.py``; ``torch.distributions``'
+``Normal``, ``Categorical`` and ``kl_divergence`` semantics, written out
+elementwise)."""
 
 from __future__ import annotations
 
@@ -43,3 +44,18 @@ def normal_kl(loc_p, scale_p, loc_q, scale_q) -> torch.Tensor:
     var_ratio = (scale_p / scale_q) ** 2
     t1 = ((loc_p - loc_q) / scale_q) ** 2
     return 0.5 * (var_ratio + t1 - 1.0 - torch.log(var_ratio))
+
+
+def categorical_sample(gen: torch.Generator, logits) -> torch.Tensor:
+    """One category per row of ``logits [..., K]``, drawn from ``gen`` with
+    probabilities ``softmax(logits)`` -> int64 ``[...]``."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    flat = probs.reshape(-1, probs.shape[-1])
+    draws = torch.multinomial(flat, 1, generator=gen)
+    return draws.reshape(probs.shape[:-1])
+
+
+def categorical_log_prob(logits, value) -> torch.Tensor:
+    """``log softmax(logits)`` at the integer categories ``value [...]``."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return torch.gather(logp, -1, value.long().unsqueeze(-1)).squeeze(-1)

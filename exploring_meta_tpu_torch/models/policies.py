@@ -1,14 +1,21 @@
-"""Gaussian MLP policies (port of ``DiagNormalPolicy`` and
-``DiagNormalPolicyANIL`` from ``exploring_meta_tpu/models/policies.py``;
-reference ``core_functions/policies.py:30-126``).
+"""RL policies (port of ``exploring_meta_tpu/models/policies.py``;
+reference ``core_functions/policies.py``).
 
 ``DiagNormalPolicy`` params are the JAX tree ``{"mean": [{"w": [in,
 out], "b": [out]}, ...], "sigma": [act]}``: a relu (or tanh) MLP for the
 mean and a learned, state-independent log-sigma clamped at ``log(1e-6)``.
 ``DiagNormalPolicyANIL`` splits the mean into a tanh ``body`` and a linear
-``head`` (``{"body": [...], "head": {...}, "sigma": [act]}``). Per-task
-params carry a leading ``[B]`` on every leaf; with them the state is
-``[B, N, obs]`` and the MLP runs as a batched matmul.
+``head`` (``{"body": [...], "head": {...}, "sigma": [act]}``).
+``DiagNormalPolicyCNN`` and ``BaselineCNN`` read ``[N, 64, 64, C]``
+pixels through conv blocks (``{"features": [{"conv", "bn"}, ...]}``, each
+a stride-1 conv, batch-stat BN, ReLU and a 2x2 max-pool, as
+``layers.conv2d`` lowers it in JAX: ``F.conv2d``, no kernel of the port),
+with a ``mean`` (plus ``sigma``) or ``head`` linear layer on the flattened
+NHWC features. ``CategoricalPolicy`` is a relu MLP from one-hot integer
+states to logits (``{"mean": [...]}``). Per-task params carry a leading
+``[B]`` on every leaf; with them the state is ``[B, N, ...]`` and the
+layers run per task (a batched matmul, a grouped conv, BN statistics per
+task).
 
 ``log_prob`` keeps the reference's quirk of *averaging* (not summing) the
 per-dimension log density over the action axis (``policies.py:54-56``).
@@ -32,8 +39,9 @@ import torch
 from exploring_meta_tpu_torch.models import distributions as dist
 from exploring_meta_tpu_torch.models import init as pinit
 from exploring_meta_tpu_torch.models.layers import (
-    linear, mlp_apply, task_param,
+    batch_norm, conv2d, linear, max_pool2d, mlp_apply, task_param,
 )
+from exploring_meta_tpu_torch.ops.stats import onehot
 from exploring_meta_tpu_torch.utils.tree import tree_map
 
 EPSILON = 1e-6
@@ -197,3 +205,121 @@ class DiagNormalPolicyANIL(NamedTuple):
         pre-activation output."""
         return _module_sliced_rep(params["body"], torch.tanh, x, layer,
                                   trailing_act=True)
+
+
+def _init_conv_blocks(gen, in_ch: int, network: tuple, device) -> list:
+    blocks = []
+    for out_ch in network:
+        blocks.append({"conv": pinit.conv_params(gen, 3, in_ch, out_ch,
+                                                 device=device),
+                       "bn": pinit.batchnorm_params(gen, out_ch,
+                                                    device=device)})
+        in_ch = out_ch
+    return blocks
+
+
+def _conv_features(blocks, x) -> torch.Tensor:
+    """Conv -> batch-stat BN -> ReLU -> 2x2 max-pool per block, then the
+    NHWC features flattened: ``[..., N, H, W, C]`` -> ``[..., N, F]``."""
+    for p in blocks:
+        x = conv2d(p["conv"], x, stride=1, padding=1)
+        x = max_pool2d(relu(batch_norm(p["bn"], x)), 2, 2)
+    return x.reshape(x.shape[:-3] + (-1,))
+
+
+def _flatten_size(network: tuple) -> int:
+    final = int(64 / (2 ** len(network)))
+    return network[-1] * final * final
+
+
+class DiagNormalPolicyCNN(NamedTuple):
+    """Conv Gaussian policy on ``[N, 64, 64, C]`` pixels (reference
+    ``:129-193``)."""
+    input_channels: int
+    output_size: int
+    network: tuple = (32, 64, 64)
+    compute_dtype: str = "f32"   # "bf16": the convs and the mean layer
+
+    @property
+    def flatten_size(self) -> int:
+        return _flatten_size(self.network)
+
+    def init(self, gen: torch.Generator, device=None) -> dict:
+        """Xavier-uniform convs and mean layer, U(0, 1) BN scales, zero
+        biases, ``sigma = 0``."""
+        dev = device or gen.device
+        return {"features": _init_conv_blocks(gen, self.input_channels,
+                                              self.network, dev),
+                "mean": pinit.linear_params(gen, self.flatten_size,
+                                            self.output_size, init="xavier",
+                                            device=dev),
+                "sigma": torch.zeros(self.output_size, device=dev)}
+
+    def density(self, params, state):
+        """-> (loc, scale), both ``[..., N, act]``, float32."""
+        feat_p, x = _compute_cast(self.compute_dtype, params["features"],
+                                  state)
+        mean_p, feats = _compute_cast(self.compute_dtype, params["mean"],
+                                      _conv_features(feat_p, x))
+        loc = linear(mean_p, feats).float()
+        return loc, _sigma(params).expand(loc.shape)
+
+    def log_prob(self, params, state, action) -> torch.Tensor:
+        return _mean_log_prob(*self.density(params, state), action)
+
+    def sample(self, params, gen: torch.Generator, state) -> torch.Tensor:
+        loc, scale = self.density(params, state)
+        return dist.normal_sample(gen, loc, scale)
+
+
+class BaselineCNN(NamedTuple):
+    """Conv value network -> ``[..., N, 1]`` (reference ``:196-245``)."""
+    input_channels: int
+    network: tuple = (32, 64, 64)
+
+    @property
+    def flatten_size(self) -> int:
+        return _flatten_size(self.network)
+
+    def init(self, gen: torch.Generator, device=None) -> dict:
+        dev = device or gen.device
+        return {"features": _init_conv_blocks(gen, self.input_channels,
+                                              self.network, dev),
+                "head": pinit.linear_params(gen, self.flatten_size, 1,
+                                            init="xavier", device=dev)}
+
+    def apply(self, params, state) -> torch.Tensor:
+        return linear(params["head"],
+                      _conv_features(params["features"], state))
+
+
+class CategoricalPolicy(NamedTuple):
+    """Discrete policy over one-hot integer states (reference
+    ``:248-268``)."""
+    input_size: int
+    output_size: int
+    hiddens: tuple = (100, 100)
+
+    def init(self, gen: torch.Generator, device=None) -> dict:
+        sizes = (self.input_size,) + tuple(self.hiddens) + (self.output_size,)
+        return {"mean": _init_mlp(gen, sizes, device or gen.device)}
+
+    def logits(self, params, state) -> torch.Tensor:
+        """Integer states ``[..., N]`` (any shape; flattened per task when
+        the params are per task) -> logits ``[..., N, act]``."""
+        w0 = params["mean"][0]["w"]
+        lead = tuple(w0.shape[:-2])
+        state = torch.as_tensor(state, device=w0.device)
+        x = onehot(state, self.input_size).reshape(
+            lead + (-1, self.input_size))
+        return mlp_apply(params["mean"], x, relu)
+
+    def sample(self, params, gen: torch.Generator, state):
+        """-> (actions, ``{"log_prob"}``), the log-probs detached."""
+        lg = self.logits(params, state)
+        action = dist.categorical_sample(gen, lg)
+        return action, {"log_prob": dist.categorical_log_prob(
+            lg, action).detach()}
+
+    def log_prob(self, params, state, action) -> torch.Tensor:
+        return dist.categorical_log_prob(self.logits(params, state), action)

@@ -67,16 +67,19 @@ def hvp(f: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor,
 
 
 def grad_vector_product(grad_f: torch.Tensor, x: torch.Tensor,
-                        damping: float):
+                        damping: float, reduce=None):
     """``v -> d(grad_f . v)/dx + damping * v`` for a ``grad_f`` computed
     from ``x`` with ``create_graph=True``. For ``[S, P]`` rows whose
     function is a sum of per-row terms (a seed sweep's summed KLs) the
     Hessian is block-diagonal, so one product of the sum is every row's
-    own product."""
+    own product. ``reduce`` (a mesh's ``pmean``) averages the product over
+    the ranks before the damping is added, as JAX's sharded step does."""
     def Ax(v):
         with torch.enable_grad():
             gv = (grad_f @ v.detach() if v.ndim == 1
                   else (grad_f * v.detach()).sum())
             (hv,) = torch.autograd.grad(gv, x, retain_graph=True)
+        if reduce is not None:
+            hv = reduce(hv)
         return hv + damping * v
     return Ax

@@ -15,8 +15,10 @@ import torch
 
 def linear_value_features(states: torch.Tensor,
                           timesteps: torch.Tensor) -> torch.Tensor:
-    """``[..., N, obs]`` states and ``[..., N]`` timesteps ->
-    ``[..., N, 2 * obs + 4]``."""
+    """``[..., N, *obs]`` states (flattened past ``N``, as JAX flattens a
+    pixel or scalar state) and ``[..., N]`` timesteps -> ``[..., N, 2 *
+    obs + 4]``."""
+    states = states.reshape(tuple(timesteps.shape) + (-1,))
     al = timesteps.to(states.dtype).unsqueeze(-1) / 100.0
     return torch.cat([states, states ** 2, al, al ** 2, al ** 3,
                       torch.ones_like(al)], dim=-1)

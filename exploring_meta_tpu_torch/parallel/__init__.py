@@ -1,3 +1,3 @@
-"""Multi-seed training in one program (port of
-``exploring_meta_tpu/parallel``'s seed sweeps; the task-axis mesh is not
-ported yet)."""
+"""Scale-out: task data parallelism over ``torch.distributed``
+(``mesh.py``, ranks started by ``launch.py``) and multi-seed training in
+one program (``multiseed.py``); the port of ``exploring_meta_tpu/parallel``."""

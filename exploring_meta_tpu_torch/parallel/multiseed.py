@@ -21,8 +21,10 @@ of batched arithmetic at another batch size.
 
 The builders are ``adapt/maml.py:make_train_scan(..., seeds=S)`` (vision)
 and ``rl/train_scan.py:make_seeded_{trpo,adam}_train_scan``; the sweep
-command is ``sweep.py --vmap_seeds``. JAX's ``--mesh`` (the seed axis
-sharded over chips) is not ported yet: :func:`check_mesh` raises.
+command is ``sweep.py --vmap_seeds``. With ``--mesh N`` (JAX shards the
+seed axis over the mesh) the seeds split into N contiguous groups
+(:func:`seed_groups`), one program a rank; seeds are independent, so the
+ranks run no collectives.
 """
 
 from __future__ import annotations
@@ -31,7 +33,6 @@ from typing import Callable, Sequence
 
 import torch
 
-from exploring_meta_tpu_torch.utils.config import raise_unported
 from exploring_meta_tpu_torch.utils.tree import tree_map
 
 
@@ -96,8 +97,14 @@ def seed_draws(draw: Callable, gen, seeds: int | None = None):
     return torch.cat(outs)
 
 
-def check_mesh(mesh: int) -> None:
-    """JAX shards the seed axis over a mesh of chips; the port does not
-    yet (ROADMAP Queue 1 item 7)."""
-    raise_unported("sweep --vmap_seeds", [(mesh > 1, "mesh > 1",
-                                           "scale-out")])
+def seed_groups(seeds: Sequence[int], n: int) -> list:
+    """``seeds`` as ``n`` contiguous equal groups, one a rank of a
+    ``--mesh n`` sweep; a seed count the mesh does not divide raises JAX's
+    ``vmap_seeds`` message."""
+    if len(seeds) % n:
+        raise ValueError(
+            f"{len(seeds)} seeds cannot shard evenly over the {n}-device "
+            f"mesh — use a seed count that is a multiple of the mesh size "
+            f"(pad with extra seeds)")
+    k = len(seeds) // n
+    return [list(seeds[i * k:(i + 1) * k]) for i in range(n)]

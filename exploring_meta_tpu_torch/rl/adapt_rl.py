@@ -35,7 +35,9 @@ from typing import Callable, NamedTuple
 import torch
 
 from exploring_meta_tpu_torch.adapt.maml import inner_sgd, task_copies
-from exploring_meta_tpu_torch.models.policies import DiagNormalPolicyANIL
+from exploring_meta_tpu_torch.models.policies import (
+    CategoricalPolicy, DiagNormalPolicyANIL,
+)
 from exploring_meta_tpu_torch.ops.gae import compute_advantages, discount
 from exploring_meta_tpu_torch.ops.losses import (
     a2c_policy_loss, magic_box, ppo_policy_loss, weighted_cumsum,
@@ -120,12 +122,19 @@ def traj_advantages(traj: Trajectory, cfg: RLConfig, update_vf: bool = True,
 
 def _log_prob(policy, params, traj: Trajectory,
               inner_anil: bool = False) -> torch.Tensor:
-    """``[B, T*E, 1]`` action log-probs (the mean over action dims);
-    ``inner_anil`` detaches an ANIL policy's body features."""
+    """``[B, T*E, 1]`` action log-probs (the mean over action dims; a
+    categorical policy's ``[B, 1, T*E]``); ``inner_anil`` detaches an ANIL
+    policy's body features."""
     s, a = traj.flat(traj.state), traj.flat(traj.action)
     if inner_anil and isinstance(policy, DiagNormalPolicyANIL):
         return policy.log_prob(params, s, a, stop_body_grad=True)
-    return policy.log_prob(params, s, a)
+    lp = policy.log_prob(params, s, a)
+    if isinstance(policy, CategoricalPolicy):
+        # JAX's categorical log-prob is [T*E], not [T*E, 1]: per task it
+        # broadcasts against the [T*E, 1] advantages to [T*E, T*E] in the
+        # losses, and [B, 1, T*E] keeps that per task
+        lp = lp.unsqueeze(-2)
+    return lp
 
 
 def policy_anil_mask(params, _trainable: bool = False):

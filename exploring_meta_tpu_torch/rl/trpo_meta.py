@@ -127,7 +127,8 @@ def ravel(params, seeds: int | None = None):
 
 
 def natural_gradient_step(loss_kl, flat0: torch.Tensor,
-                          trpo_cfg: TRPOConfig, host_free: bool = False):
+                          trpo_cfg: TRPOConfig, host_free: bool = False,
+                          reduce=None):
     """The TRPO step of ``loss_kl(flat) -> (surrogate, mean KL)``, two
     scalars, from the flat params ``flat0``: the CG solve against the
     damped Fisher (the Hessian of the KL), scaled to the trust region, then
@@ -139,7 +140,15 @@ def natural_gradient_step(loss_kl, flat0: torch.Tensor,
     ``flat0`` may be ``[S, P]``, one row a seed, with ``loss_kl`` giving
     ``[S]`` surrogates and KLs: every step is then per row (the line
     search host-free, each row taking its own first accepted candidate)
-    and ``old_loss`` and ``accepted`` are ``[S]``."""
+    and ``old_loss`` and ``accepted`` are ``[S]``.
+
+    ``reduce`` (a mesh's ``pmean``; ``loss_kl`` then covers this rank's
+    shard of the tasks) averages over the ranks what JAX's
+    ``_make_local_trpo_outer`` averages: the surrogate and its gradient,
+    each Fisher-vector product (before the damping), and each line-search
+    candidate's loss and KL, so every rank takes the same step. The
+    host-free search evaluates every candidate first and reduces their
+    ``[ls_max_steps, 2]`` values in one collective."""
     rows = flat0.ndim == 2
     if rows and not host_free:
         raise ValueError("a step of several seeds' rows runs the host-free "
@@ -151,35 +160,45 @@ def natural_gradient_step(loss_kl, flat0: torch.Tensor,
         (grad_flat,) = torch.autograd.grad(total(old_loss), x,
                                            retain_graph=True)
         (grad_kl,) = torch.autograd.grad(total(kl), x, create_graph=True)
-    Fvp = grad_vector_product(grad_kl, x, trpo_cfg.damping)
+    old_loss = old_loss.detach()
+    if reduce is not None:
+        old_loss, grad_flat = reduce(old_loss, grad_flat)
+    Fvp = grad_vector_product(grad_kl, x, trpo_cfg.damping, reduce=reduce)
 
     step = conjugate_gradient(Fvp, grad_flat,
                               num_iterations=trpo_cfg.cg_iterations)
     shs = 0.5 * dot(step, Fvp(step))
     step = step / torch.sqrt(shs / trpo_cfg.max_kl)
     del Fvp, grad_kl
-    old_loss = old_loss.detach()
 
     # backtracking line search: the first candidate that improves the
     # surrogate inside the KL bound is taken
     final, accepted, index = flat0, False, -1
-    if host_free:
-        accepted = torch.zeros(old_loss.shape, dtype=torch.bool,
-                               device=flat0.device)
+    sizes = [trpo_cfg.backtrack_factor ** i * trpo_cfg.outer_lr
+             for i in range(trpo_cfg.ls_max_steps)]
     with torch.no_grad(), torch.profiler.record_function("trpo_line_search"):
-        for ls_step in range(trpo_cfg.ls_max_steps):
-            stepsize = (trpo_cfg.backtrack_factor ** ls_step
-                        * trpo_cfg.outer_lr)
-            candidate = flat0 - stepsize * step
-            new_loss, kl = loss_kl(candidate)
-            ok = (new_loss < old_loss) & (kl < trpo_cfg.max_kl)
-            if host_free:
+        if host_free:
+            accepted = torch.zeros(old_loss.shape, dtype=torch.bool,
+                                   device=flat0.device)
+            candidates = [flat0 - size * step for size in sizes]
+            values = [loss_kl(c) for c in candidates]
+            if reduce is not None:
+                both = reduce(torch.stack([torch.stack(v) for v in values]))
+                values = [tuple(v) for v in both]
+            for candidate, (new_loss, kl) in zip(candidates, values):
+                ok = (new_loss < old_loss) & (kl < trpo_cfg.max_kl)
                 take = ok & ~accepted
                 final = torch.where(take.unsqueeze(-1), candidate, final)
                 accepted = accepted | take
-            elif bool(ok):
-                final, accepted, index = candidate, True, ls_step
-                break
+        else:
+            for ls_step, size in enumerate(sizes):
+                candidate = flat0 - size * step
+                new_loss, kl = loss_kl(candidate)
+                if reduce is not None:
+                    new_loss, kl = reduce(new_loss, kl)
+                if bool((new_loss < old_loss) & (kl < trpo_cfg.max_kl)):
+                    final, accepted, index = candidate, True, ls_step
+                    break
     info = {"old_loss": old_loss, "accepted": accepted}
     if not host_free:
         info["index"] = index
@@ -189,11 +208,12 @@ def natural_gradient_step(loss_kl, flat0: torch.Tensor,
 def meta_optimize_trpo(policy, params, old_params_stack, replays,
                        cfg: RLConfig, trpo_cfg: TRPOConfig,
                        adapt_steps: int, host_free: bool = False,
-                       seeds: int | None = None):
+                       seeds: int | None = None, reduce=None):
     """One TRPO outer step -> (new params, the info of
     :func:`natural_gradient_step`) (reference ``meta_optimize_trpo``,
     ``rl.py:409-438``); with ``seeds``, one step of each seed's stacked
-    params on its share of the replays."""
+    params on its share of the replays; with ``reduce``, the sharded step
+    on this rank's replays."""
     flat0, unravel = ravel(params, seeds)
 
     def loss_kl(flat):
@@ -201,17 +221,18 @@ def meta_optimize_trpo(policy, params, old_params_stack, replays,
                                    replays, cfg, adapt_steps, seeds)
 
     final, info = natural_gradient_step(loss_kl, flat0, trpo_cfg,
-                                        host_free=host_free)
+                                        host_free=host_free, reduce=reduce)
     new_params = tree_map(lambda t: t.detach().clone(), unravel(final))
     return new_params, info
 
 
 def make_trpo_meta_step(policy, cfg: RLConfig, trpo_cfg: TRPOConfig,
                         adapt_steps: int, host_free: bool = False,
-                        seeds: int | None = None):
+                        seeds: int | None = None, reduce=None):
     """``(params, old_params_stack, replays) -> (params, info)``."""
     def step(params, old_params_stack, replays):
         return meta_optimize_trpo(policy, params, old_params_stack, replays,
                                   cfg, trpo_cfg, adapt_steps,
-                                  host_free=host_free, seeds=seeds)
+                                  host_free=host_free, seeds=seeds,
+                                  reduce=reduce)
     return step

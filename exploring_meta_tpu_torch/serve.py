@@ -21,6 +21,15 @@ kernels, and acts with the adapted params.
 Eager PyTorch compiles nothing per batch size, so both servers serve
 exactly B requests; the JAX servers' power-of-two buckets, which bound
 XLA compiles, have no counterpart here.
+
+``mesh=`` (``parallel/mesh.py:make_task_mesh``, a server's mesh: one
+process, a tuple of local devices) splits the request axis into
+contiguous shards, one a device (a ragged batch leaves the last devices
+idle: 5 requests on 8 devices run one a device on the first five). The
+params are placed on each device once; each shard is served on its
+device and the results are concatenated on the first device. Per-request
+work has no collectives, so a request's result is the one it gets in an
+unsharded batch.
 """
 
 from __future__ import annotations
@@ -32,10 +41,39 @@ from exploring_meta_tpu_torch.device import resolve_device
 from exploring_meta_tpu_torch.models.cnn4 import (
     CNN4Spec, cnn4_apply, cnn4_features, cnn4_head_apply, init_cnn4,
 )
+from exploring_meta_tpu_torch.models import distributions as dist
 from exploring_meta_tpu_torch.ops.losses import cross_entropy
+from exploring_meta_tpu_torch.parallel.mesh import map_leaves, split_requests
 from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig, single_adapt_step
 from exploring_meta_tpu_torch.rl.rollout import Trajectory
-from exploring_meta_tpu_torch.utils.tree import tree_map
+from exploring_meta_tpu_torch.utils.tree import tree_leaves, tree_map
+
+
+def _placed(params, mesh, device):
+    """``(params on device, {device: params there} for a mesh's devices)``,
+    detached; a mesh's first device is the server's device."""
+    if mesh is not None and mesh.distributed:
+        raise ValueError("a server takes a server mesh (make_task_mesh "
+                         "outside a launch), not a rank's")
+    params = tree_map(lambda t: t.detach().to(device), params)
+    if mesh is None:
+        return params, None
+    return params, {d: tree_map(lambda t: t.to(d), params)
+                    for d in set(mesh.devices)}
+
+
+def _sharded(mesh, fn, n: int, *stacks):
+    """``fn(device, *shards)`` on each of ``mesh``'s contiguous request
+    shards of ``stacks`` (trees with a leading axis of ``n``), each moved
+    to its device -> the per-shard outputs (trees of tensors) concatenated
+    on the first device."""
+    home = mesh.devices[0]
+    outs = []
+    for dev, a, b in split_requests(mesh, n):
+        shards = [map_leaves(lambda t: t[a:b].to(dev), s) for s in stacks]
+        outs.append(fn(dev, *shards))
+    return map_leaves(lambda *xs: torch.cat([x.to(home) for x in xs]),
+                       *outs)
 
 
 class VisionServer:
@@ -43,18 +81,22 @@ class VisionServer:
 
     ``compute_dtype=torch.bfloat16`` runs adaptation and prediction in
     bf16; probabilities come back in f32 either way. ``device`` defaults
-    to the card; pass ``device="cpu"`` to serve on the CPU."""
+    to the card; pass ``device="cpu"`` to serve on the CPU. ``mesh``
+    shards :meth:`batch` over its devices (the first is the server's
+    device)."""
 
     def __init__(self, spec: CNN4Spec, params, *, inner_lr: float,
                  adapt_steps: int, anil: bool = False, compute_dtype=None,
-                 device=None):
+                 device=None, mesh=None):
         self.spec = spec
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.devices[0])
         self.inner_lr = inner_lr
         self.adapt_steps = adapt_steps
         self.anil = anil
         self.compute_dtype = compute_dtype
-        self.params = tree_map(lambda t: t.detach().to(self.device), params)
+        self.params, self._mesh_params = _placed(params, mesh, self.device)
 
     @classmethod
     def from_checkpoint(cls, path: str, spec: CNN4Spec, **kwargs):
@@ -80,7 +122,12 @@ class VisionServer:
         sx = self._as_input(support_x, torch.float32)
         qx = self._as_input(query_x, torch.float32)
         sy = self._as_input(support_y).long()
-        p = self.params
+        if self.mesh is None:
+            return self._serve(self.params, sx, sy, qx)
+        return _sharded(self.mesh, lambda d, *xs: self._serve(
+            self._mesh_params[d], *xs), sx.shape[0], sx, sy, qx)
+
+    def _serve(self, p, sx, sy, qx):
         if self.compute_dtype is not None:
             p = tree_map(lambda t: t.to(self.compute_dtype), p)
             sx, qx = sx.to(self.compute_dtype), qx.to(self.compute_dtype)
@@ -122,28 +169,24 @@ class PolicyServer:
 
     ``algo`` (``"vpg"``, ``"ppo"`` or ``"trpo"``) selects the inner step;
     ``cfg.adapt_steps`` is the default number of steps a request. ``act``
-    is the deterministic Gaussian mean (production control), ``sample``
-    the stochastic action (training-time behaviour). ``device`` defaults
-    to the card; pass ``device="cpu"`` to serve on the CPU."""
+    is the deterministic action (production control): a Gaussian policy's
+    mean, a categorical policy's (no ``density``) argmax of its logits;
+    ``sample`` the stochastic action (training-time behaviour), for a
+    categorical policy ``(action, {"log_prob"})``. ``device`` defaults to
+    the card; pass ``device="cpu"`` to serve on the CPU. ``mesh`` shards
+    the batched calls over its devices."""
 
     def __init__(self, policy, params, cfg: RLConfig, algo: str = "vpg",
                  mesh=None, device=None):
         if algo not in ("vpg", "ppo", "trpo"):
             raise ValueError(f"unknown adaptation algorithm {algo!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "PolicyServer: mesh is not ported yet (ROADMAP Queue 1, "
-                "later slices: scale-out)")
-        if not hasattr(policy, "density"):
-            raise NotImplementedError(
-                f"PolicyServer: {type(policy).__name__} is not ported yet "
-                "(ROADMAP Queue 1, later slices: ANIL and the Adam outer "
-                "paths, its remaining policies)")
         self.policy = policy
         self.cfg = cfg
         self.algo = algo
-        self.device = resolve_device(device)
-        self.params = tree_map(lambda t: t.detach().to(self.device), params)
+        self.mesh = mesh
+        self.device = (resolve_device(device) if mesh is None
+                       else mesh.devices[0])
+        self.params, self._mesh_params = _placed(params, mesh, self.device)
 
     @classmethod
     def from_checkpoint(cls, path: str, policy, cfg: RLConfig, **kwargs):
@@ -170,29 +213,70 @@ class PolicyServer:
         task axis ``[n, T, E, ...]`` -> per-task params ``[n, ...]``, with
         the same ``steps`` budget as :meth:`adapt`."""
         support = Trajectory(*(self._as_input(x) for x in support_stack))
-        params = per_task(self.params, support.reward.shape[0])
-        for _ in range(self.cfg.adapt_steps if steps is None else steps):
+        steps = self.cfg.adapt_steps if steps is None else steps
+        if self.mesh is None:
+            return self._adapt(self.params, support, steps)
+        return _sharded(self.mesh, lambda d, sup: self._adapt(
+            self._mesh_params[d], sup, steps), support.reward.shape[0],
+            support)
+
+    def _adapt(self, meta_params, support: Trajectory, steps: int):
+        params = per_task(meta_params, support.reward.shape[0])
+        for _ in range(steps):
             params = single_adapt_step(self.algo, self.policy, params,
                                        support, self.cfg)
         return params
 
+    def _dist(self, params, obs) -> tuple:
+        """The action distribution's parameters: ``(loc, scale)``, or a
+        categorical policy's ``(logits,)``."""
+        if hasattr(self.policy, "density"):
+            return self.policy.density(params, obs)
+        return (self.policy.logits(params, obs),)
+
+    def _draw(self, gen: torch.Generator, dparams):
+        if len(dparams) == 2:
+            return dist.normal_sample(gen, *dparams)
+        action = dist.categorical_sample(gen, dparams[0])
+        return action, {"log_prob": dist.categorical_log_prob(dparams[0],
+                                                              action)}
+
+    def _fleet_dist(self, params_stack, obs_stack) -> tuple:
+        """:meth:`_dist` of ``n`` tasks' params on their observations,
+        sharded over the mesh when there is one."""
+        obs_stack = self._as_input(obs_stack)
+        if self.mesh is None:
+            return self._dist(params_stack, obs_stack)
+        n = tree_leaves(params_stack)[0].shape[0]
+        return tuple(_sharded(self.mesh, lambda d, p, o: list(
+            self._dist(p, o)), n, params_stack, obs_stack))
+
     @torch.no_grad()
-    def sample(self, params, gen: torch.Generator, obs) -> torch.Tensor:
-        """Stochastic actions ``[E, act]`` for observations ``[E, obs]``."""
-        return self.policy.sample(params, gen, self._as_input(obs))
+    def sample(self, params, gen: torch.Generator, obs):
+        """Stochastic actions ``[E, act]`` for observations ``[E, obs]``
+        (a categorical policy: ``(actions [E], {"log_prob"})``)."""
+        return self._draw(gen, self._dist(params, self._as_input(obs)))
 
     @torch.no_grad()
     def act(self, params, obs) -> torch.Tensor:
-        """Deterministic actions (the Gaussian mean) ``[E, act]``."""
-        return self.policy.density(params, self._as_input(obs))[0]
+        """Deterministic actions ``[E, act]``: the Gaussian mean, or the
+        argmax of a categorical policy's logits ``[E]``."""
+        return self._deterministic(self._dist(params, self._as_input(obs)))
 
+    @staticmethod
+    def _deterministic(dparams) -> torch.Tensor:
+        return dparams[0] if len(dparams) == 2 else dparams[0].argmax(-1)
+
+    @torch.no_grad()
     def act_batched(self, params_stack, obs_stack) -> torch.Tensor:
         """:meth:`act` for ``n`` tasks' adapted params ``[n, ...]`` on their
         own observations ``[n, E, obs]`` -> ``[n, E, act]``, in one call."""
-        return self.act(params_stack, obs_stack)
+        return self._deterministic(self._fleet_dist(params_stack, obs_stack))
 
-    def sample_batched(self, params_stack, gen: torch.Generator,
-                       obs_stack) -> torch.Tensor:
+    @torch.no_grad()
+    def sample_batched(self, params_stack, gen: torch.Generator, obs_stack):
         """Stochastic :meth:`act_batched`. One generator serves the fleet
-        (JAX takes a key per task)."""
-        return self.sample(params_stack, gen, obs_stack)
+        (JAX takes a key per task): with a mesh the distributions are
+        computed on the shards and the draw is made for the whole fleet on
+        the first device, so it is the unsharded batch's."""
+        return self._draw(gen, self._fleet_dist(params_stack, obs_stack))

@@ -32,8 +32,15 @@ splits each seed's key once a chunk and folds ``0x7e57`` for the
 meta-test; the port's generators only move forward), so seed ``i`` of a
 one-program sweep trains as a solo run of seed ``i`` on the shared
 dataset; the seeds share one dataset, sampled with the base ``--seed``, as
-in JAX; ``--mesh`` (the seed axis over several chips) raises
-``NotImplementedError``.
+in JAX.
+
+``--vmap_seeds --mesh N`` splits the seeds into N contiguous groups
+(``parallel/multiseed.py:seed_groups``), one a rank
+(``parallel/launch.py``: a card each, or CPU processes under
+``EMT_FORCE_CPU=1``); each rank trains its group as one program, with no
+collectives, and the launching process gathers the groups' rows and
+writes the run dirs and the summary. A serial sweep with ``--mesh N``
+runs each seed's trainer over N ranks.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from exploring_meta_tpu_torch.utils.config import (
     CONV_IMPLS, RLScriptConfig, VisionConfig, anil_vision_defaults,
     requested_device, rl_argparser, vision_argparser,
 )
+from exploring_meta_tpu_torch.utils.tree import tree_map
 
 
 def _algos() -> dict:
@@ -248,11 +256,35 @@ def _vmapped_rl(cfg: RLScriptConfig, algo: str, anil: bool, seeds, device):
     return ms, params, finals
 
 
+def _vmapped(algo: str, base_cfg, seeds, device) -> tuple:
+    """One program for ``seeds`` -> (metrics ``[S, num_iterations]``,
+    params ``[S, ...]``, finals)."""
+    if algo in ("maml_vision", "anil_vision"):
+        return _vmapped_vision(base_cfg, algo.startswith("anil"), seeds,
+                               device)
+    return _vmapped_rl(base_cfg, algo.split("_")[1], algo.startswith("anil"),
+                       seeds, device)
+
+
+def _vmapped_group(algo: str, base_cfg, groups: list) -> tuple:
+    """A launched rank's program: its group of seeds, its params moved to
+    the host for the launching process."""
+    from exploring_meta_tpu_torch.parallel.launch import current_rank
+    rank = current_rank()
+    metrics, params, finals = _vmapped(algo, base_cfg, groups[rank.rank],
+                                       rank.device)
+    return metrics, tree_map(lambda t: t.detach().cpu(), params), finals
+
+
 def run_vmapped(algo: str, base_cfg, seeds, sweep_dir: str, final_key: str,
                 device=None) -> list:
-    """The one-program sweep -> the runs list of the summary."""
+    """The one-program sweep (one program a rank under ``--mesh N``) ->
+    the runs list of the summary."""
+    import torch
+
     from exploring_meta_tpu_torch.device import resolve_device
-    from exploring_meta_tpu_torch.parallel.multiseed import check_mesh
+    from exploring_meta_tpu_torch.parallel.launch import launch
+    from exploring_meta_tpu_torch.parallel.multiseed import seed_groups
     from exploring_meta_tpu_torch.utils.compile_cache import (
         enable_compile_cache,
     )
@@ -263,20 +295,26 @@ def run_vmapped(algo: str, base_cfg, seeds, sweep_dir: str, final_key: str,
                 f"--vmap_seeds cannot honor --{flag}: the whole sweep is "
                 f"one program with no per-seed trainer loop; run the "
                 f"serial sweep (drop --vmap_seeds) instead")
-    check_mesh(getattr(base_cfg, "mesh", 1))
+    mesh = getattr(base_cfg, "mesh", 1)
+    groups = seed_groups(seeds, mesh) if mesh > 1 else None
     device = resolve_device(device)
     # where the kernels build, as a trainer's Experiment sets it
     enable_compile_cache(base_cfg.compile_cache)
     prefix = "anil" if algo.startswith("anil") else "maml"
+    if groups is None:
+        metrics, params, finals = _vmapped(algo, base_cfg, seeds, device)
+    else:
+        parts = [o["result"] for o in launch(
+            _vmapped_group, mesh, args=(algo, base_cfg, groups),
+            device=device)]
+        metrics = {k: np.concatenate([p[0][k] for p in parts])
+                   for k in parts[0][0]}
+        params = tree_map(lambda *xs: torch.cat(xs), *(p[1] for p in parts))
+        finals = [f for p in parts for f in p[2]]
     if algo in ("maml_vision", "anil_vision"):
-        metrics, params, finals = _vmapped_vision(
-            base_cfg, algo.startswith("anil"), seeds, device)
         trainer_algo = f"{prefix}_{base_cfg.ways}w{base_cfg.shots}s"
         dataset = base_cfg.dataset
     else:
-        metrics, params, finals = _vmapped_rl(
-            base_cfg, algo.split("_")[1], algo.startswith("anil"), seeds,
-            device)
         trainer_algo, dataset = algo, base_cfg.env
     for seed, final in zip(seeds, finals):
         print(f"seed {seed}: {final_key} = {final:.4f}")
@@ -328,7 +366,8 @@ def main(argv=None) -> dict:
                    help="where the summary and the plot land")
     p.add_argument("--vmap_seeds", action="store_true",
                    help="train all seeds as one program on one card "
-                        "(vision and device-env RL)")
+                        "(vision and device-env RL; with --mesh N, one "
+                        "program for each of N groups of seeds)")
     args = p.parse_args(argv)
     seeds = [int(s) for s in args.seeds.split(",") if s.strip()]
     if not seeds:

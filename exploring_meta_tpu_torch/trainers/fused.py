@@ -110,7 +110,9 @@ def run_fused(trainer, run_chunk: Callable, state, gen,
 
     def log_step(ms, j):
         metrics = {names.get(k, k): float(v[j]) for k, v in ms.items()}
-        print(f"iteration {trainer._fused_count + j}: {metrics}", flush=True)
+        if trainer._writer:
+            print(f"iteration {trainer._fused_count + j}: {metrics}",
+                  flush=True)
         trainer.log_metrics(metrics)
 
     def on_chunk(state, iteration):

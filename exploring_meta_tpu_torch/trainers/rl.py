@@ -36,8 +36,16 @@ tasks in lockstep through one ``meta_batch x episodes``-slot vec env
 (``rl/host_batched.py``). ``--workers`` caps the native pool's threads,
 ``--host_policy cpu`` runs the per-step policy forwards on the CPU, and
 ``--fuse N`` is ignored on host envs, as in JAX (a host step cannot be
-captured). ``--mesh`` raises ``NotImplementedError`` naming its ROADMAP
-item.
+captured).
+
+``--mesh N`` runs the task axis data-parallel over N ranks
+(``parallel/launch.py``, ``parallel/mesh.py``) with JAX's semantics per
+path: eager TRPO (device or host env) and host-env PPO / VPG collect the
+whole meta-batch on every rank and shard the outer step over the ranks;
+fused TRPO, and PPO / VPG on a device env (eager or fused), sample and
+adapt ``meta_batch / N`` tasks a rank from the rank's own generator
+(``parallel/mesh.py:rank_generator``). Rank 0 alone writes the run dir
+and meta-tests.
 """
 
 from __future__ import annotations
@@ -54,6 +62,11 @@ from exploring_meta_tpu_torch.envs.factory import make_env
 from exploring_meta_tpu_torch.models.policies import (
     DiagNormalPolicy, DiagNormalPolicyANIL,
 )
+from exploring_meta_tpu_torch.parallel.launch import current_rank
+from exploring_meta_tpu_torch.parallel.mesh import (
+    make_sharded_replay_meta_step, make_sharded_trpo_meta_step,
+    rank_generator, shard_task_batch,
+)
 from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig, make_trpo_collect
 from exploring_meta_tpu_torch.rl.evaluate import meta_test
 from exploring_meta_tpu_torch.rl.replay_meta import (
@@ -68,9 +81,7 @@ from exploring_meta_tpu_torch.rl.trpo_meta import (
     TRPOConfig, make_trpo_meta_step,
 )
 from exploring_meta_tpu_torch.trainers.fused import host_metrics, run_fused
-from exploring_meta_tpu_torch.utils.config import (
-    RLScriptConfig, raise_unported,
-)
+from exploring_meta_tpu_torch.utils.config import RLScriptConfig
 from exploring_meta_tpu_torch.utils.experiment import (
     DivergenceError, Experiment, resume_training,
 )
@@ -114,10 +125,6 @@ def trpo_config(cfg: RLScriptConfig) -> TRPOConfig:
                       backtrack_factor=cfg.backtrack_factor)
 
 
-def _check_ported(cfg: RLScriptConfig) -> None:
-    raise_unported("RLTrainer", [(cfg.mesh > 1, "mesh > 1", "scale-out")])
-
-
 def _cat_tasks(rows: list):
     """Per-task results ``[1, ...]`` (params trees or Trajectories) -> one
     ``[B, ...]`` along the task axis."""
@@ -133,11 +140,12 @@ class RLTrainer(Experiment):
     ``device`` defaults to the card; pass ``device="cpu"`` to train on the
     CPU. Without a card the default raises before any run dir is made."""
 
+    launches_ranks = True
+
     def __init__(self, cfg: RLScriptConfig, algo: str = "trpo",
                  anil: bool = False, path: str = "results/", device=None):
         if algo not in ALGOS:
             raise ValueError(f"unknown algo {algo!r} (one of {ALGOS})")
-        _check_ported(cfg)
         self.device = resolve_device(device)
         super().__init__(f"{'anil' if anil else 'maml'}_{algo}", cfg.env,
                          cfg.to_params(), path=path,
@@ -147,10 +155,49 @@ class RLTrainer(Experiment):
         self.anil = anil
         self._timer = PhaseTimer() if cfg.profile else None
         self.ckpt_backend = cfg.ckpt_backend
+        # the task mesh and this rank's generator, set by run() in a
+        # launched rank
+        self._mesh = self._rank_gen = None
 
     def _ph(self, name: str):
         """A ``--profile`` phase (a no-op when profiling is off)."""
         return self._timer.phase(name) if self._timer else no_phase(name)
+
+    def _trpo_meta_step(self, policy, rl_cfg: RLConfig):
+        """The eager TRPO outer step ``(params, old_params, replays) ->
+        (params, info)``: with a mesh, each rank takes its contiguous shard
+        of the globally collected batch and the step is the sharded one
+        (JAX's ``_make_trpo_meta_step``)."""
+        if self._mesh is None:
+            return make_trpo_meta_step(policy, rl_cfg, trpo_config(self.cfg),
+                                       rl_cfg.adapt_steps)
+        mesh = self._mesh
+        step = make_sharded_trpo_meta_step(policy, rl_cfg,
+                                           trpo_config(self.cfg),
+                                           rl_cfg.adapt_steps, mesh)
+
+        def meta_step(params, old_params, replays):
+            return step(params, *shard_task_batch(mesh, (old_params,
+                                                         replays)))
+
+        return meta_step
+
+    def _replay_outer(self, policy, rl_cfg: RLConfig):
+        """The Adam outer step on recorded replays ``(params, opt,
+        replays) -> loss``: with a mesh, on this rank's shard with the
+        gradients reduced (JAX's ``_make_adam_replay_outer``)."""
+        if self._mesh is None:
+            meta_loss = make_replay_meta_loss(self.algo, policy, rl_cfg)
+
+            def outer(params, opt, replays):
+                loss = meta_loss(params, replays)
+                apply_meta_gradient(opt, loss, params)
+                return loss.detach()
+            return outer
+        mesh = self._mesh
+        step = make_sharded_replay_meta_step(policy, rl_cfg, self.algo, mesh)
+        return lambda params, opt, replays: step(
+            params, opt, shard_task_batch(mesh, replays))[2]
 
     def _make_trpo_iteration(self, env, policy, roll, rl_cfg: RLConfig):
         """``(params, None, gen) -> (params, None, metrics)``; the line
@@ -158,7 +205,9 @@ class RLTrainer(Experiment):
         iteration = make_trpo_iteration(env, policy, roll, rl_cfg,
                                         trpo_config(self.cfg),
                                         self.cfg.meta_batch_size,
-                                        phase=self._ph)
+                                        phase=self._ph,
+                                        meta_step=self._trpo_meta_step(
+                                            policy, rl_cfg))
 
         def step(params, _, gen):
             params, metrics = iteration(params, gen)
@@ -172,10 +221,12 @@ class RLTrainer(Experiment):
         query loss."""
         iteration = make_adam_iteration(env, policy, roll, rl_cfg, self.algo,
                                         self.cfg.meta_batch_size,
-                                        phase=self._ph)
+                                        phase=self._ph, mesh=self._mesh)
 
         def step(params, opt, gen):
-            return params, opt, iteration(params, opt, gen)
+            # with a mesh, the rank's own tasks from its own generator
+            return params, opt, iteration(params, opt,
+                                          self._rank_gen or gen)
 
         return step
 
@@ -184,8 +235,7 @@ class RLTrainer(Experiment):
         collection is the batched one on a ``[1]`` task slice, and the
         stacked replays take the device path's outer step."""
         collect = make_trpo_collect(policy, roll, rl_cfg)
-        meta_step = make_trpo_meta_step(policy, rl_cfg, trpo_config(self.cfg),
-                                        rl_cfg.adapt_steps)
+        meta_step = self._trpo_meta_step(policy, rl_cfg)
 
         def step(params, _, gen):
             tasks = env.sample_tasks(gen, self.cfg.meta_batch_size)
@@ -213,7 +263,7 @@ class RLTrainer(Experiment):
         (``rl/replay_meta.py:collect_replays`` on a ``[1]`` task slice);
         the Adam step takes the second-order meta-gradient of the mean
         query loss rederived from all of them."""
-        meta_loss = make_replay_meta_loss(self.algo, policy, rl_cfg)
+        outer = self._replay_outer(policy, rl_cfg)
 
         def step(params, opt, gen):
             tasks = env.sample_tasks(gen, self.cfg.meta_batch_size)
@@ -222,11 +272,10 @@ class RLTrainer(Experiment):
                                         tasks[i:i + 1], gen, rl_cfg)
                         for i in range(len(tasks))]
             with self._ph("meta_step") as sync:
-                loss = meta_loss(params, _cat_tasks([r[0] for r in rows]))
-                apply_meta_gradient(opt, loss, params)
+                loss = outer(params, opt, _cat_tasks([r[0] for r in rows]))
                 sync.append(params)
             return params, opt, {
-                "meta_loss": loss.detach(),
+                "meta_loss": loss,
                 "adapt_reward": torch.cat([r[1]["reward"]
                                            for r in rows]).mean(),
                 "adapt_success": torch.cat([r[1]["success"]
@@ -244,11 +293,9 @@ class RLTrainer(Experiment):
             collect_task_batched,
         )
         if self.algo == "trpo":
-            meta_step = make_trpo_meta_step(policy, rl_cfg,
-                                            trpo_config(self.cfg),
-                                            rl_cfg.adapt_steps)
+            meta_step = self._trpo_meta_step(policy, rl_cfg)
         else:
-            meta_loss = make_replay_meta_loss(self.algo, policy, rl_cfg)
+            outer = self._replay_outer(policy, rl_cfg)
 
         def step(params, opt, gen):
             tasks = env.sample_tasks(gen, self.cfg.meta_batch_size)
@@ -262,9 +309,7 @@ class RLTrainer(Experiment):
                     loss = info["old_loss"]
                     extra = {"ls_accepted": info["accepted"]}
                 else:
-                    loss = meta_loss(params, replays)
-                    apply_meta_gradient(opt, loss, params)
-                    loss, extra = loss.detach(), {}
+                    loss, extra = outer(params, opt, replays), {}
                 sync.append(params)
             return params, opt, {"meta_loss": loss,
                                  "adapt_reward": m["reward"],
@@ -276,28 +321,35 @@ class RLTrainer(Experiment):
                     gen, start: int = 0) -> int:
         """All iterations in chunks of ``cfg.fuse`` (``rl/train_scan.py``,
         ``trainers/fused.py:run_fused``) -> the last iteration."""
-        cfg = self.cfg
+        cfg, mesh = self.cfg, self._mesh
+        # with a mesh, each rank samples its share from its own generator
+        rank_gen = self._rank_gen or gen
         if self.algo == "trpo":
             train = make_trpo_train_scan(env, policy, roll, rl_cfg,
                                          trpo_config(cfg),
-                                         cfg.meta_batch_size, cfg.fuse)
+                                         cfg.meta_batch_size, cfg.fuse,
+                                         mesh=mesh)
 
             def run_chunk(n, state, g):
-                p, ms = train(state[0], g, n)
+                p, ms = train(state[0], rank_gen, n)
                 return (p, state[1]), ms
         else:
             train = make_adam_train_scan(env, policy, roll, rl_cfg,
                                          self.algo, cfg.meta_batch_size,
-                                         cfg.fuse)
+                                         cfg.fuse, mesh=mesh)
 
             def run_chunk(n, state, g):
-                p, o, ms = train(*state, g, n)
+                p, o, ms = train(*state, rank_gen, n)
                 return (p, o), ms
 
         return run_fused(self, run_chunk, (params, opt), gen, start=start,
                          phase=self._ph)
 
-    def run(self) -> dict:
+    def run(self) -> dict | None:
+        """-> the final evaluation (None on a launched rank but 0)."""
+        if self.cfg.mesh > 1 and current_rank() is None:
+            return self.run_ranks()
+        self._mesh = self.enter_rank()
         cfg = self.cfg
         # task-batched host collection steps the whole meta-batch through
         # one meta_batch x episodes-slot vec env; per-task collection
@@ -357,10 +409,14 @@ class RLTrainer(Experiment):
             # tensors (the Adam state is loaded into state when saved)
             params, _, gen, start_iteration = resume_training(
                 cfg.resume, params, state, gen)
+        if self._mesh is not None and is_device and (
+                use_fused or self.algo != "trpo"):
+            self._rank_gen = rank_generator(self._mesh, gen, cfg.seed,
+                                            start_iteration)
 
         start = time.perf_counter()
         iteration = start_iteration
-        trace = (device_trace(cfg.trace) if cfg.trace
+        trace = (device_trace(cfg.trace) if cfg.trace and self._writer
                  else contextlib.nullcontext())
         try:
             with trace:
@@ -374,8 +430,9 @@ class RLTrainer(Experiment):
                                            cfg.num_iterations):
                         params, state, metrics = step_fn(params, state, gen)
                         metrics = host_metrics(metrics)
-                        print(f"iteration {iteration}: {metrics}",
-                              flush=True)
+                        if self._writer:
+                            print(f"iteration {iteration}: {metrics}",
+                                  flush=True)
                         self.log_metrics(metrics)
                         if iteration % cfg.save_every == 0:
                             self.save_model_checkpoint(
@@ -392,10 +449,12 @@ class RLTrainer(Experiment):
         self.save_model(params)
         self.logger["elapsed_time"] = (
             f"{round(time.perf_counter() - start, 2)} sec")
-        if self._timer:
+        if self._timer and self._writer:
             self._timer.save(os.path.join(self.model_path,
                                           "phase_times.json"))
             print("Phase times:", self._timer.summary())
+        if self._mesh is not None and self._mesh.rank:
+            return None
 
         # the generator only moves forward, so the meta-test draws numbers
         # that no training iteration (eager or replayed) drew

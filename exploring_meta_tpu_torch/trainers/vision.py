@@ -22,7 +22,15 @@ The run utilities are JAX's, as in ``trainers/rl.py``: ``--resume``
 (params, Adam state and generator), ``--async_ckpt``, ``--ckpt_backend
 orbax`` (DCP), ``--profile`` (the phases ``sample``, ``valid_eval``,
 ``meta_step`` and, fused, ``train_chunk``), ``--trace`` and ``--wandb``.
-``--mesh`` raises ``NotImplementedError`` naming its ROADMAP item.
+
+``--mesh N`` runs the meta-batch task-data-parallel over N ranks
+(``parallel/launch.py``, ``parallel/mesh.py``), with JAX's semantics: each
+eager iteration every rank draws the same global batch from the shared
+generator, keeps its contiguous shard for the meta-step (the gradients
+averaged over the ranks) and meta-evaluates the whole valid batch; fused,
+each rank samples ``meta_batch / N`` training and valid tasks from its own
+generator (``parallel/mesh.py:rank_generator``) and both passes are
+averaged. Rank 0 alone writes the run dir and meta-tests.
 """
 
 from __future__ import annotations
@@ -40,12 +48,14 @@ from exploring_meta_tpu_torch.adapt.vision import make_vision_fast_adapt
 from exploring_meta_tpu_torch.device import resolve_device
 from exploring_meta_tpu_torch.models import cnn4
 from exploring_meta_tpu_torch.models.layers import set_conv_impl
+from exploring_meta_tpu_torch.parallel.launch import current_rank
+from exploring_meta_tpu_torch.parallel.mesh import (
+    local_count, make_sharded_meta_step, rank_generator, shard_task_batch,
+)
 from exploring_meta_tpu_torch.tasks.datasets import get_dataset
 from exploring_meta_tpu_torch.tasks.sampler import sample_task_batch
 from exploring_meta_tpu_torch.trainers.fused import host_metrics, run_fused
-from exploring_meta_tpu_torch.utils.config import (
-    CONV_IMPLS, VisionConfig, raise_unported,
-)
+from exploring_meta_tpu_torch.utils.config import CONV_IMPLS, VisionConfig
 from exploring_meta_tpu_torch.utils.experiment import (
     DivergenceError, Experiment, resume_training,
 )
@@ -65,21 +75,16 @@ def _build_spec(cfg: VisionConfig, anil: bool) -> cnn4.CNN4Spec:
     raise SystemExit(f"Dataset not supported: {cfg.dataset}")
 
 
-def _check_ported(cfg: VisionConfig) -> None:
-    raise_unported("VisionTrainer", [
-        (cfg.mesh > 1, "mesh > 1", "Scale-out"),
-    ])
-
-
 class VisionTrainer(Experiment):
     """The meta-training loop of MAML or ANIL vision.
 
     ``device`` defaults to the card; pass ``device="cpu"`` to train on the
     CPU. Without a card the default raises before any run dir is made."""
 
+    launches_ranks = True
+
     def __init__(self, cfg: VisionConfig, anil: bool = False,
                  path: str = "results/", device=None):
-        _check_ported(cfg)
         self.device = resolve_device(device)
         algo = "anil" if anil else "maml"
         super().__init__(f"{algo}_{cfg.ways}w{cfg.shots}s", cfg.dataset,
@@ -89,22 +94,29 @@ class VisionTrainer(Experiment):
         self.ckpt_backend = cfg.ckpt_backend
 
     def _fused_loop(self, fast_adapt, sample_train, sample_valid, params,
-                    opt, gen, start: int = 0, phase=no_phase) -> int:
+                    opt, gen, start: int = 0, phase=no_phase,
+                    mesh=None) -> int:
         """All iterations in chunks of ``cfg.fuse`` (``make_train_scan``:
         the valid pass on the pre-update params, then the meta-step;
-        ``trainers/fused.py:run_fused``) -> the last iteration."""
+        ``trainers/fused.py:run_fused``) -> the last iteration. With a
+        ``mesh`` each rank samples from its own generator."""
         train = make_train_scan(fast_adapt, sample_train, self.cfg.fuse,
-                                eval_sample_fn=sample_valid)
+                                eval_sample_fn=sample_valid, mesh=mesh)
+        rank_gen = rank_generator(mesh, gen, self.cfg.seed, start)
 
         def run_chunk(n, state, g):
-            p, o, ms = train(*state, g, n)
+            p, o, ms = train(*state, rank_gen, n)
             return (p, o), ms
 
         return run_fused(self, run_chunk, (params, opt), gen, names={
             "loss": "train_loss", "metric": "train_acc",
             "valid_metric": "valid_acc"}, start=start, phase=phase)
 
-    def run(self) -> float:
+    def run(self) -> float | None:
+        """-> the meta-test accuracy (None on a launched rank but 0)."""
+        if self.cfg.mesh > 1 and current_rank() is None:
+            return self.run_ranks()
+        mesh = self.enter_rank()
         cfg, dev = self.cfg, self.device
         train_ds, valid_ds, test_ds = get_dataset(
             cfg.dataset, seed=cfg.seed, synthetic=cfg.synthetic or None,
@@ -127,12 +139,16 @@ class VisionTrainer(Experiment):
             # bf16 compute graph, f32 master params and Adam state
             fast_adapt = cast_compute(fast_adapt)
         opt = adam(params, cfg.outer_lr)
-        meta_step = make_meta_step(fast_adapt)
         meta_eval = make_meta_eval(fast_adapt)
+        if mesh is None:
+            meta_step, place = make_meta_step(fast_adapt), lambda b: b
+        else:
+            local = local_count(mesh.size, cfg.meta_batch_size)
+            meta_step = make_sharded_meta_step(fast_adapt, mesh)
+            place = lambda b: shard_task_batch(mesh, b)  # noqa: E731
 
-        def sample(ds):
-            return sample_task_batch(gen, ds, cfg.ways, cfg.shots,
-                                     cfg.meta_batch_size)
+        def sample(ds, g=gen, n=cfg.meta_batch_size):
+            return sample_task_batch(g, ds, cfg.ways, cfg.shots, n)
 
         start_iteration = 0
         if cfg.resume:
@@ -145,21 +161,23 @@ class VisionTrainer(Experiment):
 
         start = time.perf_counter()
         iteration = start_iteration
-        trace = (device_trace(cfg.trace) if cfg.trace
+        trace = (device_trace(cfg.trace) if cfg.trace and self._writer
                  else contextlib.nullcontext())
         try:
             with trace:
                 if cfg.fuse > 1:
+                    # with a mesh, each rank's share from its generator
+                    n = cfg.meta_batch_size if mesh is None else local
                     iteration = self._fused_loop(
-                        fast_adapt, lambda g: sample(train_ds),
-                        lambda g: sample(valid_ds), params, opt, gen,
-                        start=start_iteration, phase=ph)
+                        fast_adapt, lambda g: sample(train_ds, g, n),
+                        lambda g: sample(valid_ds, g, n), params, opt, gen,
+                        start=start_iteration, phase=ph, mesh=mesh)
                     params = self._fused_params
                 else:
                     for iteration in range(start_iteration,
                                            cfg.num_iterations):
                         with ph("sample") as sync:
-                            batch = sample(train_ds)
+                            batch = place(sample(train_ds))
                             sync.append(batch)
                         with ph("valid_eval") as sync:
                             # PRE-update params: the reference's valid
@@ -176,8 +194,9 @@ class VisionTrainer(Experiment):
                             "train_acc": train_m["metric"],
                             "valid_loss": valid_m["loss"],
                             "valid_acc": valid_m["metric"]})
-                        print(f"iteration {iteration}: {metrics}",
-                              flush=True)
+                        if self._writer:
+                            print(f"iteration {iteration}: {metrics}",
+                                  flush=True)
                         self.log_metrics(metrics)
                         if iteration % cfg.save_every == 0:
                             self.save_model_checkpoint(
@@ -194,10 +213,12 @@ class VisionTrainer(Experiment):
         self.save_model(params)
         self.logger["elapsed_time"] = (
             f"{round(time.perf_counter() - start, 2)} sec")
-        if timer:
+        if timer and self._writer:
             timer.save(os.path.join(self.model_path, "phase_times.json"))
             print("Phase times:", timer.summary())
 
+        if mesh is not None and mesh.rank:
+            return None
         # the generator only moves forward: the meta-test draws numbers that
         # no training iteration (eager or replayed) drew
         test_acc = float(meta_eval(params, *sample(test_ds))["metric"])

@@ -6,10 +6,9 @@
 The fields, defaults and flag names are the JAX package's, so a run's
 ``logger.json`` config reads the same. One default differs: the vision
 ``conv_impl`` is ``"fused"`` (the CNN4 kernels; JAX's ``"pallas"`` is
-accepted and means the same), where JAX has ``"direct"``. Options the
-port does not run yet (``--mesh``) are still accepted here; the trainers
-raise ``NotImplementedError`` on a non-default value
-(:func:`raise_unported`).
+accepted and means the same), where JAX has ``"direct"``. ``--mesh N``
+runs the trainers over N ranks (``parallel/launch.py``): one card a rank
+with NCCL, or, under ``EMT_FORCE_CPU=1``, N CPU processes with gloo.
 """
 
 from __future__ import annotations
@@ -28,16 +27,6 @@ def requested_device() -> str | None:
     """``EMT_FORCE_CPU=1`` is the explicit request to run on the CPU ->
     ``"cpu"``; otherwise ``None``, the card."""
     return "cpu" if os.environ.get("EMT_FORCE_CPU") == "1" else None
-
-
-def raise_unported(trainer: str, unported) -> None:
-    """Raise ``NotImplementedError`` on the first ``(hit, what, item)`` of
-    ``unported`` that is hit, naming its ROADMAP item."""
-    for hit, what, item in unported:
-        if hit:
-            raise NotImplementedError(
-                f"{trainer}: {what} is not ported yet (ROADMAP Queue 1, "
-                f"later slices: {item})")
 
 
 @dataclass

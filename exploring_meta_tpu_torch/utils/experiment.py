@@ -32,6 +32,12 @@ one:
 ``--ckpt_backend orbax`` writes ``torch.distributed.checkpoint`` step
 directories instead (``utils/dcp_ckpt.py``), and ``--async_ckpt`` writes
 npz checkpoints on one background thread.
+
+Under ``--mesh N`` (``parallel/launch.py``) the trainer made by the caller
+creates the run dir and launches N ranks, each running a copy of it; rank
+0 alone writes into the run dir (summary, checkpoints, metrics, model,
+logger, wandb), and the caller's trainer takes rank 0's metrics and logger
+when the ranks are done.
 """
 
 from __future__ import annotations
@@ -45,6 +51,7 @@ import re
 import numpy as np
 import torch
 
+from exploring_meta_tpu_torch.parallel.launch import current_rank
 from exploring_meta_tpu_torch.utils.tree import tree_from_items, tree_items
 
 OPT_PREFIX = "__opt__/"
@@ -273,6 +280,8 @@ class DivergenceError(RuntimeError):
 class Experiment:
     """Logger/checkpointer each trainer inherits (reference Experiment)."""
 
+    launches_ranks = False   # True: --mesh N runs the trainer in N ranks
+
     def __init__(self, algo: str, dataset: str, params: dict,
                  path: str = "results/", use_wandb: bool = False):
         params = dict(params)
@@ -298,7 +307,12 @@ class Experiment:
         self.model_path = os.path.join(
             path, f"{algo}_{dataset}_{self.logger['date']}_"
                   f"{self.logger['model_id']}")
-        os.makedirs(os.path.join(self.model_path, "model_checkpoints"))
+        # only rank 0 of a launched run writes (a trainer made outside a
+        # launch is its own rank 0)
+        rank = current_rank()
+        self._writer = rank is None or rank.rank == 0
+        if self._writer:
+            os.makedirs(os.path.join(self.model_path, "model_checkpoints"))
 
         self._ckpt_executor = None
         self._ckpt_futures: list = []
@@ -308,16 +322,70 @@ class Experiment:
         self._dcp = None
 
         self._use_wandb = False
-        if use_wandb:  # optional: wandb is not a dependency
-            try:
-                import wandb
-                self._wandb = wandb.init(
-                    project="exploring_meta_tpu",
-                    id=f"{algo}_{dataset}_{self.logger['model_id']}",
-                    config=self.params, tags=[algo, dataset])
-                self._use_wandb = True
-            except Exception as e:
-                print(f"wandb unavailable ({e}); continuing without it")
+        self._want_wandb = use_wandb
+        # a trainer that will launch --mesh ranks leaves it to rank 0
+        # (enter_rank)
+        if use_wandb and self._writer and not (
+                self.launches_ranks and rank is None
+                and int(params.get("mesh", 1)) > 1):
+            self._start_wandb()
+
+    def _start_wandb(self) -> None:
+        """Optional: wandb is not a dependency."""
+        algo, dataset = self.params["algo"], self.params["dataset"]
+        try:
+            import wandb
+            self._wandb = wandb.init(
+                project="exploring_meta_tpu",
+                id=f"{algo}_{dataset}_{self.logger['model_id']}",
+                config=self.params, tags=[algo, dataset])
+            self._use_wandb = True
+        except Exception as e:
+            print(f"wandb unavailable ({e}); continuing without it")
+
+    def run_ranks(self):
+        """``--mesh N`` from outside a launch: run this trainer in N ranks
+        (``parallel/launch.py``; the CPU with gloo for ``device="cpu"``,
+        else one card a rank with NCCL) -> rank 0's result. This trainer
+        then holds rank 0's metrics and logger, and ``rank_counts`` each
+        rank's launch counters."""
+        from exploring_meta_tpu_torch.parallel.launch import launch
+        from exploring_meta_tpu_torch.parallel.mesh import local_count
+        n = self.params["mesh"]
+        # a meta-batch the ranks cannot share raises before any is started
+        local_count(n, self.params["meta_batch_size"])
+        outs = launch(_run_rank, n, args=(self,), device=self.device)
+        first = outs[0]["result"]
+        self.metrics, self.logger = first["metrics"], first["logger"]
+        self.rank_counts = [o["counts"] for o in outs]
+        return first["value"]
+
+    def enter_rank(self):
+        """-> the task mesh of the launched rank this trainer runs in (the
+        trainer moves to the rank's device; rank 0 starts wandb), or None
+        outside a launch."""
+        rank = current_rank()
+        if rank is None:
+            return None
+        from exploring_meta_tpu_torch.parallel.mesh import make_task_mesh
+        mesh = make_task_mesh()
+        if int(self.params.get("mesh", 1)) != mesh.size:
+            raise ValueError(f"--mesh {self.params.get('mesh', 1)} run in a "
+                             f"launch of {mesh.size} ranks")
+        self.device = mesh.device
+        self._writer = mesh.rank == 0
+        if self._writer and self._want_wandb and not self._use_wandb:
+            self._start_wandb()
+        return mesh
+
+    def __getstate__(self):
+        # a trainer is pickled into each launched rank, without its
+        # wandb run and checkpoint threads
+        state = dict(self.__dict__)
+        state.pop("_wandb", None)
+        state.update(_use_wandb=False, _ckpt_executor=None,
+                     _ckpt_futures=[], _dcp=None)
+        return state
 
     def log_metrics(self, metrics: dict, step: int | None = None) -> None:
         """Append each value to its metric's list (and send the row to
@@ -362,6 +430,8 @@ class Experiment:
                  for k, v in flat.items()]
         lines.append(f"TOTAL PARAMS: {sum(v.size for v in flat.values())}")
         info = "\n".join(lines)
+        if not self._writer:
+            return
         print(info)
         with open(os.path.join(self.model_path, f"{name}.summary"), "w") as f:
             f.write(info)
@@ -378,6 +448,8 @@ class Experiment:
                 return [finite(x) for x in v]
             return v
 
+        if not self._writer:
+            return
         with open(os.path.join(self.model_path, "metrics.json"), "w") as f:
             json.dump(finite(self.metrics), f)
         with open(os.path.join(self.model_path, "logger.json"), "w") as f:
@@ -385,6 +457,8 @@ class Experiment:
                       default=str)
 
     def save_model(self, params, name: str = "model") -> None:
+        if not self._writer:
+            return
         np.savez(os.path.join(self.model_path, f"{name}.npz"),
                  **flatten_params(params))
 
@@ -403,6 +477,8 @@ class Experiment:
         re-raises a failed one. Under ``ckpt_backend == "orbax"`` the
         checkpoint is a DCP step directory under ``model_checkpoints/``
         (``utils/dcp_ckpt.py``, always written in the background)."""
+        if not self._writer:
+            return
         tensors = resume_state(params, opt_state, gen)
         if self.ckpt_backend == "orbax":
             if self._dcp is None:
@@ -440,3 +516,10 @@ class Experiment:
             f.result()
         if self._dcp is not None:
             self._dcp.wait()
+
+
+def _run_rank(trainer: Experiment) -> dict:
+    """A launched rank's run of ``trainer`` (``Experiment.run_ranks``)."""
+    value = trainer.run()
+    return {"value": value, "metrics": trainer.metrics,
+            "logger": trainer.logger}

@@ -123,7 +123,9 @@ def test_port_module_list_is_complete():
                 "parallel", "parallel.multiseed", "sweep",
                 # slice 13: host envs
                 "native", "native.binding", "envs.host",
-                "envs.metaworld_adapter", "rl.host_batched"):
+                "envs.metaworld_adapter", "rl.host_batched",
+                # slice 14: scale-out and the last policies
+                "ops.stats", "parallel.mesh", "parallel.launch"):
         assert f"exploring_meta_tpu_torch.{mod}" in names
 
 
@@ -136,3 +138,21 @@ def test_packaging_ships_the_port_and_its_cuda_source():
     for source in ("csrc/cnn4_block.cu", "csrc/gae.cu", "native/vecenv.cpp"):
         assert os.path.exists(os.path.join(
             REPO, "exploring_meta_tpu_torch", source))
+
+
+def test_spawned_ranks_import_neither_jax_nor_the_jax_package():
+    """A ``--mesh`` rank is a spawned process that imports the launch
+    entry and the worker it runs (``tests/torch_mesh_workers.py``, which
+    imports the port only); its ``sys.modules`` holds nothing of JAX."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    probe = (
+        "import sys; sys.path[:0] = ['tests']\n"
+        "from exploring_meta_tpu_torch.parallel.launch import launch\n"
+        "import torch_mesh_workers as W\n"
+        "if __name__ == '__main__':\n"
+        "    out = launch(W.whoami, 2, device='cpu')\n"
+        "    print(repr([o['result']['jax'] for o in out]))\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[[], []]"

@@ -44,7 +44,6 @@ from exploring_meta_tpu_torch.tasks.sampler import sample_task_batch
 from exploring_meta_tpu_torch.utils.bridge import (
     params_from_jax, params_to_numpy,
 )
-from exploring_meta_tpu_torch.utils.config import raise_unported
 from exploring_meta_tpu_torch.utils.tree import (
     tree_items, tree_leaves, tree_map,
 )
@@ -135,11 +134,14 @@ def test_seeded_copies_are_seed_major_and_route_gradients_per_seed():
 
 
 def test_mesh_is_refused_as_scale_out():
-    ms.check_mesh(1)
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        ms.check_mesh(2)
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        raise_unported("x", [(True, "mesh > 1", "scale-out")])
+    """The seed axis over a ``--mesh`` (since the scale-out slice):
+    contiguous equal groups, one a rank; a count the mesh does not divide
+    raises JAX's ``vmap_seeds`` message."""
+    assert ms.seed_groups([42, 7, 1, 2], 2) == [[42, 7], [1, 2]]
+    assert ms.seed_groups([42, 7], 1) == [[42, 7]]
+    with pytest.raises(ValueError, match="cannot shard evenly over the "
+                       "2-device mesh"):
+        ms.seed_groups([42, 7, 1], 2)
 
 
 def test_bridge_carries_a_stacked_tree_both_ways():

@@ -25,8 +25,9 @@ from exploring_meta_tpu.rl.rollout import rollout as jrollout
 from exploring_meta_tpu.serve import PolicyServer as JServer
 from exploring_meta_tpu.utils.experiment import flatten_params as jflatten
 from exploring_meta_tpu_torch.models.policies import (
-    DiagNormalPolicy, DiagNormalPolicyANIL,
+    CategoricalPolicy, DiagNormalPolicy, DiagNormalPolicyANIL,
 )
+from exploring_meta_tpu_torch.parallel.mesh import TaskMesh, make_task_mesh
 from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
 from exploring_meta_tpu_torch.serve import PolicyServer
 from exploring_meta_tpu_torch.utils.bridge import params_from_jax
@@ -175,16 +176,25 @@ def test_from_checkpoint_reads_a_jax_model(setup, tmp_path):
 
 
 def test_refusals(setup):
+    """An unknown algo and a rank's mesh are refused; a server mesh and a
+    policy without ``density`` are served (since the scale-out slice:
+    ``test_torch_mesh.py``, ``test_torch_policies_cnn.py``)."""
     params, _ = setup
     _, tpol = _policies(False)
     tparams = params_from_jax(params[False], "cpu")
     cfg = RLConfig(**CFG)
     with pytest.raises(ValueError, match="sgd"):
         PolicyServer(tpol, tparams, cfg, algo="sgd", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*scale-out"):
-        PolicyServer(tpol, tparams, cfg, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="CategoricalPolicy"):
-        PolicyServer(JCat(4, 2), tparams, cfg, device="cpu")
+    with pytest.raises(ValueError, match="server mesh"):
+        PolicyServer(tpol, tparams, cfg, mesh=TaskMesh(["cpu"] * 2, rank=0))
+    served = PolicyServer(tpol, tparams, cfg, mesh=make_task_mesh(
+        devices=("cpu", "cpu")))
+    assert served.device.type == "cpu" and served.mesh.size == 2
+    jcat = JCat(4, 2, hiddens=(8,))
+    cat = PolicyServer(CategoricalPolicy(4, 2, hiddens=(8,)),
+                       params_from_jax(jcat.init(jax.random.key(0)), "cpu"),
+                       cfg, device="cpu")
+    assert cat.act(cat.params, np.arange(4)).shape == (4,)
     if torch.cuda.is_available():
         assert PolicyServer(tpol, tparams, cfg).device.type == "cuda"
     else:

@@ -117,16 +117,12 @@ def test_default_device_is_the_card_never_the_cpu(tmp_path):
     {"mesh": 2},
 ])
 def test_options_not_ported_raise(tmp_path, monkeypatch, change):
-    """``--mesh`` raises before a run dir is made; the host envs and
-    ``--task_batch`` (ignored on a device env, as in JAX) are ported and
-    run one tiny iteration, AntDirection on real MuJoCo."""
+    """Options once refused, each now ported, run one tiny iteration: the
+    host envs (AntDirection on real MuJoCo), ``--task_batch`` (ignored on a
+    device env, as in JAX) and ``--mesh 2`` (two gloo ranks on the CPU,
+    one task each; ``tests/test_torch_mesh.py`` holds it against the
+    unsharded step)."""
     kw = {k: change.pop(k) for k in ("anil", "algo") if k in change}
-    if "mesh" in change:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            RLTrainer(RLScriptConfig(**change), path=str(tmp_path) + "/",
-                      device="cpu", **kw)
-        assert os.listdir(tmp_path) == []
-        return
     monkeypatch.chdir(tmp_path)
     cfg = RLScriptConfig(**change, num_iterations=1, meta_batch_size=2,
                          adapt_batch_size=2, max_path_length=5,

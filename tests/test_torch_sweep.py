@@ -13,7 +13,8 @@
   ``eval_rl`` and the servers' ``from_checkpoint``; the band numbers
   equal JAX's ``plot_runs_with_confidence`` on the same run dirs to 1e-12.
 - Every refusal: ``--resume`` / ``--profile`` / ``--trace`` under
-  ``--vmap_seeds``, a host env, ``--mesh 2``, an unknown algo, no seeds.
+  ``--vmap_seeds``, a host env, a ``--mesh 2`` the seeds or the
+  meta-batch cannot share, an unknown algo, no seeds.
 
 Tiny: meta-batch 2, 2 episodes of 6 steps; vision 2-3 iterations.
 """
@@ -293,12 +294,14 @@ def test_refusals_host_env_mesh_unknown_algo_no_seeds(tmp_path,
     with pytest.raises(SystemExit, match="not a device env"):
         tsweep._vmapped_rl(RLScriptConfig(env="AntDirection-v5"), "vpg",
                            False, [0], "cpu")
-    with pytest.raises(NotImplementedError, match="scale-out"):
-        tsweep.main(["maml_vpg", "--seeds", "1,2", "--vmap_seeds",
+    # --mesh runs (test_torch_mesh.py); what the ranks cannot share raises
+    # before any rank starts
+    with pytest.raises(ValueError, match="cannot shard evenly"):
+        tsweep.main(["maml_vpg", "--seeds", "1,2,3", "--vmap_seeds",
                      "--mesh", "2", *RL_FLAGS])
-    with pytest.raises(NotImplementedError, match="scale-out"):
+    with pytest.raises(ValueError, match="not divisible by mesh size"):
         tsweep.main(["maml_vpg", "--seeds", "1,2", "--mesh", "2",
-                     *RL_FLAGS])
+                     *RL_FLAGS, "--meta_batch_size", "3"])
     with pytest.raises(SystemExit, match="unknown algo"):
         tsweep.main(["nope"])
     with pytest.raises(SystemExit, match="usage"):

@@ -124,13 +124,17 @@ def test_default_device_is_the_card_never_the_cpu(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("change,item", [
-    ({"mesh": 2}, "Scale-out"),
+    ({"mesh": 2, "meta_batch_size": 3}, "not divisible by mesh size 2"),
 ])
 def test_options_not_ported_raise(tmp_path, change, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        tv.VisionTrainer(VisionConfig(**change), path=str(tmp_path) + "/",
-                         device="cpu")
-    assert os.listdir(tmp_path) == []
+    """``--mesh`` is ported (``tests/test_torch_mesh.py``); a meta-batch
+    that the ranks cannot share raises before any rank is started, with
+    JAX's message."""
+    trainer = tv.VisionTrainer(VisionConfig(**change),
+                               path=str(tmp_path) + "/", device="cpu")
+    with pytest.raises(ValueError, match=item):
+        trainer.run()
+    assert os.listdir(trainer.model_path) == ["model_checkpoints"]
 
 
 @pytest.mark.parametrize("change", [
