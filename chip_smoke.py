@@ -208,7 +208,21 @@ Phases, each of which fails the run (non-zero exit) on any error:
     (``network=(32, 64, 64)``, 16 states of 64 x 64 x 3) and
     ``CategoricalPolicy`` on the card against the CPU: density, log-prob,
     the served act, and sample statistics;
-16. print one ``{"kernels": [...]}`` line, the card line again, and last
+16. accuracy parity and the serving load tests (slice 15): (a)
+    ``parity_check`` at its defaults (Omniglot-shaped MAML 5w1s, f32, 150
+    meta-steps of 16 tasks, 256 eval tasks, seed 42), the port on the
+    card and the torch reproduction of the reference on the card too
+    (TF32 off), held to an accuracy gap of at most 0.005, with the CNN4
+    kernels launched 8 / 12 / 9 times in every meta-step and 8 / 4 / 3 in
+    every eval batch; (b) ``parity_check --rl trpo`` (seed 42,
+    reference-exact, 30 iterations), the reproduction on the host in a
+    process of its own while the card runs (a): the port improves on its
+    untrained policy and lies at most half the mean improvement behind
+    the reference, with both sweeps launched in every iteration and both
+    meta-tests; (c) ``serve_vision`` and ``serve_rl`` at their defaults
+    with ``--random_init``, in process: their result lines parse and
+    every kernel of their path launched;
+17. print one ``{"kernels": [...]}`` line, the card line again, and last
     ``{"ok": true, "device": {...}}``.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports neither
@@ -451,6 +465,38 @@ BF16_STEPS = 4 * 2.0 ** -8
 # baseline's N = 2 x ways x shots = 10 images; GRAPH_CALLS calls captured
 # back to back in one CUDA graph, replayed GRAPH_REPLAYS times
 SINGLE_N, GRAPH_CALLS, GRAPH_REPLAYS = 10, 20, 10
+# Accuracy parity (slice 15): BASELINE.json's north star, meta-test
+# accuracy within 0.5 % of the reference; for meta-RL the port's
+# post-adaptation reward may lie at most PARITY_RL_SHARE of the mean
+# improvement over the untrained policy behind the reference's. The
+# vision reproduction runs on the card (on the H100 machine's 8 CPUs it
+# takes ~200 s, on the card ~40 s); the RL one, which steps one env at a
+# time in Python, runs on the host in a spawned process on the
+# one intra-op thread (parity/check.py:REFERENCE_THREADS) while the card
+# runs (a).
+PARITY_ACC_DIFF, PARITY_RL_SHARE = 0.005, 0.5
+PARITY_EVAL_BATCHES = 8             # 256 eval tasks in batches of 32
+# ... and a row that is not saturated: Omniglot-shaped MAML at BASELINE's
+# mid-training budget (25 meta-steps of 8 tasks, accuracy ~0.84-0.97),
+# 1024 eval tasks, BASELINE's three seeds, each reference in a process of
+# its own on the host (one intra-op thread, as parity_check runs it).
+# Held: the three-seed mean of port - reference within PARITY_MID_GAP.
+# On an H100 one seed's gap there has an SD of 0.021 (seeds 1, 7, 9, 42,
+# 123: -0.0434 to +0.0115, mean -0.0194), so a three-seed mean has an SE
+# of 0.012: the gate is that mean lag plus 2.5 SE. A port that learns
+# at a fraction of the pace (0.48-0.68 after 10 x 8) fails it; one 0.005
+# behind does not, since rounding alone moves a run's accuracy by ~0.03.
+PARITY_MID = {"iters": 25, "meta_batch": 8, "eval_tasks": 1024,
+              "seeds": (42, 7, 123)}
+PARITY_MID_GAP = 0.05
+SERVE_VISION_LINE = re.compile(
+    r"batch=64 omni 5w5s maml bf16: (\d+) requests/sec, batch latency "
+    r"([\d.]+) ms \(([\d.]+) ms/request\)")
+SERVE_RL_LINES = (
+    re.compile(r"adapt\[vpg\] 32 tasks x 1 step\(s\): (\d+) tasks/sec "
+               r"\(([\d.]+) ms/batch\)"),
+    re.compile(r"act: (\d+) us/step for 20 parallel envs \((\d+) "
+               r"steps/sec\)"))
 
 
 def check(ok: bool, what: str) -> None:
@@ -5338,6 +5384,229 @@ def scale_out_phase(torch, np, gc, tc, gpu, tmp) -> dict:
     return out
 
 
+def printed_lines(fn) -> tuple:
+    """``fn()`` with its standard output captured, then printed -> (its
+    result, its lines)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = fn()
+    print(buf.getvalue(), end="", flush=True)
+    return res, buf.getvalue().splitlines()
+
+
+def add_counts(total: dict, *counts: dict) -> dict:
+    for c in counts:
+        for k, n in c.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def vision_parity_run(torch, tc, gc, gpu) -> dict:
+    """Phase 16 (a): ``parity_check`` at its defaults, both sides on the
+    card, gated."""
+    from exploring_meta_tpu_torch.parity import check as pc
+    res = pc.vision_parity(pc.parse_args(["--reference_device", "cuda"]))
+    steps, evals = res["launches"]["meta_step"], res["launches"]["eval"]
+    check(res["diff"] <= PARITY_ACC_DIFF,
+          f"vision parity: |{res['port_acc']} - {res['torch_acc']}| <= "
+          f"{PARITY_ACC_DIFF}")
+    want_step = {**META_STEP_CALLS, **{k: 0 for k in gc.KERNELS}}
+    want_eval = {**META_EVAL_CALLS, **{k: 0 for k in gc.KERNELS}}
+    check(len(steps) == 150 and all(s == want_step for s in steps),
+          f"vision parity: 8 / 12 / 9 CNN4 calls in each of 150 "
+          f"meta-steps, {[s for s in steps if s != want_step][:2]}")
+    check(len(evals) == PARITY_EVAL_BATCHES
+          and all(e == want_eval for e in evals),
+          f"vision parity: the forward kernel in every eval batch, {evals}")
+    res["launches"] = add_counts({}, *steps, *evals)
+    print(f"phase 16 vision parity: port {res['port_acc']} reference "
+          f"{res['torch_acc']} (both on the card) diff {res['diff']}; "
+          f"{res['seconds']} s; launches {res['launches']} [{gpu}]",
+          flush=True)
+    return res
+
+
+def vision_mid_run(torch, gc, gpu, references) -> dict:
+    """Phase 16 (a2): ``parity_check --iters 25 --meta_batch 8
+    --eval_tasks 1024`` at three seeds, the port on the card, each
+    reference's accuracy from ``references[seed]()`` (run elsewhere);
+    the three-seed mean gap gated."""
+    from exploring_meta_tpu_torch.device import resolve_device
+    from exploring_meta_tpu_torch.parity import check as pc
+    dev = resolve_device(None)
+    train, test = pc.load_vision_data("omni", dev)
+    runs, launches = {}, {}
+    for seed in PARITY_MID["seeds"]:
+        t0 = time.perf_counter()
+        acc, counts = pc.run_port(train, test, PARITY_MID["iters"],
+                                  PARITY_MID["meta_batch"], 0.5, 0.003, 1,
+                                  PARITY_MID["eval_tasks"], seed, device=dev)
+        runs[seed] = {"port_acc": acc, "port_s": time.perf_counter() - t0}
+        add_counts(launches, *counts["meta_step"], *counts["eval"])
+        want_step = {**META_STEP_CALLS, **{k: 0 for k in gc.KERNELS}}
+        want_eval = {**META_EVAL_CALLS, **{k: 0 for k in gc.KERNELS}}
+        check(len(counts["meta_step"]) == PARITY_MID["iters"]
+              and all(c == want_step for c in counts["meta_step"])
+              and len(counts["eval"]) == PARITY_MID["eval_tasks"] // 32
+              and all(c == want_eval for c in counts["eval"]),
+              f"mid-budget parity: 8 / 12 / 9 CNN4 calls a meta-step and "
+              f"8 / 4 / 3 an eval batch at seed {seed}")
+    for seed in PARITY_MID["seeds"]:
+        t0 = time.perf_counter()
+        runs[seed]["torch_acc"] = references[seed]()
+        runs[seed]["wait_s"] = time.perf_counter() - t0
+        runs[seed]["gap"] = runs[seed]["port_acc"] - runs[seed]["torch_acc"]
+    gap = sum(r["gap"] for r in runs.values()) / len(runs)
+    print(f"phase 16 mid-budget vision parity ({PARITY_MID['iters']} x "
+          f"{PARITY_MID['meta_batch']}, {PARITY_MID['eval_tasks']} eval "
+          f"tasks): "
+          + "; ".join(f"seed {s} port {r['port_acc']:.4f} reference "
+                      f"{r['torch_acc']:.4f}" for s, r in runs.items())
+          + f"; mean gap {gap:.4f} [{gpu}]", flush=True)
+    check(abs(gap) <= PARITY_MID_GAP,
+          f"mid-budget vision parity: |mean gap {gap}| <= {PARITY_MID_GAP}")
+    return {"runs": runs, "mean_gap": gap, "launches": launches}
+
+
+def rl_parity_run(torch, gc, gpu, reference, args) -> dict:
+    """Phase 16 (b): ``parity_check --rl trpo``: the port's side here, the
+    reproduction's ``(post, pre)`` rewards from ``reference()`` (run
+    elsewhere on ``rl_cfg(args)``), gated."""
+    from exploring_meta_tpu_torch.device import resolve_device
+    from exploring_meta_tpu_torch.parity import check as pc
+    dev = resolve_device(None)
+    t0 = time.perf_counter()
+    post, pre, launches = pc.run_port_rl(args.rl, pc.rl_cfg(args), args.seed,
+                                         device=dev)
+    t1 = time.perf_counter()
+    ref = reference()
+    res = pc.rl_result(args, pc.rl_cfg(args), (post, pre), ref, dev)
+    res["seconds"] = {"port": t1 - t0,
+                      "reference_wait": time.perf_counter() - t1}
+    improvement = 0.5 * ((res["port_rew"] - res["port_pre"])
+                         + (res["torch_rew"] - res["torch_pre"]))
+    check(res["port_rew"] > res["port_pre"],
+          f"rl parity: the port improves ({res['port_pre']} -> "
+          f"{res['port_rew']})")
+    check(res["port_rew"] - res["torch_rew"]
+          >= -PARITY_RL_SHARE * abs(improvement),
+          f"rl parity: port {res['port_rew']} no lower than reference "
+          f"{res['torch_rew']} by more than {PARITY_RL_SHARE} x "
+          f"|{improvement}|")
+    parts = [launches["pre_eval"], *launches["train"], launches["post_eval"]]
+    check(len(launches["train"]) == args.iters and all(
+        p[k] >= 1 for p in parts for k in gc.KERNELS),
+          f"rl parity: both sweeps in every iteration and meta-test, "
+          f"{parts[:2]}")
+    res["launches"] = add_counts({}, *parts)
+    print(f"phase 16 rl parity: port {res['port_pre']} -> "
+          f"{res['port_rew']}, reference {res['torch_pre']} -> "
+          f"{res['torch_rew']} (host), rel_diff {res['rel_diff']}; "
+          f"{res['seconds']} s; launches {res['launches']} [{gpu}]",
+          flush=True)
+    return res
+
+
+def load_test_runs(tc, gc, gpu) -> dict:
+    """Phase 16 (c): both serving load tests at their defaults."""
+    from exploring_meta_tpu_torch import serve_load
+    out = {}
+    res, lines = printed_lines(
+        lambda: serve_load.serve_vision(["--random_init"]))
+    found = [m for m in map(SERVE_VISION_LINE.fullmatch, lines) if m]
+    check(len(found) == 1 and res["launches"] == META_EVAL_CALLS,
+          f"serve_vision: its result line and 8 / 4 / 3 CNN4 calls a "
+          f"batch, {res['launches']}")
+    out["serve_vision"] = {**res, "line": found[0].group(0)}
+    res, lines = printed_lines(lambda: serve_load.serve_rl(["--random_init"]))
+    found = [[m for m in map(rx.fullmatch, lines) if m]
+             for rx in SERVE_RL_LINES]
+    check(all(len(f) == 1 for f in found)
+          and res["launches"] == {k: 1 for k in gc.KERNELS},
+          f"serve_rl: its result lines and each sweep once a batch, "
+          f"{res['launches']}")
+    out["serve_rl"] = {**res, "lines": [f[0].group(0) for f in found]}
+    out["launches"] = add_counts({}, out["serve_vision"]["launches"],
+                                 out["serve_rl"]["launches"])
+    print(f"phase 16 load tests: {out['serve_vision']['line']}; "
+          f"{'; '.join(out['serve_rl']['lines'])} [{gpu}]", flush=True)
+    return out
+
+
+def reference_rl_worker(conn, algo: str, cfg: dict, seed: int,
+                        threads: int) -> None:
+    """The RL reproduction's ``(post, pre)`` rewards, sent through
+    ``conn`` (run in a spawned process)."""
+    from exploring_meta_tpu_torch.parity import check as pc
+    with pc.intra_op_threads(threads):
+        conn.send(pc.run_torch_rl(algo, cfg, seed))
+    conn.close()
+
+
+def reference_vision_worker(conn, seed: int, threads: int) -> None:
+    """The vision reproduction's meta-test accuracy at PARITY_MID, on the
+    host, sent through ``conn`` (run in a spawned process)."""
+    from exploring_meta_tpu_torch.parity import check as pc
+    from exploring_meta_tpu_torch.parity import reference_vision
+    train, test = pc.load_vision_data("omni", "cpu")
+    with pc.intra_op_threads(threads):
+        conn.send(reference_vision.run_torch(
+            train.images.numpy(), test.images.numpy(), PARITY_MID["iters"],
+            PARITY_MID["meta_batch"], 0.5, 0.003, 1,
+            PARITY_MID["eval_tasks"], seed))
+    conn.close()
+
+
+def parity_phase(torch, tc, gc, gpu) -> dict:
+    """Phase 16: accuracy parity on the card and the serving load tests
+    (slice 15). The RL reproduction and the three mid-budget vision ones
+    train in spawned processes from the start of the phase; a process that
+    dies fails the phase when its result is read, and every process is
+    stopped when the phase ends, passed or failed."""
+    import multiprocessing
+    from exploring_meta_tpu_torch.parity import check as pc
+    start = time.perf_counter()
+    rl_args = pc.parse_args(["--rl", "trpo"])
+    ctx = multiprocessing.get_context("spawn")
+    procs = []
+
+    def spawn(target, *args):
+        recv, send = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=target, args=(send, *args))
+        proc.start()
+        send.close()
+        procs.append(proc)
+
+        def result():
+            check(recv.poll(900), f"{target.__name__} finished in 900 s")
+            return recv.recv()      # EOFError if the process died
+        return result
+
+    try:
+        rl_ref = spawn(reference_rl_worker, rl_args.rl, pc.rl_cfg(rl_args),
+                       rl_args.seed, pc.REFERENCE_THREADS)
+        mid_refs = {seed: spawn(reference_vision_worker, seed,
+                                pc.REFERENCE_THREADS)
+                    for seed in PARITY_MID["seeds"]}
+        out = {"vision": vision_parity_run(torch, tc, gc, gpu)}
+        out["rl"] = rl_parity_run(torch, gc, gpu, rl_ref, rl_args)
+        out["vision_mid"] = vision_mid_run(torch, gc, gpu, mid_refs)
+    finally:
+        for proc in procs:
+            proc.terminate()
+            proc.join()
+    out["load_tests"] = load_test_runs(tc, gc, gpu)
+    out["launches"] = add_counts({}, out["vision"]["launches"],
+                                 out["rl"]["launches"],
+                                 out["vision_mid"]["launches"],
+                                 out["load_tests"]["launches"])
+    out["wall_s"] = time.perf_counter() - start
+    print(f"phase 16 (accuracy parity, load tests): {out['wall_s']:.2f} s, "
+          f"launches {out['launches']} [{gpu}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5407,6 +5676,7 @@ def main() -> int:
         slice13 = host_env_phase(torch, np, gc, gpu, tmp)
     with tempfile.TemporaryDirectory() as tmp:
         slice14 = scale_out_phase(torch, np, gc, tc, gpu, tmp)
+    slice15 = parity_phase(torch, tc, gc, gpu)
 
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
@@ -5419,7 +5689,8 @@ def main() -> int:
                    "replay_meta_grad": replay_grad, "fused": fused,
                    "analysis": analysis, "slice10": slice10,
                    "slice11": slice11, "slice12": slice12,
-                   "slice13": slice13, "slice14": slice14}, f, indent=1,
+                   "slice13": slice13, "slice14": slice14,
+                   "slice15": slice15}, f, indent=1,
                   default=str)
 
     replaces = {
@@ -5447,7 +5718,9 @@ def main() -> int:
     # --host_policy cpu run, Ant where the image has it); and scale-out's
     # (the NCCL world-1 fused runs' warm-ups and meta-tests and their runs
     # without a mesh, both gloo ranks' and the 1-rank runs, the server
-    # meshes' and the unsharded batches)
+    # meshes' and the unsharded batches); and slice 15's (the vision
+    # parity run's meta-steps and eval batches, the RL parity run's
+    # iterations and meta-tests, the load tests' counted batches)
     for paths in (vision["launches"], policy_serve["launches"],
                   adam_rl["launches"],
                   *(r["launches"] for r in fused.values()),
@@ -5460,7 +5733,8 @@ def main() -> int:
                   slice10["bf16"]["fused_trpo"]["launches"],
                   slice10["bf16"]["eager_ppo"]["launches"],
                   slice11["launches"], slice12["launches"],
-                  slice13["launches"], slice14["launches"]):
+                  slice13["launches"], slice14["launches"],
+                  slice15["launches"]):
         for name, n in paths.items():
             launches[name] += n
     kernels = []

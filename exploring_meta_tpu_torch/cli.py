@@ -19,14 +19,20 @@
     python -m exploring_meta_tpu_torch.cli sweep maml_trpo --seeds 42,7 \
         [--vmap_seeds --fuse 10]
     python -m exploring_meta_tpu_torch.cli maml_trpo --mesh 2 --fuse 10
+    python -m exploring_meta_tpu_torch.cli parity_check [--anil] [--rl trpo]
+    python -m exploring_meta_tpu_torch.cli serve_vision --random_init
+    python -m exploring_meta_tpu_torch.cli serve_rl --random_init [--mesh 2]
+    python -m exploring_meta_tpu_torch.cli render_policy <run_dir> --out r/
     EMT_FORCE_CPU=1 python -m exploring_meta_tpu_torch.cli maml_vision ...
 
 Runs go to the card unless ``EMT_FORCE_CPU=1`` asks for the CPU; the two
-offline tools run on the host. ``--mesh N`` launches N ranks
-(``parallel/launch.py``): ``cuda:0 .. cuda:N-1`` with NCCL, or N CPU
-processes with gloo under ``EMT_FORCE_CPU=1``. The ranks are spawned
-processes, which import the calling script again: a script that calls
-these entry points keeps its work under ``if __name__ == "__main__":``.
+offline tools run on the host, and ``render_policy`` steps its physics
+there. ``--mesh N``
+launches N ranks (``parallel/launch.py``): ``cuda:0 .. cuda:N-1`` with
+NCCL, or N CPU processes with gloo under ``EMT_FORCE_CPU=1``. The ranks
+are spawned processes, which import the calling script again: a script
+that calls these entry points keeps its work under ``if __name__ ==
+"__main__":``.
 """
 
 from __future__ import annotations
@@ -255,6 +261,35 @@ def sweep(argv=None) -> dict:
     return main(argv)
 
 
+def parity_check(argv=None) -> dict:
+    """Accuracy parity against a torch reproduction of the reference,
+    vision or ``--rl`` (``scripts/parity_check.py``; ``parity/check.py``)."""
+    from exploring_meta_tpu_torch.parity.check import main
+    from exploring_meta_tpu_torch.utils.config import requested_device
+    return main(argv, device=requested_device())
+
+
+def serve_vision(argv=None) -> dict:
+    """Few-shot serving load test (``scripts/serve_vision.py``;
+    ``serve_load.py``)."""
+    from exploring_meta_tpu_torch.serve_load import serve_vision as run
+    return run(argv)
+
+
+def serve_rl(argv=None) -> dict:
+    """Meta-RL serving load test (``scripts/serve_rl.py``;
+    ``serve_load.py``)."""
+    from exploring_meta_tpu_torch.serve_load import serve_rl as run
+    return run(argv)
+
+
+def render_policy(argv=None) -> dict:
+    """Render rollouts of a saved policy on its host env
+    (``scripts/render_metaworld.py``; ``render.py``)."""
+    from exploring_meta_tpu_torch.render import main
+    return main(argv)
+
+
 COMMANDS = {"maml_vision": maml_vision, "anil_vision": anil_vision,
             "maml_trpo": maml_trpo, "anil_trpo": anil_trpo,
             "maml_ppo": maml_ppo, "anil_ppo": anil_ppo,
@@ -264,7 +299,9 @@ COMMANDS = {"maml_vision": maml_vision, "anil_vision": anil_vision,
             "random_baseline": random_baseline,
             "vision_baseline": vision_baseline,
             "import_reference_ckpt": import_reference_ckpt,
-            "pack_datasets": pack_datasets, "sweep": sweep}
+            "pack_datasets": pack_datasets, "sweep": sweep,
+            "parity_check": parity_check, "serve_vision": serve_vision,
+            "serve_rl": serve_rl, "render_policy": render_policy}
 
 if __name__ == "__main__":
     if len(sys.argv) < 2 or sys.argv[1] not in COMMANDS:

@@ -19,6 +19,8 @@ from typing import Callable
 
 import torch
 
+from exploring_meta_tpu_torch.utils.tree import tree_from_items, tree_items
+
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a . b`` of flat vectors; of ``[S, P]`` rows, ``[S, 1]``, each row's
@@ -83,3 +85,23 @@ def grad_vector_product(grad_f: torch.Tensor, x: torch.Tensor,
             hv = reduce(hv)
         return hv + damping * v
     return Ax
+
+
+def tree_hvp(f: Callable, params, damping: float = 1e-5):
+    """Pytree version: returns ``(Ax, flat_params, unravel)`` where ``Ax``
+    maps flat vectors through the damped Hessian of ``f`` at ``params``.
+    The flat order is ``jax.flatten_util.ravel_pytree``'s (dict keys
+    sorted), so a flat vector means the same in both packages;
+    ``unravel`` maps one back to nested dicts and lists of the params'
+    paths."""
+    paths, leaves = zip(*tree_items(params))
+    shapes = [tuple(leaf.shape) for leaf in leaves]
+    sizes = [leaf.numel() for leaf in leaves]
+    flat = torch.cat([leaf.detach().reshape(-1) for leaf in leaves])
+
+    def unravel(v):
+        pieces = torch.split(v, sizes)
+        return tree_from_items((k, p.reshape(s))
+                               for k, p, s in zip(paths, pieces, shapes))
+
+    return hvp(lambda v: f(unravel(v)), flat, damping=damping), flat, unravel

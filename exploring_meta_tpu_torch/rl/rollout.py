@@ -55,6 +55,16 @@ class Trajectory(NamedTuple):
         return ((self.success * self.valid).sum(dim=-2) > 0).to(
             self.reward.dtype)
 
+    def episode_success_steps(self) -> torch.Tensor:
+        """``[..., E]`` int32 index of the first successful valid step, -1
+        if the episode never succeeds (reference ``get_success_per_ep``,
+        ``rl.py:75-92``, whose ``success_step`` the reference's CL script
+        computes and then discards, ``misc_scripts/cl_rl.py:109``)."""
+        hit = (self.success * self.valid) > 0.1          # [..., T, E]
+        first = hit.int().argmax(dim=-2).to(torch.int32)
+        return torch.where(hit.any(dim=-2), first,
+                           torch.full_like(first, -1))
+
 
 @torch.no_grad()
 def rollout(env, policy_sample: Callable, params, task, gen: torch.Generator,

@@ -517,6 +517,14 @@ class Experiment:
         if self._dcp is not None:
             self._dcp.wait()
 
+    def save_acc_matrix(self, acc_matrix) -> None:
+        """Write a CL accuracy matrix to ``acc_matrix.out`` in the run dir
+        (two decimals, as the JAX package writes it)."""
+        from exploring_meta_tpu_torch.analysis.cl import save_acc_matrix
+        print("Saving accuracy matrix..")
+        print(acc_matrix)
+        save_acc_matrix(self.model_path, acc_matrix)
+
 
 def _run_rank(trainer: Experiment) -> dict:
     """A launched rank's run of ``trainer`` (``Experiment.run_ranks``)."""

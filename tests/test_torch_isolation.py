@@ -27,6 +27,11 @@ print(",".join(sorted(m for m in sys.modules
 print(",".join(sorted(m for m in sys.modules if m.split(".")[0] == "scipy")))
 print(",".join(sorted(m for m in sys.modules if m.split(".")[0]
                       in ("gymnasium", "gym", "mujoco", "metaworld"))))
+import os
+scripts = os.path.abspath("scripts") + os.sep
+print(",".join(sorted(m for m, mod in list(sys.modules.items())
+                      if (getattr(mod, "__file__", None) or "").startswith(
+                          scripts))))
 """
 
 
@@ -88,6 +93,17 @@ def test_no_port_module_imports_the_host_physics_packages():
     assert lines[5] == "", lines[5]
 
 
+def test_port_imports_nothing_of_scripts():
+    """``scripts/`` is not packaged: the port keeps its own copies of the
+    reference reproductions (``parity/``) and imports no module there."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.split("\n")
+    assert lines[6] == "", lines[6]
+
+
 def test_port_module_list_is_complete():
     import exploring_meta_tpu_torch as pkg
     names = {m.name for m in pkgutil.walk_packages(pkg.__path__,
@@ -125,7 +141,10 @@ def test_port_module_list_is_complete():
                 "native", "native.binding", "envs.host",
                 "envs.metaworld_adapter", "rl.host_batched",
                 # slice 14: scale-out and the last policies
-                "ops.stats", "parallel.mesh", "parallel.launch"):
+                "ops.stats", "parallel.mesh", "parallel.launch",
+                # slice 15: accuracy parity and the last entry points
+                "parity", "parity.check", "parity.reference_vision",
+                "parity.reference_rl", "serve_load", "render"):
         assert f"exploring_meta_tpu_torch.{mod}" in names
 
 

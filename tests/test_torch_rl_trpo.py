@@ -150,6 +150,38 @@ def test_trpo_collect_body_matches_jax_vmap(setup):
                                rtol=1e-6)
 
 
+def test_make_trpo_collect_matches_jax_make_trpo_collect(setup):
+    """``make_trpo_collect`` (JAX: the jitted body, which the parity
+    harness calls) against JAX's, as the body is held above."""
+    jpol, jparams, support, query = setup
+
+    def roll_for(trajs):
+        def roll(params, task, key):
+            return jax.tree_util.tree_map(
+                lambda x: jnp.asarray(x)[task.astype(jnp.int32)], trajs)
+        return roll
+    calls = iter([roll_for(support), roll_for(query)])
+    ja, jloss, jrep, jm = jrl.make_trpo_collect(
+        jpol, lambda p, t, k: next(calls)(p, t, k), JCFG)(
+        jparams, jnp.arange(B, dtype=jnp.float32),
+        jax.random.split(jax.random.key(2), B))
+    pol = DiagNormalPolicy(2, 2, hiddens=HIDDENS)
+    collect = trl.make_trpo_collect(
+        pol, _replayer([_torch_traj(support), _torch_traj(query)]), TCFG)
+    adapted, loss, rep, m = collect(params_from_jax(jparams, "cpu"),
+                                    torch.arange(B).float(), None)
+    for name in Trajectory._fields:
+        np.testing.assert_array_equal(getattr(rep, name).numpy(),
+                                      np.asarray(getattr(jrep, name)))
+    step = _leaves(ja) - _leaves(jax.tree_util.tree_map(
+        lambda x: jnp.broadcast_to(x, (B,) + x.shape), jparams))
+    assert np.abs(_leaves(adapted) - _leaves(ja)).max() <= (
+        1e-4 * np.abs(step).max())
+    assert _rel(loss.numpy(), jloss) <= 1e-4
+    np.testing.assert_allclose(m["reward"].numpy(), np.asarray(jm["reward"]),
+                               rtol=1e-6)
+
+
 @pytest.fixture(scope="module")
 def outer(setup):
     """Meta params, the collection-time adapted params of a nearby policy
