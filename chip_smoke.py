@@ -17,7 +17,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
    computes, the grouped ``conv2d_weight`` of its dw part only); hold
    every kernel against its twin at the query forward (N = 15), at B = 1,
    N = 1, and at N = 128 and N = 400 (block 1), and ``bwd_params`` twice
-   with bitwise equal results; time the forward at N = 15 too; then load
+   with bitwise equal results; time the forward at N = 15 too, and the
+   three kernels in bfloat16 (the served default) at the served batch and
+   at one request (B = 1, N = 25: CUDA events and back to back in a CUDA
+   graph), each with its bound at bf16's bytes and peak, its twin and
+   cuDNN in bf16; then load
    full-width
    ``omniglot_spec(ways=5)`` params from ``.npz`` and serve 64
    synthetic-Omniglot requests through ``VisionServer.batch`` with the
@@ -220,10 +224,34 @@ Phases, each of which fails the run (non-zero exit) on any error:
     untrained policy and lies at most half the mean improvement behind
     the reference, with both sweeps launched in every iteration and both
     meta-tests; (c) ``serve_vision`` and ``serve_rl`` at their defaults
-    with ``--random_init``, in process: their result lines parse and
-    every kernel of their path launched;
+    with ``--random_init``, in process: their result lines parse,
+    every kernel of their path launched in the first batch, and the
+    timed batches and act steps were replays of one capture each;
 17. print one ``{"kernels": [...]}`` line, the card line again, and last
-    ``{"ok": true, "device": {...}}``.
+    ``{"ok": true, "device": {...}}``;
+18. run right after phase 7, before the later phases' profiler sessions:
+    captured serving (slice 16): both servers at full width serve each
+    request bucket as a CUDA graph. For vision f32, bf16 and ANIL (64
+    requests, 5w5s, 15 queries) and for the vpg, ppo and trpo policy
+    servers (64 requests of 10 x 50): the first call at a bucket launches
+    every kernel of its path and records it in the graph as often (8 / 4
+    / 3 CNN4 calls a vision batch, ANIL's per-op base none; each sweep
+    once an inner step, twice at 2 steps); a steady-state call is one
+    replay and no wrapper launch, bit for bit the eager first call; 5 and
+    7 requests share bucket 8's one capture (two replays); bucket 1
+    (``__call__``, the CNN4 kernels at B = 1) launches and records the
+    batch's kernels; its replays, ``act``'s and ``act_batched``'s equal
+    their eager calls; ``sample_batched``'s replays, from the eager
+    call's generator and from a new one, draw what the eager call drew
+    from the same generator state (one capture); ``act_batched`` from
+    four threads at once returns each thread's own result; a
+    ``CategoricalPolicy`` fleet (64 tasks) samples as a graph, its draw
+    ``torch.multinomial``'s, its act the argmax. Eager (``graphs.run_eagerly``) against
+    replay timed in turns per bucket (1, 8, 64), act per step, a replayed
+    batch profiled (idle share, graph and kernel launches from the host),
+    each first call's cost, the graph pools' memory; a Mini-ImageNet
+    server (the max-pool CNN4 on cuDNN, 8 requests) captured too, its
+    replay within 1e-4 of its eager call, beside two eager calls' spread.
 
 Details go to ``chiprun_out/chip_smoke.json``. The script imports neither
 JAX nor the JAX package. Without a card it exits 1 and prints no result.
@@ -259,6 +287,9 @@ EXTRA_SHAPES = ([(BATCH, QUERIES, k) for k in range(4)]
 # tensor cores (the kernels do f32 FMAs on the CUDA cores).
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# ... and the dense bf16 peak of the tensor cores: the least time for a
+# bf16 kernel's operations, whatever units it computes on
+PEAK_BF16 = 989e12
 # Tolerance per dtype: |kernel - twin| <= atol * max|twin| + rtol * |twin|.
 # f32: the two differ only in summation order. bf16: both compute in f32
 # from the same bf16 inputs, but outputs are rounded to bf16 (8 bits of
@@ -535,9 +566,10 @@ def conv_macs(b: int, n: int, h: int, ci: int, co: int) -> int:
 
 
 def bound(kernel: str, b: int, n: int, h: int, ci: int, co: int,
-          item: int) -> tuple[float, float]:
-    """(ms if bytes bound, ms if operations bound) for one launch: every
-    input read once, every output written once; conv at 2 FLOP per
+          item: int, peak: float = PEAK_F32) -> tuple[float, float]:
+    """(ms if bytes bound, ms if operations bound at ``peak`` FLOP/s) for
+    one launch: every input read once, every output written once (``item``
+    bytes an element, the f32 ``dy`` at 4); conv at 2 FLOP per
     multiply-add plus the per-element BN work."""
     ho = (h - 1) // 2 + 1
     xin, w, out, pc = b * n * h * h * ci, b * 9 * ci * co, b * n * ho * ho * co, b * co
@@ -553,7 +585,7 @@ def bound(kernel: str, b: int, n: int, h: int, ci: int, co: int,
         # reads dy (f32) and w; writes dx
         nbytes = 4 * out + item * (w + xin)
         flops = 2 * macs
-    return 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
+    return 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / peak
 
 
 def block_inputs(torch, tc, gen, b, n, h, ci, dt):
@@ -601,6 +633,15 @@ def kernel_phase(tc, F, torch) -> dict:
     res["cnn4_block_bwd_params"].update(library_ms=None, dw_library_ms=0.0)
     res["cnn4_block_fwd"].update(ms_n15=0.0, library_ms_n15=0.0,
                                  bound_ms_n15=0.0)
+    # bf16, the served default: at the served batch (B = 64) and at one
+    # request (B = 1, __call__), N = 25, the path's blocks summed
+    for name, r in res.items():
+        for key in ("bf16", "bf16_b1"):
+            r[key] = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0,
+                      "ops_ms": 0.0, "bound_ms": 0.0, "shapes": [],
+                      "library_ms": (None if name == "cnn4_block_bwd_params"
+                                     else 0.0)}
+        r["bf16_b1"]["graph_ms"] = 0.0
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     B, N, co = BATCH, WAYS * SHOTS, HIDDEN
 
@@ -639,23 +680,68 @@ def kernel_phase(tc, F, torch) -> dict:
         return out
 
     def fwd_library(x, w, b, sc, be):
+        # BN's affine params in f32 (in bf16: mixed precision, as autocast
+        # keeps them)
         o = grouped(x, w, b, sc, be)
+        sf, bef = o["sf"].float(), o["bef"].float()
         return lambda: torch.relu(F.batch_norm(
             F.conv2d(o["xg"], o["wg"], o["bf"], stride=2, padding=1,
                      groups=x.shape[0]),
-            None, None, o["sf"], o["bef"], training=True, eps=tc.EPS))
+            None, None, sf, bef, training=True, eps=tc.EPS))
 
-    def timed(name, b, n, blk, kern, plain, lib, on_path):
+    def timed(name, b, n, blk, kern, plain, lib, on_path, into=None):
+        """Kernel, twin and library ms at one shape, with its bound, kept
+        in ``into`` (a bf16 record; float32's by default)."""
         h, ci = BLOCKS[blk]
         shape = {"block": blk + 1, "x": [b, n, h, h, ci],
                  "on_path": on_path, "ms": time_ms(kern),
                  "plain_ms": time_ms(plain),
                  "library_ms": time_ms(lib) if lib else None}
-        bms, oms = bound(name, b, n, h, ci, co, 4)
+        item, peak = (4, PEAK_F32) if into is None else (2, PEAK_BF16)
+        bms, oms = bound(name, b, n, h, ci, co, item, peak)
         shape.update(bytes_ms=bms, ops_ms=oms, bound_ms=max(bms, oms),
-                     tflops=oms * PEAK_F32 / 1e12 / shape["ms"])
-        res[name]["shapes"].append(shape)
+                     tflops=oms * peak / 1e12 / shape["ms"])
+        (res[name] if into is None else into)["shapes"].append(shape)
         return shape
+
+    def bf16_rows(b, blk, x, w, bb, sc, be, g, dy, key):
+        """The three kernels timed in bf16 at one block shape, their
+        yardsticks on cuDNN in bf16 (``dy`` cast), summed into
+        ``res[name][key]`` over the path's blocks; at B = 1 also back to
+        back in a CUDA graph, the device's time."""
+        h, _ = BLOCKS[blk]
+        o = grouped(x, w, bb, sc, be, dy.to(x.dtype))
+        runs = {
+            "cnn4_block_fwd": (lambda: tc.block_fwd(x, w, bb, sc, be),
+                               lambda: tc.block_fwd_plain(x, w, bb, sc, be),
+                               fwd_library(x, w, bb, sc, be)),
+            "cnn4_block_bwd_params": (
+                lambda: tc.block_bwd_params(x, w, bb, sc, be, g),
+                lambda: tc.block_bwd_params_plain(x, w, bb, sc, be, g),
+                None),
+            "cnn4_block_bwd_input": (
+                lambda: tc.block_bwd_input(dy, w, h, h),
+                lambda: tc.block_bwd_input_plain(dy, w, h, h),
+                lambda: torch.nn.grad.conv2d_input(
+                    o["xg"].shape, o["wg"], o["dyg"], stride=2, padding=1,
+                    groups=b))}
+        for name, (kern, plain, lib) in runs.items():
+            into = res[name][key]
+            on_path = not (name == "cnn4_block_bwd_input" and blk == 0)
+            shape = timed(name, b, x.shape[1], blk, kern, plain, lib,
+                          on_path, into)
+            if b == 1:
+                shape["graph_ms"] = graph_ms_per_call(torch, kern)
+            if name == "cnn4_block_bwd_params":
+                shape["dw_library_ms"] = time_ms(
+                    lambda: torch.nn.grad.conv2d_weight(
+                        o["xg"], o["wg"].shape, o["dyg"], stride=2,
+                        padding=1, groups=b))
+            if on_path:
+                for k in ("ms", "graph_ms", "plain_ms", "library_ms",
+                          "bytes_ms", "ops_ms", "bound_ms"):
+                    if into.get(k) is not None and k in shape:
+                        into[k] += shape[k]
 
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for blk, (h, ci) in enumerate(BLOCKS):
@@ -670,8 +756,9 @@ def kernel_phase(tc, F, torch) -> dict:
                 tc.block_bwd_input_plain(dy, w, h, h), dname, what))
             torch.cuda.synchronize()
 
-            # Timing at float32, the served dtype: kernel, twin, yardstick.
+            # Timing: kernel, twin, yardstick; bf16's rows apart.
             if dt != torch.float32:
+                bf16_rows(B, blk, x, w, b, sc, be, g, dy, "bf16")
                 continue
             o = grouped(x, w, b, sc, be, dy)
             runs = {
@@ -736,13 +823,42 @@ def kernel_phase(tc, F, torch) -> dict:
                 r["ms_n15"] += shape["ms"]
                 r["library_ms_n15"] += shape["library_ms"]
                 r["bound_ms_n15"] += shape["bound_ms"]
+        if dt == torch.bfloat16:
+            # one request's support forward and inner step (B = 1, N = 25),
+            # each kernel held against its twin, then timed
+            for blk, (h, ci) in enumerate(BLOCKS):
+                x, w, b, sc, be, g = block_inputs(torch, tc, gen, 1, N, h,
+                                                  ci, dt)
+                what = f"block {blk + 1} B 1 N {N}"
+                note("cnn4_block_fwd", dname, held(
+                    torch, tc.block_fwd(x, w, b, sc, be),
+                    tc.block_fwd_plain(x, w, b, sc, be), dname, what))
+                dy = held_bwd_params(x, w, b, sc, be, g, dname, what)[0]
+                note("cnn4_block_bwd_input", dname, held(
+                    torch, tc.block_bwd_input(dy, w, h, h),
+                    tc.block_bwd_input_plain(dy, w, h, h), dname, what))
+                torch.cuda.synchronize()
+                bf16_rows(1, blk, x, w, b, sc, be, g, dy, "bf16_b1")
     for name, r in res.items():
-        for sh in r["shapes"]:
-            print(f"  {name} block {sh['block']} x {sh['x']}: ms {sh['ms']} "
-                  f"({sh['tflops']} TFLOP/s) bound_ms {sh['bound_ms']} "
-                  f"library_ms {sh['library_ms']} plain_ms {sh['plain_ms']}"
-                  + (f" dw_library_ms {sh['dw_library_ms']}"
-                     if "dw_library_ms" in sh else ""), flush=True)
+        for dname, shapes in (("f32", r["shapes"]),
+                              ("bf16", r["bf16"]["shapes"]),
+                              ("bf16", r["bf16_b1"]["shapes"])):
+            for sh in shapes:
+                print(f"  {name} {dname} block {sh['block']} x {sh['x']}: "
+                      f"ms {sh['ms']} ({sh['tflops']} TFLOP/s) bound_ms "
+                      f"{sh['bound_ms']} library_ms {sh['library_ms']} "
+                      f"plain_ms {sh['plain_ms']}"
+                      + "".join(f" {k} {sh[k]}" for k in
+                                ("graph_ms", "dw_library_ms") if k in sh),
+                      flush=True)
+        for key in ("bf16", "bf16_b1"):
+            b = r[key]
+            print(f"kernel {name} {key} (the path's blocks summed): ms "
+                  f"{b['ms']}" + (f" graph_ms {b['graph_ms']}"
+                                  if "graph_ms" in b else "")
+                  + f" bound_ms {b['bound_ms']} (bytes {b['bytes_ms']}, "
+                  f"operations {b['ops_ms']}) plain_ms {b['plain_ms']} "
+                  f"library_ms {b['library_ms']}", flush=True)
     return res
 
 
@@ -1533,7 +1649,8 @@ def range_profile(torch, fn) -> dict:
     by name; the device µs of the sweep kernels by name; and the host µs
     spent inside profiled ops (their self CPU time summed: aten ops and
     CUDA runtime calls; the rest of the wall is Python between them) with
-    the top ops by it."""
+    the top ops by it; and the count of each CUDA runtime call that
+    launches work from the host (graphs, kernels, copies)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1571,7 +1688,12 @@ def range_profile(torch, fn) -> dict:
             "top": sorted(((name[:60], us, n) for name, (us, n)
                            in top.items()), key=lambda t: -t[1])[:12],
             "host_op_us": sum(us for _, us, _ in host),
-            "host_top": host[:8]}
+            "host_top": host[:8],
+            "runtime_calls": {a.key: a.count for a in prof.key_averages()
+                              if a.key in ("cudaGraphLaunch",
+                                           "cudaLaunchKernel",
+                                           "cuLaunchKernel",
+                                           "cudaMemcpyAsync")}}
 
 
 def vision_timing(torch, gpu) -> dict:
@@ -1718,12 +1840,21 @@ def with_baseline_fits(fn, fits=None) -> tuple:
     two devices agree on only to ~1e-3 (ADAPT_TOL). The returns, the
     discount sweep's output, are then held against the given run's within
     SWEEP_TOL of their max: taking the fit removes only the solve from the
-    comparison, not the sweep."""
+    comparison, not the sweep. A Python hook runs when a served bucket is
+    captured, not when it is replayed: the hook records and replaces the
+    fits of eager calls only (the first call at a bucket, or any call under
+    ``graphs.run_eagerly()``), and a capture takes the real fit."""
+    import torch
     from exploring_meta_tpu_torch.rl import adapt_rl
     fit, got = adapt_rl.fit_linear_value, []
     given = None if fits is None else iter(fits)
 
     def recording(states, timesteps, returns, *args, **kwargs):
+        if torch.cuda.is_current_stream_capturing():
+            # a served bucket's capture right after its eager call: the
+            # graph records the fit itself, and the hook is not run again
+            # by its replays
+            return fit(states, timesteps, returns, *args, **kwargs)
         if given is None:
             w = fit(states, timesteps, returns, *args, **kwargs)
         else:
@@ -1784,6 +1915,7 @@ def policy_serve_phase(torch, gc, gpu) -> dict:
     from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
     from exploring_meta_tpu_torch.rl.rollout import make_rollout
     from exploring_meta_tpu_torch.serve import PolicyServer
+    from exploring_meta_tpu_torch.utils import graphs
     from exploring_meta_tpu_torch.utils.tree import tree_leaves, tree_map
 
     env, n = Particles2D(), SERVE_RL_REQUESTS
@@ -1834,12 +1966,24 @@ def policy_serve_phase(torch, gc, gpu) -> dict:
 
     for algo in ("vpg", "ppo", "trpo"):
         server, adapted, r, fits = serve(algo, policy, params, cfg, algo)
-        r["vs_request"] = max(tree_close(
-            torch, with_baseline_fits(
-                lambda: server.adapt(stack.map(lambda t: t[i])),
-                [(w[i:i + 1], r[i:i + 1]) for w, r in fits])[0],
-            tree_map(lambda t: t[i], adapted), ADAPT_TOL,
-            f"{algo} request {i} vs batch") for i in range(4))
+        # per-request adapt eagerly on the batch's fits, held against the
+        # batch; then bucket 1 as its graph (request 0 its first call,
+        # requests 1-3 replays), each bit for bit the eager request
+        with graphs.run_eagerly():
+            r["vs_request"] = max(tree_close(
+                torch, with_baseline_fits(
+                    lambda: server.adapt(stack.map(lambda t: t[i])),
+                    [(w[i:i + 1], r[i:i + 1]) for w, r in fits])[0],
+                tree_map(lambda t: t[i], adapted), ADAPT_TOL,
+                f"{algo} request {i} vs batch") for i in range(4))
+        for i in range(4):
+            one = stack.map(lambda t: t[i])
+            got = server.adapt(one)
+            with graphs.run_eagerly():
+                want = server.adapt(one)
+            check(all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(got), tree_leaves(want))),
+                  f"{algo} request {i}: bucket 1's graph vs the eager call")
         check(all(bool((x[0] != y).any()) for x, y in zip(
             tree_leaves(adapted), tree_leaves(server.params))),
               f"{algo}: the inner step moved every leaf")
@@ -5232,7 +5376,8 @@ def server_meshes(torch, np, gc, tc, gpu) -> dict:
     from exploring_meta_tpu_torch.serve import PolicyServer, VisionServer
     from exploring_meta_tpu_torch.tasks import datasets as td
     from exploring_meta_tpu_torch.tasks import sampler as ts
-    from exploring_meta_tpu_torch.utils.tree import tree_map
+    from exploring_meta_tpu_torch.utils import graphs
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves, tree_map
 
     mesh = make_task_mesh(devices=("cuda:0", "cuda:0"))
     out = {"launches": {}}
@@ -5241,21 +5386,31 @@ def server_meshes(torch, np, gc, tc, gpu) -> dict:
                        device="cpu")
     kw = dict(inner_lr=INNER_LR, adapt_steps=ADAPT_STEPS)
     sx, sy, qx, _ = make_requests(torch, td, ts, torch.device("cuda"))
+    def per_shard(launches, captured) -> dict:
+        """Each kernel's calls over the shards: the eager ones and those
+        recorded in a graph times its replays (both shards lie on cuda:0,
+        so the second is the first one's graph replayed)."""
+        return {k: n + graphs.COUNTS["replays"] * captured[k]
+                for k, n in launches.items()}
+
     counts = {}
     for name, server in (("plain", VisionServer(spec, params, device="cuda",
                                                 **kw)),
                          ("mesh", VisionServer(spec, params, mesh=mesh,
                                                **kw))):
         _counters_zeroed()
-        counts[name] = (server.batch(sx, sy, qx), tc.launch_counts())
-    (pm, qm), lm = counts["mesh"]
-    (pp, qp), lp = counts["plain"]
+        counts[name] = (server.batch(sx, sy, qx), tc.launch_counts(),
+                        per_shard(tc.launch_counts(), tc.captured_counts()))
+    (pm, qm), lm, sm = counts["mesh"]
+    (pp, qp), lp, _ = counts["plain"]
     err = float((qm - qp).abs().max())
     check(err <= SERVER_MESH_TOL and bool((pm == pp).all()),
           f"VisionServer on the mesh vs unsharded: {err}")
-    check(lm == {k: 2 * n for k, n in lp.items()},
-          f"VisionServer: each kernel once a shard, {lm} vs {lp}")
-    out["vision"] = {"probs_err": err, "launches": lm}
+    check(sm == {k: 2 * n for k, n in lp.items()} and lm == lp
+          and graphs.COUNTS == {"captures": 1, "replays": 1},
+          f"VisionServer: each kernel once a shard, {sm} vs {lp}, the "
+          f"second shard a replay {graphs.COUNTS}")
+    out["vision"] = {"probs_err": err, "launches": lm, "per_shard": sm}
 
     env = Particles2D()
     cfg = RLConfig(**SERVE_RL_CFG)
@@ -5268,19 +5423,36 @@ def server_meshes(torch, np, gc, tc, gpu) -> dict:
                  env.sample_tasks(gen, SERVE_RL_REQUESTS), gen)
     obs = stack.state[:, 0]
     res, fits = {}, None
+    sharded = PolicyServer(policy, pparams, cfg, mesh=mesh)
     for name, server in (("plain", PolicyServer(policy, pparams, cfg)),
-                         ("mesh", PolicyServer(policy, pparams, cfg,
-                                               mesh=mesh))):
-        # each shard takes its requests' share of the unsharded fits
+                         ("mesh", sharded)):
+        # each shard takes its requests' share of the unsharded fits, in
+        # eager calls: a replay runs no Python hook
         given = None if fits is None else [
             (w[a:b], r[a:b]) for _, a, b in split_requests(
                 mesh, SERVE_RL_REQUESTS) for w, r in fits]
         _counters_zeroed()
-        adapted, got = with_baseline_fits(
-            lambda: server.adapt_batched(stack), given)
+        with (graphs.run_eagerly() if given else contextlib.nullcontext()):
+            adapted, got = with_baseline_fits(
+                lambda: server.adapt_batched(stack), given)
         fits = fits or got
         res[name] = (adapted, server.act_batched(adapted, obs),
                      gc.launch_counts())
+    # the mesh's shards as graphs, on their own fits: the first shard the
+    # graph's eager call, the second its replay, bit for bit the eager
+    # shards
+    _counters_zeroed()
+    captured = sharded.adapt_batched(stack)
+    graph_launches = gc.launch_counts()
+    graph_counts = per_shard(graph_launches, gc.captured_counts())
+    with graphs.run_eagerly():
+        eager = sharded.adapt_batched(stack)
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(captured),
+                                                tree_leaves(eager))),
+          "PolicyServer on the mesh: the shards' graph vs eager shards")
+    check(graph_counts == res["mesh"][2],
+          f"PolicyServer: each sweep once a shard in the graphs too, "
+          f"{graph_counts}")
     adapted_err = tree_close(torch, res["mesh"][0], res["plain"][0],
                              ADAPT_TOL, "PolicyServer on the mesh vs "
                              "unsharded")
@@ -5290,8 +5462,8 @@ def server_meshes(torch, np, gc, tc, gpu) -> dict:
     check(res["mesh"][2] == {k: 2 * n for k, n in res["plain"][2].items()},
           f"PolicyServer: each sweep once a shard, {res['mesh'][2]}")
     out["policy"] = {"adapted_err": adapted_err, "act_err": act_err,
-                     "launches": res["mesh"][2]}
-    for part in (lm, lp, res["mesh"][2], res["plain"][2]):
+                     "launches": res["mesh"][2], "graphs": graph_counts}
+    for part in (lm, lp, res["mesh"][2], res["plain"][2], graph_launches):
         for k, n in part.items():
             out["launches"][k] = out["launches"].get(k, 0) + n
     print(f"phase 15 server meshes: vision probs {err}, policy adapted "
@@ -5518,6 +5690,10 @@ def load_test_runs(tc, gc, gpu) -> dict:
     check(len(found) == 1 and res["launches"] == META_EVAL_CALLS,
           f"serve_vision: its result line and 8 / 4 / 3 CNN4 calls a "
           f"batch, {res['launches']}")
+    # the first batch captured, the 5 timed ones replayed (and the same
+    # for adaptation; act: one capture, 200 replays)
+    check(res["graphs"] == {"captures": 1, "replays": 5},
+          f"serve_vision: one capture, 5 replays, {res['graphs']}")
     out["serve_vision"] = {**res, "line": found[0].group(0)}
     res, lines = printed_lines(lambda: serve_load.serve_rl(["--random_init"]))
     found = [[m for m in map(rx.fullmatch, lines) if m]
@@ -5526,6 +5702,10 @@ def load_test_runs(tc, gc, gpu) -> dict:
           and res["launches"] == {k: 1 for k in gc.KERNELS},
           f"serve_rl: its result lines and each sweep once a batch, "
           f"{res['launches']}")
+    check(res["graphs"] == {"adapt": {"captures": 1, "replays": 5},
+                            "act": {"captures": 1, "replays": 200}},
+          f"serve_rl: adapt and act captured once, replayed after, "
+          f"{res['graphs']}")
     out["serve_rl"] = {**res, "lines": [f[0].group(0) for f in found]}
     out["launches"] = add_counts({}, out["serve_vision"]["launches"],
                                  out["serve_rl"]["launches"])
@@ -5606,6 +5786,375 @@ def parity_phase(torch, tc, gc, gpu) -> dict:
           f"launches {out['launches']} [{gpu}]", flush=True)
     return out
 
+# Captured serving (slice 16): both servers' buckets as CUDA-graph replays,
+# at phase 3's vision requests (omniglot 5w5s, 15 queries, 64 requests;
+# f32, bf16 and ANIL) and phase 7's policy batches (64 requests of 10
+# episodes x 50 steps; vpg, ppo, trpo). A replay runs the kernels of its
+# eager first call on the same inputs, so it is held to them bit for bit.
+# Each bucket of CAPTURE_BUCKETS is timed eagerly (graphs.run_eagerly) and
+# as a replay in turns, CAPTURE_REPS calls a turn; act ACT_REPS steps a
+# turn, for 20 envs as serve_rl acts.
+CAPTURE_BUCKETS, CAPTURE_REPS, ACT_REPS, ACT_ENVS = (1, 8, 64), 10, 200, 20
+
+
+def _wall_s(torch, fn, reps: int) -> float:
+    """s a call of ``fn`` over ``reps`` calls between two synchronizes."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps
+
+
+def eager_vs_replay(torch, graphs, fn, reps: int) -> dict:
+    """s a call of ``fn`` eagerly and as replays, timed in turns (eager,
+    replay, replay, eager) -> each mode's two turns and their mean."""
+    turns = {"eager": [], "replay": []}
+    for mode in ("eager", "replay", "replay", "eager"):
+        with (graphs.run_eagerly() if mode == "eager"
+              else contextlib.nullcontext()):
+            turns[mode].append(_wall_s(torch, fn, reps))
+    return {**{f"{m}_turns_s": t for m, t in turns.items()},
+            **{f"{m}_s": sum(t) / len(t) for m, t in turns.items()}}
+
+
+def _bitwise(torch, a, b) -> bool:
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def pool_mib(torch, pool):
+    """MiB of the device memory segments of a graph memory pool, or None
+    where the allocator's snapshot does not name pools."""
+    segs = torch.cuda.memory_snapshot()
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(g["total_size"] for g in segs
+               if tuple(g["segment_pool_id"]) == tuple(pool)) / 2 ** 20
+
+
+def captured_case(torch, graphs, counters, name: str, first, again,
+                  ragged, want: dict) -> dict:
+    """The checks of one served path: ``first()`` its first call at the
+    main bucket (eager, then captured: each kernel launched and recorded
+    ``want`` times), ``again()`` the same call replayed
+    (one replay, no wrapper launch, the first call's result bit for bit),
+    and ``ragged(k)`` at k = 5, 7, 5 (one capture at bucket 8, two
+    replays; the two k = 5 calls bit for bit) -> counts, first-call s and
+    the rows of k = 5 against those of k = 7."""
+    _counters_zeroed()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = first()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches, recorded = counters.launch_counts(), counters.captured_counts()
+    check(launches == recorded == want
+          and graphs.COUNTS == {"captures": 1, "replays": 0},
+          f"{name}: the first call launches and records each kernel as "
+          f"often, {launches}, {recorded}, {graphs.COUNTS}")
+    _counters_zeroed()
+    replayed = again()
+    torch.cuda.synchronize()
+    check(not any(counters.launch_counts().values())
+          and graphs.COUNTS == {"captures": 0, "replays": 1},
+          f"{name}: a steady-state call is one replay and no wrapper "
+          f"launch, {counters.launch_counts()}, {graphs.COUNTS}")
+    check(_bitwise(torch, replayed, out),
+          f"{name}: the replay equals the eager first call bit for bit")
+    _counters_zeroed()
+    five, seven, again5 = ragged(5), ragged(7), ragged(5)
+    torch.cuda.synchronize()
+    check(graphs.COUNTS == {"captures": 1, "replays": 2},
+          f"{name}: 5 and 7 requests share bucket 8's capture, "
+          f"{graphs.COUNTS}")
+    check(_bitwise(torch, again5, five),
+          f"{name}: the bucket-8 replay at 5 equals its eager call")
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves
+    rows57 = max(float((a.float() - b[:a.shape[0]].float()).abs().max())
+                 for a, b in zip(tree_leaves(five), tree_leaves(seven)))
+    return {"launches": launches, "recorded": recorded,
+            "first_call_s": first_s, "rows_5_vs_7": rows57}
+
+
+THREADS = 4
+
+
+def sampled_fleet(torch, graphs, server, params, obs) -> bool:
+    """``sample_batched`` at one generator state three times: eagerly and
+    captured, replayed from that generator reseeded, and replayed from a
+    new generator seeded alike (no capture of its own) -> whether the
+    three draws and the generator states they leave are bit for bit
+    equal, and a fourth call from the moved generator draws anew."""
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves
+    _counters_zeroed()
+    gen = torch.Generator(device="cuda")
+    drawn = []
+    for g in (gen, gen, torch.Generator(device="cuda")):
+        g.manual_seed(SEED + 19)
+        drawn.append((server.sample_batched(params, g, obs), g.get_state()))
+    nxt = server.sample_batched(params, gen, obs)
+    torch.cuda.synchronize()
+    return (graphs.COUNTS == {"captures": 1, "replays": 3}
+            and all(_bitwise(torch, d, drawn[0][0])
+                    and torch.equal(st, drawn[0][1]) for d, st in drawn)
+            and not torch.equal(tree_leaves(nxt)[0],
+                                tree_leaves(drawn[0][0])[0]))
+
+
+def threaded_calls(torch, server, params, obs, reps: int = 25) -> bool:
+    """``act_batched`` on ``THREADS`` observation sets, each set's result
+    read once alone, then every set served ``reps`` times from a thread
+    of its own, all at once -> whether every threaded call returned its
+    own set's result."""
+    from concurrent.futures import ThreadPoolExecutor
+    sets = [obs + 0.01 * k for k in range(THREADS)]
+    alone = [server.act_batched(params, o) for o in sets]
+
+    def serve(k):
+        return all(torch.equal(server.act_batched(params, sets[k]), alone[k])
+                   for _ in range(reps))
+
+    with ThreadPoolExecutor(THREADS) as pool:
+        return all(pool.map(serve, range(THREADS)))
+
+
+def categorical_fleet(torch, graphs, cfg, envs: int, gpu) -> dict:
+    """A ``CategoricalPolicy`` server's fleet calls at 64 tasks: the draw
+    is ``torch.multinomial``'s one-draw path without its host syncs, so
+    it captures; its replays draw what the eager call drew (from new
+    generators too) and what ``torch.multinomial`` draws from the same
+    state; the log-probs are the draws'; ``act_batched``'s replay equals
+    its eager call, the argmax."""
+    from exploring_meta_tpu_torch.models import distributions as dist
+    from exploring_meta_tpu_torch.models.policies import CategoricalPolicy
+    from exploring_meta_tpu_torch.serve import PolicyServer
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+    n, cat = SERVE_RL_REQUESTS, CategoricalPolicy(10, 4)
+    params = cat.init(torch.Generator().manual_seed(SEED), device="cpu")
+    server = PolicyServer(cat, params, cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    fleet = tree_map(lambda t: t.cuda() + 0.3 * torch.randn(
+        (n,) + tuple(t.shape), generator=g, device="cuda"), params)
+    states = torch.randint(0, 10, (n, envs), generator=g, device="cuda")
+    check(sampled_fleet(torch, graphs, server, fleet, states),
+          "categorical: sample_batched captures, and its replays draw the "
+          "eager call's numbers and move each generator on")
+    seeded = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    action, info = server.sample_batched(fleet, seeded, states)
+    logits = cat.logits(fleet, states)
+    probs = torch.softmax(logits.float(), -1)
+    seeded.manual_seed(SEED + 19)
+    want = torch.multinomial(probs.reshape(-1, probs.shape[-1]), 1,
+                             generator=seeded).reshape(action.shape)
+    acts = server.act_batched(fleet, states)
+    out = {"draws_equal_multinomial": bool(torch.equal(action, want)),
+           "log_prob_err": float((info["log_prob"] - dist.categorical_log_prob(
+               logits, action)).abs().max()),
+           "sample": eager_vs_replay(torch, graphs, lambda: server.
+                                     sample_batched(fleet, seeded, states),
+                                     ACT_REPS)}
+    check(out["draws_equal_multinomial"],
+          "categorical: the replayed draw is torch.multinomial's")
+    check(out["log_prob_err"] <= 1e-6, f"categorical: the log-probs are "
+          f"the draws', {out['log_prob_err']}")
+    check(_bitwise(torch, server.act_batched(fleet, states), acts)
+          and torch.equal(acts, logits.argmax(-1)),
+          "categorical: act_batched's replay is its eager call, the argmax")
+    print(f"phase 18 categorical fleet ({n} tasks x {envs} envs): draws "
+          f"torch.multinomial's; sample_batched eager "
+          f"{out['sample']['eager_s'] * 1e6} us replay "
+          f"{out['sample']['replay_s'] * 1e6} us [{gpu}]", flush=True)
+    return out
+
+
+def captured_serving_phase(torch, np, tc, gc, gpu) -> dict:
+    """Phase 18: both servers serve each bucket as a CUDA graph (slice
+    16), at full width."""
+    from exploring_meta_tpu_torch.envs.particles2d import Particles2D
+    from exploring_meta_tpu_torch.models.cnn4 import (
+        anil_omniglot_spec, init_cnn4, mini_imagenet_spec, omniglot_spec,
+    )
+    from exploring_meta_tpu_torch.models.policies import DiagNormalPolicy
+    from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
+    from exploring_meta_tpu_torch.rl.rollout import make_rollout
+    from exploring_meta_tpu_torch.serve import PolicyServer, VisionServer
+    from exploring_meta_tpu_torch.tasks import datasets as td
+    from exploring_meta_tpu_torch.tasks import sampler as ts
+    from exploring_meta_tpu_torch.utils import graphs
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+
+    start = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = {"launches": {k: 0 for k in (*tc.KERNELS, *gc.KERNELS)},
+           "pool_mib": {}}
+    sx, sy, qx, _ = make_requests(torch, td, ts, torch.device("cuda"))
+    kw = dict(inner_lr=INNER_LR, adapt_steps=ADAPT_STEPS, device="cuda")
+    cases = {
+        "vision f32": VisionServer(omniglot_spec(WAYS), init_cnn4(
+            torch.Generator().manual_seed(SEED), omniglot_spec(WAYS),
+            device="cpu"), **kw),
+        "anil f32": VisionServer(anil_omniglot_spec(WAYS), init_cnn4(
+            torch.Generator().manual_seed(SEED), anil_omniglot_spec(WAYS),
+            device="cpu"), anil=True, **kw)}
+    cases["vision bf16"] = VisionServer(
+        omniglot_spec(WAYS), cases["vision f32"].params,
+        compute_dtype=torch.bfloat16, **kw)
+    for name, server in cases.items():
+        r = captured_case(
+            torch, graphs, tc, name, lambda: server.batch(sx, sy, qx),
+            lambda: server.batch(sx, sy, qx),
+            lambda k: server.batch(sx[:k], sy[:k], qx[:k]),
+            # the ANIL spec's flattened base runs per op (cuDNN), captured
+            # all the same
+            {k: 0 for k in tc.KERNELS} if server.anil else META_EVAL_CALLS)
+        add_counts(out["launches"], r["launches"])
+        # bucket 1 (__call__, the kernels at B = 1): its first call eager
+        # and recorded as the batch's, then replays
+        _counters_zeroed()
+        one = server(sx[0], sy[0], qx[0])
+        torch.cuda.synchronize()
+        r["launches_b1"] = tc.launch_counts()
+        check(r["launches_b1"] == tc.captured_counts() == r["launches"]
+              and _bitwise(torch, server(sx[0], sy[0], qx[0]), one),
+              f"{name}: bucket 1 launches and records the batch's kernels, "
+              f"{r['launches_b1']}, and its replay equals its eager call")
+        add_counts(out["launches"], r["launches_b1"])
+        r["times"] = {
+            1: eager_vs_replay(torch, graphs, lambda: server(
+                sx[0], sy[0], qx[0]), CAPTURE_REPS),
+            8: eager_vs_replay(torch, graphs, lambda: server.batch(
+                sx[:8], sy[:8], qx[:8]), CAPTURE_REPS),
+            64: eager_vs_replay(torch, graphs, lambda: server.batch(
+                sx, sy, qx), CAPTURE_REPS)}
+        r["profile"] = profiled(torch, lambda: server.batch(sx, sy, qx),
+                                r["times"][64]["replay_s"])
+        out["pool_mib"][name] = r["pool_mib"] = pool_mib(
+            torch, server._graphs.pool)
+        out[name] = r
+        print(f"phase 18 {name}: first call at 64 {r['first_call_s']} s; "
+              + "; ".join(f"bucket {b} eager {t['eager_s'] * 1e3} ms "
+                          f"replay {t['replay_s'] * 1e3} ms"
+                          for b, t in r["times"].items())
+              + f"; replay at 64: kernels busy "
+              f"{r['profile']['busy_union_us']} us of "
+              f"{r['profile']['wall_us']} us (idle "
+              f"{100 * r['profile']['idle_share']:.1f} %), runtime calls "
+              f"{r['profile']['runtime_calls']}; rows 5 vs 7 "
+              f"{r['rows_5_vs_7']} [{gpu}]", flush=True)
+
+    # the max-pool CNN4 (Mini-ImageNet, 8 requests) runs per op on cuDNN,
+    # whose backward algorithms are not bitwise repeatable: its replay is
+    # held at phase 3's 1e-4 against its eager call, beside the spread of
+    # two eager calls
+    mini = VisionServer(mini_imagenet_spec(WAYS), init_cnn4(
+        torch.Generator().manual_seed(SEED), mini_imagenet_spec(WAYS),
+        device="cpu"), **kw)
+    g = torch.Generator(device="cuda").manual_seed(SEED + 17)
+    msx = torch.randn((8, WAYS * SHOTS, 84, 84, 3), generator=g,
+                      device="cuda")
+    mqx = torch.randn((8, QUERIES, 84, 84, 3), generator=g, device="cuda")
+    first = mini.batch(msx, sy[:8], mqx)
+    replayed = mini.batch(msx, sy[:8], mqx)
+    with graphs.run_eagerly():
+        eager = [mini.batch(msx, sy[:8], mqx) for _ in range(2)]
+    r = {"replay_vs_first": float((replayed[1] - first[1]).abs().max()),
+         "eager_vs_eager": float((eager[1][1] - eager[0][1]).abs().max()),
+         "times": {8: eager_vs_replay(torch, graphs, lambda: mini.batch(
+             msx, sy[:8], mqx), CAPTURE_REPS)}}
+    check(r["replay_vs_first"] <= 1e-4,
+          f"mini-imagenet: the replay within 1e-4 of its eager call, "
+          f"{r['replay_vs_first']}")
+    out["mini-imagenet"] = r
+    print(f"phase 18 mini-imagenet (cuDNN, 8 requests): replay vs its eager "
+          f"call {r['replay_vs_first']}, two eager calls "
+          f"{r['eager_vs_eager']} apart; eager "
+          f"{r['times'][8]['eager_s'] * 1e3} ms replay "
+          f"{r['times'][8]['replay_s'] * 1e3} ms [{gpu}]", flush=True)
+
+    env, n = Particles2D(), SERVE_RL_REQUESTS
+    policy = DiagNormalPolicy(env.obs_size, env.action_size)
+    params = policy.init(torch.Generator().manual_seed(SEED), device="cpu")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 18)
+    roll = make_rollout(env, policy.sample, SERVE_RL_EPISODES,
+                        SERVE_RL_HORIZON)
+    stack = roll(tree_map(lambda t: t.cuda(), params),
+                 env.sample_tasks(gen, n), gen)
+    obs = stack.state[:, 0]
+    act_obs = torch.zeros((ACT_ENVS, env.obs_size), device="cuda")
+    cfg = RLConfig(**SERVE_RL_CFG)
+    for algo in ("vpg", "ppo", "trpo"):
+        server = PolicyServer(policy, params, cfg, algo=algo)
+        name = f"policy {algo}"
+        r = captured_case(
+            torch, graphs, gc, name, lambda: server.adapt_batched(stack),
+            lambda: server.adapt_batched(stack),
+            lambda k: server.adapt_batched(stack.map(lambda t: t[:k])),
+            {k: cfg.adapt_steps for k in gc.KERNELS})
+        add_counts(out["launches"], r["launches"])
+        r["times"] = {64: eager_vs_replay(
+            torch, graphs, lambda: server.adapt_batched(stack),
+            CAPTURE_REPS)}
+        r["profile"] = profiled(torch, lambda: server.adapt_batched(stack),
+                                r["times"][64]["replay_s"])
+        adapted = server.adapt_batched(stack)
+        one = tree_map(lambda t: t[0], adapted)
+        acts = server.act(one, act_obs)
+        check(_bitwise(torch, server.act(one, act_obs), acts),
+              f"{name}: act's replay equals its eager call")
+        r["act"] = eager_vs_replay(torch, graphs, lambda: server.act(
+            one, act_obs), ACT_REPS)
+        fleet = server.act_batched(adapted, obs)
+        check(_bitwise(torch, server.act_batched(adapted, obs), fleet),
+              f"{name}: act_batched's replay equals its eager call")
+        check(sampled_fleet(torch, graphs, server, adapted, obs),
+              f"{name}: sample_batched's replays, from the eager call's "
+              f"generator and from new ones at its state, draw the eager "
+              f"call's numbers and move each generator on as it did")
+        if algo == "vpg":
+            check(threaded_calls(torch, server, adapted, obs),
+                  f"{name}: act_batched from {THREADS} threads at once "
+                  f"returns each thread's own result")
+        if algo == "vpg":
+            # a second steps budget is a graph of its own, each sweep
+            # launched and recorded twice by its first call
+            _counters_zeroed()
+            server.adapt_batched(stack, steps=2)
+            torch.cuda.synchronize()
+            two = gc.launch_counts()
+            check(two == gc.captured_counts() == {k: 2 for k in gc.KERNELS}
+                  and graphs.COUNTS["captures"] == 1,
+                  f"{name}: 2 steps, each sweep twice, {two}")
+            add_counts(out["launches"], two)
+        out["pool_mib"][name] = r["pool_mib"] = pool_mib(
+            torch, server._graphs.pool)
+        out[name] = r
+        print(f"phase 18 {name}: first call {r['first_call_s']} s; batch "
+              f"of 64 eager {r['times'][64]['eager_s'] * 1e3} ms replay "
+              f"{r['times'][64]['replay_s'] * 1e3} ms; replay kernels "
+              f"busy {r['profile']['busy_union_us']} us of "
+              f"{r['profile']['wall_us']} us (idle "
+              f"{100 * r['profile']['idle_share']:.1f} %), runtime calls "
+              f"{r['profile']['runtime_calls']}; act eager "
+              f"{r['act']['eager_s'] * 1e6} us replay "
+              f"{r['act']['replay_s'] * 1e6} us; rows 5 vs 7 "
+              f"{r['rows_5_vs_7']} [{gpu}]", flush=True)
+    out["categorical"] = categorical_fleet(torch, graphs, cfg, obs.shape[1],
+                                           gpu)
+    torch.cuda.synchronize()
+    out["peak_allocated_mib"] = (torch.cuda.max_memory_allocated()
+                                 - base) / 2 ** 20
+    out["wall_s"] = time.perf_counter() - start
+    print(f"phase 18 (captured serving): {out['wall_s']:.2f} s; graph "
+          f"pools MiB {out['pool_mib']}; peak allocated "
+          f"{out['peak_allocated_mib']} MiB above the phase's start; "
+          f"launches {out['launches']} [{gpu}]", flush=True)
+    return out
+
 
 def main() -> int:
     import torch
@@ -5659,6 +6208,9 @@ def main() -> int:
         vision = vision_trainer_phase(torch, tc, gpu, tmp)
     vision_times = vision_timing(torch, gpu)
     policy_serve = policy_serve_phase(torch, gc, gpu)
+    # phase 18 runs here, before the later phases' many profiler sessions
+    # (CUPTI has dropped records late in the script)
+    slice16 = captured_serving_phase(torch, np, tc, gc, gpu)
     with tempfile.TemporaryDirectory() as tmp:
         adam_rl = adam_rl_phase(torch, gc, gpu, tmp)
     replay_grad = replay_grad_phase(torch, gpu)
@@ -5690,7 +6242,7 @@ def main() -> int:
                    "analysis": analysis, "slice10": slice10,
                    "slice11": slice11, "slice12": slice12,
                    "slice13": slice13, "slice14": slice14,
-                   "slice15": slice15}, f, indent=1,
+                   "slice15": slice15, "slice16": slice16}, f, indent=1,
                   default=str)
 
     replaces = {
@@ -5720,7 +6272,9 @@ def main() -> int:
     # without a mesh, both gloo ranks' and the 1-rank runs, the server
     # meshes' and the unsharded batches); and slice 15's (the vision
     # parity run's meta-steps and eval batches, the RL parity run's
-    # iterations and meta-tests, the load tests' counted batches)
+    # iterations and meta-tests, the load tests' counted batches); and
+    # slice 16's (each served path's first call at its bucket, eager before
+    # its capture; a replay launches no wrapper)
     for paths in (vision["launches"], policy_serve["launches"],
                   adam_rl["launches"],
                   *(r["launches"] for r in fused.values()),
@@ -5734,7 +6288,7 @@ def main() -> int:
                   slice10["bf16"]["eager_ppo"]["launches"],
                   slice11["launches"], slice12["launches"],
                   slice13["launches"], slice14["launches"],
-                  slice15["launches"]):
+                  slice15["launches"], slice16["launches"]):
         for name, n in paths.items():
             launches[name] += n
     kernels = []

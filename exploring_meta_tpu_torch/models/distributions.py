@@ -50,9 +50,11 @@ def categorical_sample(gen: torch.Generator, logits) -> torch.Tensor:
     """One category per row of ``logits [..., K]``, drawn from ``gen`` with
     probabilities ``softmax(logits)`` -> int64 ``[...]``."""
     probs = torch.softmax(logits.float(), dim=-1)
-    flat = probs.reshape(-1, probs.shape[-1])
-    draws = torch.multinomial(flat, 1, generator=gen)
-    return draws.reshape(probs.shape[:-1])
+    # torch.multinomial's one-draw path, an exponential race (argmax of
+    # p / q, q ~ Exp(1)): the same draws from the same generator, without
+    # its host-synced input checks, so that a CUDA graph can capture it
+    q = torch.empty_like(probs).exponential_(generator=gen)
+    return (probs / q).argmax(dim=-1)
 
 
 def categorical_log_prob(logits, value) -> torch.Tensor:

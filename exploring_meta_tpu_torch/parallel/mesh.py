@@ -32,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from exploring_meta_tpu_torch.parallel.launch import current_rank
+from exploring_meta_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # all_reduce calls since the last reset_counts(); a call made while the
 # stream is being captured counts in "captured" (each replay repeats it)
@@ -134,19 +135,6 @@ def make_task_mesh(n_devices: int | None = None, axis: str = "tasks",
     return TaskMesh(devices, axis)
 
 
-def map_leaves(fn, tree, *rest):
-    """``tree_map`` over dicts, lists and tuples that also rebuilds
-    NamedTuples (a Trajectory)."""
-    if hasattr(tree, "_fields"):
-        return type(tree)(*(map_leaves(fn, *xs) for xs in zip(tree, *rest)))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(map_leaves(fn, *xs) for xs in zip(tree, *rest))
-    if isinstance(tree, dict):
-        return {k: map_leaves(fn, tree[k], *(r[k] for r in rest))
-                for k in tree}
-    return fn(tree, *rest)
-
-
 def local_count(size: int, n: int) -> int:
     """Each of ``size`` ranks' share of a meta-batch of ``n`` tasks, which
     must divide evenly (JAX's message)."""
@@ -161,8 +149,7 @@ def shard_task_batch(mesh: TaskMesh, task_batch):
     server's mesh, the tuple of every device's shard, each moved there).
     A batch the mesh does not divide raises JAX's ``ValueError``."""
     n = mesh.size
-    leaves: list = []
-    map_leaves(leaves.append, task_batch)
+    leaves = tree_leaves(task_batch)
     lead = leaves[0].shape[0]
     if lead % n:
         raise ValueError(f"task batch size {lead} not divisible by mesh "
@@ -170,9 +157,9 @@ def shard_task_batch(mesh: TaskMesh, task_batch):
     k = lead // n
     if mesh.distributed:
         r = mesh.rank
-        return map_leaves(lambda x: x[r * k:(r + 1) * k], task_batch)
-    return tuple(map_leaves(lambda x: x[i * k:(i + 1) * k].to(d),
-                            task_batch)
+        return tree_map(lambda x: x[r * k:(r + 1) * k], task_batch)
+    return tuple(tree_map(lambda x: x[i * k:(i + 1) * k].to(d),
+                          task_batch)
                  for i, d in enumerate(mesh.devices))
 
 

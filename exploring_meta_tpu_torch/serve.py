@@ -18,18 +18,27 @@ analysis-side inner step (``rl/adapt_rl.py:single_adapt_step``: vpg, ppo
 or trpo, first order), whose GAE and discount sweeps run on the CUDA
 kernels, and acts with the adapted params.
 
-Eager PyTorch compiles nothing per batch size, so both servers serve
-exactly B requests; the JAX servers' power-of-two buckets, which bound
-XLA compiles, have no counterpart here.
+Both servers run one program per request bucket, as the JAX servers run
+one jitted XLA program: a batch of B requests is padded to the next
+power-of-two bucket (``_next_bucket``) by repeating its first request
+(``_pad_leading``), served as a bucket, and the padding is sliced off.
+The program is a CUDA graph (``utils/graphs.py:CapturedCalls``, one
+memory pool a server): the first call at a bucket and input shape runs
+eagerly and is captured right after, every later one is a replay, one
+graph launch instead of thousands of kernel launches. Per-request work is
+independent (BN statistics, inner steps and actions are per request), so
+the padding changes no request's result. A server's graph calls are
+serialised by a lock, so several threads may call one server. On the CPU
+the same code runs eagerly.
 
 ``mesh=`` (``parallel/mesh.py:make_task_mesh``, a server's mesh: one
-process, a tuple of local devices) splits the request axis into
-contiguous shards, one a device (a ragged batch leaves the last devices
-idle: 5 requests on 8 devices run one a device on the first five). The
-params are placed on each device once; each shard is served on its
-device and the results are concatenated on the first device. Per-request
-work has no collectives, so a request's result is the one it gets in an
-unsharded batch.
+process, a tuple of local devices) makes every bucket a multiple of the
+device count, as JAX's do, and splits it into equal contiguous shards,
+one a device (5 requests on 3 devices: the power of two 8 rounded up to
+a bucket of 9, three a device). The params are placed on each device
+once; each shard is served by its device's graph and the results are
+concatenated on the first device. Per-request work has no collectives,
+so a request's result is the one it gets in an unsharded batch.
 """
 
 from __future__ import annotations
@@ -43,47 +52,71 @@ from exploring_meta_tpu_torch.models.cnn4 import (
 )
 from exploring_meta_tpu_torch.models import distributions as dist
 from exploring_meta_tpu_torch.ops.losses import cross_entropy
-from exploring_meta_tpu_torch.parallel.mesh import map_leaves, split_requests
+from exploring_meta_tpu_torch.parallel.mesh import split_requests
 from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig, single_adapt_step
 from exploring_meta_tpu_torch.rl.rollout import Trajectory
-from exploring_meta_tpu_torch.utils.tree import tree_leaves, tree_map
+from exploring_meta_tpu_torch.utils.graphs import CapturedCalls
+from exploring_meta_tpu_torch.utils.tree import tree_map
+
+
+def _next_bucket(B: int, multiple: int = 1) -> int:
+    """The next power of two >= B, rounded up to a multiple of
+    ``multiple`` (a mesh's device count, which need not be a power of
+    two): the request buckets, one program each."""
+    b = 1
+    while b < B:
+        b *= 2
+    if b % multiple:
+        b = -(-b // multiple) * multiple
+    return b
+
+
+def _pad_leading(tree, pad: int):
+    """Every leaf's leading axis padded by ``pad`` copies of its first
+    slice, on its device."""
+    if not pad:
+        return tree
+    return tree_map(lambda x: torch.cat(
+        [x, x[:1].expand((pad,) + tuple(x.shape[1:]))]), tree)
 
 
 def _placed(params, mesh, device):
-    """``(params on device, {device: params there} for a mesh's devices)``,
-    detached; a mesh's first device is the server's device."""
+    """``(params on device, {device: params there})`` over the devices the
+    server serves on, detached; a mesh's first device is the server's
+    device."""
     if mesh is not None and mesh.distributed:
         raise ValueError("a server takes a server mesh (make_task_mesh "
                          "outside a launch), not a rank's")
     params = tree_map(lambda t: t.detach().to(device), params)
-    if mesh is None:
-        return params, None
+    devices = (device,) if mesh is None else mesh.devices
     return params, {d: tree_map(lambda t: t.to(d), params)
-                    for d in set(mesh.devices)}
+                    for d in set(devices)}
 
 
-def _sharded(mesh, fn, n: int, *stacks):
-    """``fn(device, *shards)`` on each of ``mesh``'s contiguous request
-    shards of ``stacks`` (trees with a leading axis of ``n``), each moved
-    to its device -> the per-shard outputs (trees of tensors) concatenated
-    on the first device."""
+def _sharded(mesh, fn, bucket: int, *stacks, rows=None):
+    """``fn(device, *shards)`` on each of ``mesh``'s equal contiguous
+    shards of ``stacks`` (trees with a leading axis of ``bucket``, a
+    multiple of the mesh size), each moved to its device -> the per-shard
+    outputs (trees of tensors) concatenated on the first device, cut to
+    their first ``rows`` rows."""
     home = mesh.devices[0]
     outs = []
-    for dev, a, b in split_requests(mesh, n):
-        shards = [map_leaves(lambda t: t[a:b].to(dev), s) for s in stacks]
+    for dev, a, b in split_requests(mesh, bucket):
+        shards = [tree_map(lambda t: t[a:b].to(dev), s) for s in stacks]
         outs.append(fn(dev, *shards))
-    return map_leaves(lambda *xs: torch.cat([x.to(home) for x in xs]),
-                       *outs)
+    return tree_map(lambda *xs: torch.cat([x.to(home) for x in xs])[:rows],
+                    *outs)
 
 
 class VisionServer:
     """Few-shot classification serving on a meta-trained CNN4.
 
     ``compute_dtype=torch.bfloat16`` runs adaptation and prediction in
-    bf16; probabilities come back in f32 either way. ``device`` defaults
-    to the card; pass ``device="cpu"`` to serve on the CPU. ``mesh``
-    shards :meth:`batch` over its devices (the first is the server's
-    device)."""
+    bf16 (the params are cast once, here; the inputs inside the served
+    program); probabilities come back in f32 either way. ``device``
+    defaults to the card; pass ``device="cpu"`` to serve on the CPU.
+    ``mesh`` shards :meth:`batch` over its devices (the first is the
+    server's device)."""
 
     def __init__(self, spec: CNN4Spec, params, *, inner_lr: float,
                  adapt_steps: int, anil: bool = False, compute_dtype=None,
@@ -96,7 +129,11 @@ class VisionServer:
         self.adapt_steps = adapt_steps
         self.anil = anil
         self.compute_dtype = compute_dtype
-        self.params, self._mesh_params = _placed(params, mesh, self.device)
+        self.params, placed = _placed(params, mesh, self.device)
+        self._served_params = {
+            d: p if compute_dtype is None else tree_map(
+                lambda t: t.to(compute_dtype), p) for d, p in placed.items()}
+        self._graphs = CapturedCalls()
 
     @classmethod
     def from_checkpoint(cls, path: str, spec: CNN4Spec, **kwargs):
@@ -107,29 +144,41 @@ class VisionServer:
                              device="cpu")
         return cls(spec, load_params(path, template), **kwargs)
 
-    def _as_input(self, a, dtype=None) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device, dtype=dtype)
+    def _inputs(self, support_x, support_y, query_x) -> tuple:
+        def put(a, dtype=None):
+            return torch.as_tensor(a, device=self.device, dtype=dtype)
+        return (put(support_x, torch.float32), put(support_y).long(),
+                put(query_x, torch.float32))
 
     def __call__(self, support_x, support_y, query_x):
-        """Serve one request -> ``(predicted_labels [Q], probs [Q, ways])``."""
-        preds, probs = self.batch(*(self._as_input(a).unsqueeze(0)
-                                    for a in (support_x, support_y, query_x)))
+        """Serve one request -> ``(predicted_labels [Q], probs [Q, ways])``:
+        bucket 1, on the server's device (JAX's ``_one``)."""
+        one = [a.unsqueeze(0) for a in self._inputs(support_x, support_y,
+                                                    query_x)]
+        preds, probs = self._served(self.device, *one)
         return preds[0], probs[0]
+
+    _bucket = staticmethod(_next_bucket)
 
     def batch(self, support_x, support_y, query_x):
         """Serve B requests (leading axis) -> ``(preds [B, Q],
-        probs [B, Q, ways])``."""
-        sx = self._as_input(support_x, torch.float32)
-        qx = self._as_input(query_x, torch.float32)
-        sy = self._as_input(support_y).long()
+        probs [B, Q, ways])``, as the program of B's bucket."""
+        inputs = self._inputs(support_x, support_y, query_x)
+        B = inputs[0].shape[0]
+        bucket = self._bucket(B, self.mesh.size if self.mesh else 1)
+        inputs = _pad_leading(inputs, bucket - B)
         if self.mesh is None:
-            return self._serve(self.params, sx, sy, qx)
-        return _sharded(self.mesh, lambda d, *xs: self._serve(
-            self._mesh_params[d], *xs), sx.shape[0], sx, sy, qx)
+            return self._served(self.device, *inputs, rows=B)
+        return _sharded(self.mesh, self._served, bucket, *inputs, rows=B)
+
+    def _served(self, device, sx, sy, qx, rows=None):
+        """:meth:`_serve` of a bucket on ``device`` as its graph."""
+        params = self._served_params[device]
+        return self._graphs("serve", lambda *xs: self._serve(params, *xs),
+                            (sx, sy, qx), rows=rows)
 
     def _serve(self, p, sx, sy, qx):
         if self.compute_dtype is not None:
-            p = tree_map(lambda t: t.to(self.compute_dtype), p)
             sx, qx = sx.to(self.compute_dtype), qx.to(self.compute_dtype)
         B = sx.shape[0]
         spec = self.spec
@@ -174,7 +223,10 @@ class PolicyServer:
     ``sample`` the stochastic action (training-time behaviour), for a
     categorical policy ``(action, {"log_prob"})``. ``device`` defaults to
     the card; pass ``device="cpu"`` to serve on the CPU. ``mesh`` shards
-    the batched calls over its devices."""
+    the batched calls over its devices. Every call is bucketed and served
+    as a graph as the module's docstring says; the single-request calls
+    are bucket 1 on the server's device (JAX's ``_adapt``, ``_act`` and
+    ``_sample``)."""
 
     def __init__(self, policy, params, cfg: RLConfig, algo: str = "vpg",
                  mesh=None, device=None):
@@ -186,7 +238,8 @@ class PolicyServer:
         self.mesh = mesh
         self.device = (resolve_device(device) if mesh is None
                        else mesh.devices[0])
-        self.params, self._mesh_params = _placed(params, mesh, self.device)
+        self.params, self._params_on = _placed(params, mesh, self.device)
+        self._graphs = CapturedCalls()
 
     @classmethod
     def from_checkpoint(cls, path: str, policy, cfg: RLConfig, **kwargs):
@@ -199,26 +252,42 @@ class PolicyServer:
     def _as_input(self, x) -> torch.Tensor:
         return torch.as_tensor(x, device=self.device)
 
+    def _on_device(self, tree):
+        return tree_map(self._as_input, tree)
+
     @torch.no_grad()
     def adapt(self, support, steps: int | None = None):
         """-> params adapted on one support trajectory ``[T, E, ...]`` by
         ``steps`` inner steps (default ``cfg.adapt_steps``; 0 returns the
-        meta-params). Served as a batch of one request."""
+        meta-params). Served as bucket 1 on the server's device."""
         one = Trajectory(*(self._as_input(x).unsqueeze(0) for x in support))
-        return tree_map(lambda t: t[0], self.adapt_batched(one, steps))
+        steps = self.cfg.adapt_steps if steps is None else steps
+        return tree_map(lambda t: t[0], self._adapted(self.device, one,
+                                                      steps))
 
     @torch.no_grad()
     def adapt_batched(self, support_stack, steps: int | None = None):
         """Adapt to ``n`` tasks at once: ``support_stack`` has a leading
         task axis ``[n, T, E, ...]`` -> per-task params ``[n, ...]``, with
-        the same ``steps`` budget as :meth:`adapt`."""
+        the same ``steps`` budget as :meth:`adapt`. The stack is padded to
+        its bucket and the whole ``steps``-step inner loop is one graph
+        per (bucket, shapes, steps)."""
         support = Trajectory(*(self._as_input(x) for x in support_stack))
         steps = self.cfg.adapt_steps if steps is None else steps
+        n = support.reward.shape[0]
+        bucket = _next_bucket(n, self.mesh.size if self.mesh else 1)
+        support = _pad_leading(support, bucket - n)
         if self.mesh is None:
-            return self._adapt(self.params, support, steps)
-        return _sharded(self.mesh, lambda d, sup: self._adapt(
-            self._mesh_params[d], sup, steps), support.reward.shape[0],
-            support)
+            return self._adapted(self.device, support, steps, rows=n)
+        return _sharded(self.mesh, lambda d, sup: self._adapted(
+            d, sup, steps), bucket, support, rows=n)
+
+    def _adapted(self, device, support: Trajectory, steps: int, rows=None):
+        meta = self._params_on[device]
+        if not steps:
+            return per_task(meta, rows or support.reward.shape[0])
+        return self._graphs(("adapt", steps), lambda sup: self._adapt(
+            meta, sup, steps), (support,), rows=rows)
 
     def _adapt(self, meta_params, support: Trajectory, steps: int):
         params = per_task(meta_params, support.reward.shape[0])
@@ -241,27 +310,39 @@ class PolicyServer:
         return action, {"log_prob": dist.categorical_log_prob(dparams[0],
                                                               action)}
 
-    def _fleet_dist(self, params_stack, obs_stack) -> tuple:
-        """:meth:`_dist` of ``n`` tasks' params on their observations,
-        sharded over the mesh when there is one."""
-        obs_stack = self._as_input(obs_stack)
-        if self.mesh is None:
-            return self._dist(params_stack, obs_stack)
-        n = tree_leaves(params_stack)[0].shape[0]
-        return tuple(_sharded(self.mesh, lambda d, p, o: list(
-            self._dist(p, o)), n, params_stack, obs_stack))
+    def _act(self, params, obs):
+        return self._deterministic(self._dist(params, obs))
+
+    def _sample(self, gen: torch.Generator, params, obs):
+        return self._draw(gen, self._dist(params, obs))
+
+    def _bucketed(self, params_stack, obs_stack) -> tuple:
+        """``(n, bucket, (params, obs) on the device padded to the
+        bucket)`` of a fleet call (JAX's ``_fleet_call``)."""
+        stacks = (self._on_device(params_stack), self._as_input(obs_stack))
+        n = stacks[1].shape[0]
+        bucket = _next_bucket(n, self.mesh.size if self.mesh else 1)
+        return n, bucket, _pad_leading(stacks, bucket - n)
+
+    def _per_shard(self, key, fn, bucket: int, stacks, rows=None):
+        """``fn(params, obs)`` on each device's shard, as its graph."""
+        return _sharded(self.mesh, lambda d, p, o: self._graphs(
+            key, fn, (p, o)), bucket, *stacks, rows=rows)
 
     @torch.no_grad()
     def sample(self, params, gen: torch.Generator, obs):
         """Stochastic actions ``[E, act]`` for observations ``[E, obs]``
         (a categorical policy: ``(actions [E], {"log_prob"})``)."""
-        return self._draw(gen, self._dist(params, self._as_input(obs)))
+        return self._graphs("sample", self._sample, (self._on_device(params),
+                                                     self._as_input(obs)),
+                            generator=gen)
 
     @torch.no_grad()
     def act(self, params, obs) -> torch.Tensor:
         """Deterministic actions ``[E, act]``: the Gaussian mean, or the
         argmax of a categorical policy's logits ``[E]``."""
-        return self._deterministic(self._dist(params, self._as_input(obs)))
+        return self._graphs("act", self._act, (self._on_device(params),
+                                               self._as_input(obs)))
 
     @staticmethod
     def _deterministic(dparams) -> torch.Tensor:
@@ -270,13 +351,26 @@ class PolicyServer:
     @torch.no_grad()
     def act_batched(self, params_stack, obs_stack) -> torch.Tensor:
         """:meth:`act` for ``n`` tasks' adapted params ``[n, ...]`` on their
-        own observations ``[n, E, obs]`` -> ``[n, E, act]``, in one call."""
-        return self._deterministic(self._fleet_dist(params_stack, obs_stack))
+        own observations ``[n, E, obs]`` -> ``[n, E, act]``, in one call:
+        the graph of n's bucket."""
+        n, bucket, stacks = self._bucketed(params_stack, obs_stack)
+        if self.mesh is None:
+            return self._graphs("act", self._act, stacks, rows=n)
+        return self._per_shard("act", self._act, bucket, stacks, rows=n)
 
     @torch.no_grad()
     def sample_batched(self, params_stack, gen: torch.Generator, obs_stack):
         """Stochastic :meth:`act_batched`. One generator serves the fleet
-        (JAX takes a key per task): with a mesh the distributions are
-        computed on the shards and the draw is made for the whole fleet on
-        the first device, so it is the unsharded batch's."""
-        return self._draw(gen, self._fleet_dist(params_stack, obs_stack))
+        (JAX takes a key per task) and draws for the whole bucket; any
+        generator on the device replays the bucket's one graph. With a
+        mesh the distributions are computed on the shards and the draw is
+        made for the whole bucket on the first device, so it is the
+        unsharded batch's where the two buckets are equal."""
+        n, bucket, stacks = self._bucketed(params_stack, obs_stack)
+        if self.mesh is None:
+            return self._graphs("sample", self._sample, stacks, rows=n,
+                                generator=gen)
+        dparams = self._per_shard("dist", lambda p, o: list(
+            self._dist(p, o)), bucket, stacks)
+        return self._graphs("draw", lambda g, *d: self._draw(g, d),
+                            tuple(dparams), rows=n, generator=gen)

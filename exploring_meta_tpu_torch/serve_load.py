@@ -16,8 +16,11 @@ per-step action latency.
 
 Both run on the card unless ``EMT_FORCE_CPU=1`` asks for the CPU. A timed
 loop starts and ends with a device synchronize. Before the result lines
-each prints the kernel launches of one served batch (all zero on the
-CPU, where the kernels' plain twins run and count nothing). The
+each prints the kernel launches of its first served batch (all zero on the
+CPU, where the kernels' plain twins run and count nothing). The servers
+serve each bucket as a CUDA graph, captured at its first call: on the card
+each timed loop's result line follows one with the graph captures and
+replays since that first call (the CPU runs eagerly and prints none). The
 synthetic inputs come from ``torch.Generator``s seeded as the JAX scripts
 seed their keys: 0 for the init, 1 for the requests (and 2 for the
 Particles2D goals).
@@ -35,6 +38,7 @@ import torch
 
 from exploring_meta_tpu_torch.cuda import cnn4_cuda, gae_cuda
 from exploring_meta_tpu_torch.device import resolve_device
+from exploring_meta_tpu_torch.utils import graphs
 from exploring_meta_tpu_torch.utils.config import requested_device
 
 
@@ -56,6 +60,16 @@ def _one_batch_launches(counters, fn, device) -> tuple:
 def _print_launches(launches: dict) -> None:
     print("kernel launches in one batch: " + ", ".join(
         f"{k} {n}" for k, n in launches.items()), flush=True)
+
+
+def _graph_counts(device) -> dict:
+    """The graph captures and replays since the last
+    ``graphs.reset_counts()``, printed on the card."""
+    counts = dict(graphs.COUNTS)
+    if device.type == "cuda":
+        print(f"graphs since the first call: {counts['captures']} "
+              f"captures, {counts['replays']} replays", flush=True)
+    return counts
 
 
 def _timed(fn, reps: int, device) -> float:
@@ -136,10 +150,12 @@ def serve_vision(argv=None) -> dict:
     qx = torch.randn((B, args.queries, hw, hw, ch), generator=gen,
                      device=dev)
 
+    graphs.reset_counts()
     _, launches = _one_batch_launches(cnn4_cuda,
                                       lambda: server.batch(sx, sy, qx), dev)
     _print_launches(launches)
     dt = _timed(lambda: server.batch(sx, sy, qx), args.reps, dev)
+    counts = _graph_counts(dev)
     print(f"batch={B} {args.dataset} {args.ways}w{args.shots}s "
           f"{'anil' if args.anil else 'maml'} "
           f"{'f32' if args.f32 else 'bf16'}: "
@@ -147,7 +163,7 @@ def serve_vision(argv=None) -> dict:
           f"batch latency {dt * 1e3:.1f} ms "
           f"({dt * 1e3 / B:.3f} ms/request)", flush=True)
     return {"requests_per_s": B / dt, "batch_s": dt, "launches": launches,
-            "device": str(dev)}
+            "graphs": counts, "device": str(dev)}
 
 
 def serve_rl(argv=None) -> dict:
@@ -236,10 +252,12 @@ def serve_rl(argv=None) -> dict:
                  torch.Generator(device=dev).manual_seed(1))
 
     # Batched adaptation throughput: all tasks in one call.
+    graphs.reset_counts()
     adapted, launches = _one_batch_launches(
         gae_cuda, lambda: server.adapt_batched(stack), dev)
     _print_launches(launches)
     dt = _timed(lambda: server.adapt_batched(stack), args.reps, dev)
+    counts = {"adapt": _graph_counts(dev)}
     print(f"adapt[{args.algo}{'/anil' if args.anil else ''}] "
           f"{args.tasks} tasks x {args.adapt_steps} step(s): "
           f"{args.tasks / dt:.0f} tasks/sec ({dt * 1e3:.1f} ms/batch)",
@@ -248,9 +266,11 @@ def serve_rl(argv=None) -> dict:
     # Deployment action latency on the first task's adapted params.
     one = tree_map(lambda x: x[0], adapted)
     obs = torch.zeros((args.episodes, env.obs_size), device=dev)
+    graphs.reset_counts()
     server.act(one, obs)
     act_dt = _timed(lambda: server.act(one, obs), args.act_steps, dev)
+    counts["act"] = _graph_counts(dev)
     print(f"act: {act_dt * 1e6:.0f} us/step for {args.episodes} parallel "
           f"envs ({1.0 / act_dt:.0f} steps/sec)", flush=True)
     return {"tasks_per_s": args.tasks / dt, "adapt_s": dt, "act_s": act_dt,
-            "launches": launches, "device": str(dev)}
+            "launches": launches, "graphs": counts, "device": str(dev)}

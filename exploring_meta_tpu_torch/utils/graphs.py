@@ -22,13 +22,25 @@ CPU the same loop runs the iteration eagerly.
 
 A capture that fails (a host sync inside the iteration, say) raises; there
 is no eager fallback on the card.
+
+:class:`CapturedCalls` is the servers' counterpart of a jitted function,
+which XLA compiles once per input shape: one graph per key (a name, the
+device, each input's shape and dtype), captured at the key's first call
+and replayed at every later one.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
 from typing import Callable
 
 import torch
+
+from exploring_meta_tpu_torch.utils.tree import (
+    tree_leaves, tree_map, tree_unflatten,
+)
 
 # captures and replays since the last reset_counts(), over every loop
 COUNTS = {"captures": 0, "replays": 0}
@@ -37,6 +49,33 @@ COUNTS = {"captures": 0, "replays": 0}
 def reset_counts() -> None:
     for key in COUNTS:
         COUNTS[key] = 0
+
+
+def warm_up(device, fn: Callable):
+    """``fn()`` eagerly on a new side stream that waits for the current
+    one (a capture's warm-up: lazy initialisation and cuDNN's autotuning
+    happen here, not inside the capture) -> ``(the stream, fn's
+    result)``; the current stream then waits for the side stream."""
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(stream):
+        out = fn()
+    torch.cuda.current_stream(device).wait_stream(stream)
+    return stream, out
+
+
+def capture(fn: Callable, stream, generators=(), pool=None):
+    """``fn()`` captured on ``stream`` into a new ``CUDAGraph``, with
+    ``generators`` registered and the memory in ``pool`` -> ``(the graph,
+    fn's outputs, which each replay overwrites)``. Nothing runs and
+    nothing is drawn; a capture that fails raises."""
+    graph = torch.cuda.CUDAGraph()
+    for gen in generators:
+        graph.register_generator_state(gen)
+    with torch.cuda.graph(graph, pool=pool, stream=stream):
+        out = fn()
+    COUNTS["captures"] += 1
+    return graph, out
 
 
 def count_launch(wrapper) -> None:
@@ -84,20 +123,10 @@ class FusedIterations:
         self.row.add_(1)
 
     def _warm_up(self) -> None:
-        self.stream = torch.cuda.Stream(self.device)
-        self.stream.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(self.stream):
-            self.step()
-        torch.cuda.current_stream(self.device).wait_stream(self.stream)
+        self.stream, _ = warm_up(self.device, self.step)
 
     def _capture(self) -> None:
-        graph = torch.cuda.CUDAGraph()
-        for gen in self.generators:
-            graph.register_generator_state(gen)
-        with torch.cuda.graph(graph, stream=self.stream):
-            self.step()
-        self.graph = graph
-        COUNTS["captures"] += 1
+        self.graph, _ = capture(self.step, self.stream, self.generators)
 
     def __call__(self, n: int | None = None) -> dict:
         n = self.n_steps if n is None else n
@@ -117,6 +146,107 @@ class FusedIterations:
                 COUNTS["replays"] += 1
         rows = self.buffer[:n].clone()
         return {k: rows[:, i] for i, k in enumerate(self.keys)}
+
+
+def _rows(tree, rows: int | None, fresh: bool = False):
+    """Every leaf's first ``rows`` rows (all of them for None), cloned
+    when ``fresh``."""
+    return tree_map(lambda t: t[:rows].clone() if fresh else t[:rows], tree)
+
+
+_EAGER = [False]
+
+
+@contextlib.contextmanager
+def run_eagerly():
+    """Inside, every :class:`CapturedCalls` call runs its function eagerly
+    on the card, as on the CPU, capturing and counting nothing: the
+    computation a replay is held against."""
+    _EAGER.append(True)
+    try:
+        yield
+    finally:
+        _EAGER.pop()
+
+
+class CapturedCalls:
+    """``calls(key, fn, inputs, rows=None, generator=None)`` ->
+    ``fn(*inputs)`` (``fn(generator, *inputs)`` with a generator), every
+    output leaf cut to its first ``rows`` rows.
+
+    ``inputs`` is a tuple of trees of tensors on one device, and ``fn``
+    returns a tree of tensors computed from them (and from tensors that
+    never change, such as a server's params) and from the generator
+    alone. On the card a graph is kept per ``key`` (which names ``fn``),
+    device, and input shapes and dtypes. The first call at a key copies
+    the inputs into static buffers, runs ``fn`` on them eagerly on a side
+    stream, captures it right after into a graph, and returns the eager
+    result. Every later call copies the inputs into the static buffers,
+    replays the graph, and returns clones of the outputs (the next replay
+    overwrites them). A graph that draws is captured with a generator of
+    its own registered: each replay loads the caller's generator state
+    into it and writes the advanced state back, so any generator on the
+    device draws, in a replay, what the eager call would draw from it at
+    that point of its stream, with no capture of its own. All graphs of
+    one object share one memory pool: their outputs are read before the
+    next replay, so one graph's scratch may hold another's dead outputs.
+    Calls are serialised by a lock (copy-in, replay and clones, and a
+    first call's capture), and a call on another stream than the last
+    one waits for it, so threads may share one object. A capture that
+    fails raises; there is no eager fallback on the card. On the CPU, and
+    under :func:`run_eagerly`, ``fn`` runs eagerly and nothing is
+    counted."""
+
+    def __init__(self):
+        self.graphs: dict = {}
+        self.pool = None
+        self.lock = threading.Lock()
+        self.last_stream: dict = {}
+
+    def __call__(self, key, fn: Callable, inputs: tuple, rows=None,
+                 generator=None):
+        leaves = tree_leaves(inputs)
+        if not all(isinstance(t, torch.Tensor) for t in leaves):
+            raise TypeError("a captured call takes and returns tensors")
+        call = fn if generator is None else functools.partial(fn, generator)
+        device = leaves[0].device
+        if device.type != "cuda" or _EAGER[-1]:
+            return _rows(call(*inputs), rows)
+        full = (key, device, tuple((t.shape, t.dtype) for t in leaves))
+        with self.lock, torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device)
+            last = self.last_stream.get(device, stream)
+            if last != stream:
+                stream.wait_stream(last)
+            self.last_stream[device] = stream
+            entry = self.graphs.get(full)
+            if entry is None:
+                return self._first_call(full, fn, call, inputs, leaves,
+                                        rows, generator)
+            graph, static, out, own = entry
+            torch._foreach_copy_(static, leaves)
+            if own is not None:
+                own.set_state(generator.get_state())
+            graph.replay()
+            if own is not None:
+                generator.set_state(own.get_state())
+            COUNTS["replays"] += 1
+            return _rows(out, rows, fresh=True)
+
+    def _first_call(self, full, fn, call, inputs, leaves, rows, generator):
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        static = [t.clone(memory_format=torch.contiguous_format)
+                  for t in leaves]
+        tree = tree_unflatten(inputs, static)
+        device = leaves[0].device
+        own = None if generator is None else torch.Generator(device=device)
+        captured = fn if own is None else functools.partial(fn, own)
+        stream, eager = warm_up(device, lambda: call(*tree))
+        graph, out = capture(lambda: captured(*tree), stream,
+                             () if own is None else (own,), self.pool)
+        self.graphs[full] = (graph, static, out, own)
+        return _rows(eager, rows)
 
 
 def bind_once(make: Callable):

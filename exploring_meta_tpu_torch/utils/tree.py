@@ -8,7 +8,10 @@ from __future__ import annotations
 
 
 def tree_map(fn, tree, *rest):
-    """Apply ``fn`` leafwise over ``tree`` and same-structured ``rest``."""
+    """Apply ``fn`` leafwise over ``tree`` and same-structured ``rest``
+    (NamedTuples, a Trajectory, are rebuilt as themselves)."""
+    if hasattr(tree, "_fields"):
+        return type(tree)(*tree_map(fn, tuple(tree), *map(tuple, rest)))
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
                 for k in tree}

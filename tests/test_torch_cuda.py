@@ -786,3 +786,169 @@ def test_seeded_scan_one_capture_and_one_seeds_launches(cuda_device, algo):
         top = max(float(w.abs().max()) for w in want)
         assert max(float((g - w).abs().max())
                    for g, w in zip(got, want)) <= 1e-4 * top
+
+
+# -- serving as CUDA graphs, one a request bucket ---------------------------
+
+def _vision_requests(dev, b, hw=28, ch=1):
+    gen = torch.Generator(device=dev).manual_seed(b)
+    sx = torch.randn((b, 25, hw, hw, ch), generator=gen, device=dev)
+    sy = torch.arange(5, device=dev).repeat(b, 5)
+    qx = torch.randn((b, 15, hw, hw, ch), generator=gen, device=dev)
+    return sx, sy, qx
+
+
+def _equal(a, b) -> bool:
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves
+    return all(torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["f32", "bf16"])
+def test_vision_buckets_replay_their_eager_call(cuda_device, dtype):
+    """5 requests: bucket 8's first call runs the kernels eagerly and
+    records them; 7 and 5 again are replays of that graph, launching no
+    wrapper, the second 5 bit for bit the first."""
+    from exploring_meta_tpu_torch.utils import graphs
+    spec = omniglot_spec(ways=5)
+    params = init_cnn4(torch.Generator().manual_seed(0), spec,
+                       device=cuda_device)
+    server = VisionServer(spec, params, inner_lr=0.5, adapt_steps=1,
+                          compute_dtype=dtype)
+    sx, sy, qx = _vision_requests(cuda_device, 7)
+    graphs.reset_counts()
+    tc.reset_launch_counts()
+    first = server.batch(sx[:5], sy[:5], qx[:5])
+    torch.cuda.synchronize()
+    eager = {"cnn4_block_fwd": 8, "cnn4_block_bwd_params": 4,
+             "cnn4_block_bwd_input": 3}
+    assert tc.launch_counts() == tc.captured_counts() == eager
+    seven = server.batch(sx, sy, qx)
+    again = server.batch(sx[:5], sy[:5], qx[:5])
+    torch.cuda.synchronize()
+    assert graphs.COUNTS == {"captures": 1, "replays": 2}
+    assert tc.launch_counts() == eager
+    assert _equal(first, again)
+    assert seven[1].shape == (7, 15, 5) and first[1].dtype == torch.float32
+    one = server(sx[0], sy[0], qx[0])
+    assert _equal(server(sx[0], sy[0], qx[0]), one)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["vpg", "ppo", "trpo"])
+def test_policy_buckets_replay_their_eager_call(cuda_device, algo):
+    """Adaptation, act and the sampled fleet as graphs: each replay bit for
+    bit its eager first call, the sampled one from the same generator
+    state."""
+    from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
+    from exploring_meta_tpu_torch.serve import PolicyServer
+    from exploring_meta_tpu_torch.utils import graphs
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+    policy, params, stack = _policy_supports(5, cuda_device)
+    server = PolicyServer(policy, params,
+                          RLConfig(**chip_smoke.SERVE_RL_CFG), algo=algo)
+    graphs.reset_counts()
+    gc.reset_launch_counts()
+    first = server.adapt_batched(stack)
+    torch.cuda.synchronize()
+    assert gc.launch_counts() == gc.captured_counts() == {
+        "gae_sweep": 1, "discount_sweep": 1}
+    assert _equal(server.adapt_batched(stack), first)
+    assert graphs.COUNTS == {"captures": 1, "replays": 1}
+    assert gc.launch_counts() == {"gae_sweep": 1, "discount_sweep": 1}
+    obs = stack.state[:, 0]
+    one = tree_map(lambda t: t[0], first)
+    assert _equal(server.act(one, obs[0]), server.act(one, obs[0]))
+    assert _equal(server.act_batched(first, obs),
+                  server.act_batched(first, obs))
+    gen = torch.Generator(device=cuda_device)
+    draws = []
+    graphs.reset_counts()
+    for g in (gen, gen, torch.Generator(device=cuda_device)):
+        g.manual_seed(4)
+        draws.append((server.sample_batched(first, g, obs), g.get_state()))
+    # a new generator replays the one capture from its own state
+    assert graphs.COUNTS == {"captures": 1, "replays": 2}
+    for drawn, state in draws[1:]:
+        assert _equal(drawn, draws[0][0])
+        assert torch.equal(state, draws[0][1])
+
+
+@pytest.mark.cuda
+def test_categorical_fleet_samples_as_a_graph(cuda_device):
+    """A categorical policy's draw captures (no host sync): its replays
+    draw what the eager call drew, and what torch.multinomial draws from
+    the same generator state."""
+    from exploring_meta_tpu_torch.models.policies import CategoricalPolicy
+    from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
+    from exploring_meta_tpu_torch.serve import PolicyServer
+    from exploring_meta_tpu_torch.utils import graphs
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+    cat = CategoricalPolicy(10, 4, hiddens=(16,))
+    params = cat.init(torch.Generator().manual_seed(0), device="cpu")
+    server = PolicyServer(cat, params, RLConfig())
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    fleet = tree_map(lambda t: t.to(cuda_device) + 0.3 * torch.randn(
+        (5,) + tuple(t.shape), generator=g, device=cuda_device), params)
+    states = torch.randint(0, 10, (5, 7), generator=g, device=cuda_device)
+    graphs.reset_counts()
+    draws = []
+    for _ in range(2):
+        g.manual_seed(2)
+        draws.append(server.sample_batched(fleet, g, states))
+    assert graphs.COUNTS == {"captures": 1, "replays": 1}
+    assert _equal(draws[0], draws[1])
+    # the draw is made over the bucket of 8 (the first task repeated)
+    padded = tree_map(lambda t: torch.cat([t, t[:1].expand(
+        (3,) + tuple(t.shape[1:]))]), (fleet, states))
+    probs = torch.softmax(cat.logits(*padded).float(), -1)
+    g.manual_seed(2)
+    want = torch.multinomial(probs.reshape(-1, 4), 1, generator=g)
+    assert torch.equal(draws[1][0], want.reshape(8, 7)[:5])
+
+
+@pytest.mark.cuda
+def test_threads_share_a_server(cuda_device):
+    """Four threads serving act_batched at once each get their own
+    observations' actions."""
+    from concurrent.futures import ThreadPoolExecutor
+    from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig
+    from exploring_meta_tpu_torch.serve import PolicyServer
+    from exploring_meta_tpu_torch.utils.tree import tree_map
+    policy, params, stack = _policy_supports(5, cuda_device)
+    server = PolicyServer(policy, params, RLConfig())
+    fleet = tree_map(lambda t: t.to(cuda_device).expand(
+        (5,) + tuple(t.shape)), params)
+    sets = [stack.state[:, 0] + 0.01 * k for k in range(4)]
+    alone = [server.act_batched(fleet, o) for o in sets]
+
+    def serve(k):
+        return all(torch.equal(server.act_batched(fleet, sets[k]), alone[k])
+                   for _ in range(20))
+
+    with ThreadPoolExecutor(4) as pool:
+        assert all(pool.map(serve, range(4)))
+
+
+@pytest.mark.cuda
+def test_mini_imagenet_server_captures_on_cudnn(cuda_device):
+    """The max-pool CNN4 runs per op on cuDNN; its eager warm-up picks the
+    algorithms before the capture. cuDNN's backward algorithms are not
+    bitwise repeatable run to run, so the replay is held at 1e-4 of the
+    eager call's probabilities, as a request against its batch."""
+    from exploring_meta_tpu_torch.models.cnn4 import mini_imagenet_spec
+    from exploring_meta_tpu_torch.utils import graphs
+    spec = mini_imagenet_spec(5)
+    params = init_cnn4(torch.Generator().manual_seed(0), spec,
+                       device=cuda_device)
+    server = VisionServer(spec, params, inner_lr=0.5, adapt_steps=1)
+    sx, sy, qx = _vision_requests(cuda_device, 3, hw=84, ch=3)
+    graphs.reset_counts()
+    first = server.batch(sx, sy, qx)
+    again = server.batch(sx, sy, qx)
+    with graphs.run_eagerly():
+        eager = server.batch(sx, sy, qx)
+    assert graphs.COUNTS == {"captures": 1, "replays": 1}
+    for got in (again, eager):
+        assert float((got[1] - first[1]).abs().max()) <= 1e-4
