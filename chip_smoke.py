@@ -8,10 +8,19 @@ Phases, each of which fails the run (non-zero exit) on any error:
 1. print the card's name and power limit (``nvidia-smi``);
 2. build every CUDA source under ``exploring_meta_tpu_torch/csrc`` with
    ``nvcc``, one process per source, all started together, and print what
-   ``ptxas`` reports;
+   ``ptxas`` reports (no spills); count the ``HMMA`` instructions of each
+   kernel in the built CNN4 library (``cuobjdump -sass``): the four bf16
+   tensor-core instances hold them, every other kernel, the f32 ones
+   among them, none;
 3. serving (slice 1): at each of the four CNN4-Omniglot block shapes (B =
    64 requests, 25 support images each), in float32 and bfloat16, launch
-   every fused-block kernel, hold it against its plain PyTorch twin, and
+   every fused-block kernel, hold it against its plain PyTorch twin (in
+   bfloat16 also every output of the forward and of ``bwd_params`` but db
+   within one bf16 ulp plus f32 noise of the twin taken in float64 and
+   equal to it in all but 1e-3 of its elements, printed per output and
+   shape; the f32 dy at
+   float32's tolerance; and a dw from dy rounded to one bf16 shown to miss
+   that share), and
    time kernel, twin and a PyTorch library yardstick with CUDA events
    (for ``cnn4_block_bwd_params``, whose five outputs no one PyTorch call
    computes, the grouped ``conv2d_weight`` of its dw part only); hold
@@ -21,7 +30,7 @@ Phases, each of which fails the run (non-zero exit) on any error:
    three kernels in bfloat16 (the served default) at the served batch and
    at one request (B = 1, N = 25: CUDA events and back to back in a CUDA
    graph), each with its bound at bf16's bytes and peak, its twin and
-   cuDNN in bf16; then load
+   cuDNN in bf16, block 1 apart from blocks 2-4; then load
    full-width
    ``omniglot_spec(ways=5)`` params from ``.npz`` and serve 64
    synthetic-Omniglot requests through ``VisionServer.batch`` with the
@@ -261,6 +270,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import re
 import subprocess
@@ -369,7 +379,15 @@ RANGES = ("cnn4_block_fwd", "cnn4_block_bwd_params", "cnn4_block_bwd_input",
 CNN4_KERNEL_NAMES = ("fwd_conv_stats_kernel", "fwd_combine_kernel",
                      "fwd_norm_kernel", "bwd_input_kernel",
                      "bwd_tile_sums_kernel", "bwd_combine_kernel",
-                     "bwd_dw_kernel", "bwd_dw_reduce_kernel")
+                     "bwd_dw_kernel", "bwd_dw_reduce_kernel",
+                     "fwd_conv_stats_tc_kernel", "bwd_dy_split_kernel",
+                     "bwd_dw_tc_kernel")
+# the bf16 kernels on the tensor cores: their SASS holds HMMA, every other
+# kernel of csrc/cnn4_block.cu none (tensor_core_sass)
+TC_KERNEL_NAMES = ("fwd_conv_stats_tc_kernel", "bwd_dw_tc_kernel")
+# a kernel of each CNN4 wrapper on a bf16 path (the vision meta-training
+# cells compute in bf16)
+BF16_WRAPPER_KERNELS = TC_KERNEL_NAMES + ("bwd_input_kernel",)
 # Meta-RL serving (slice 7), bench.py's serve_rl (bench.py:625-683): 64
 # requests, each a support batch of 10 episodes x 50 steps on Particles2D,
 # one first-order inner step at inner_lr 0.05; the batch timed as the mean
@@ -588,27 +606,6 @@ def bound(kernel: str, b: int, n: int, h: int, ci: int, co: int,
     return 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / peak
 
 
-def block_inputs(torch, tc, gen, b, n, h, ci, dt):
-    """Random block inputs at one shape: x, w, b, scale, bias and a
-    cotangent g, zero where the ReLU input lies within 1e-3 of its kink:
-    there the kernel's and the twin's f32 rounding may disagree on the
-    mask, which is a tie, not an error."""
-    dev, co = torch.device("cuda"), HIDDEN
-    ho = (h - 1) // 2 + 1
-
-    def rnd(*shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device=dev) * scale
-
-    x = rnd(b, n, h, h, ci).to(dt)
-    w = rnd(b, 3, 3, ci, co, scale=(2.0 / (9 * ci)) ** 0.5).to(dt)
-    bb = rnd(b, co, scale=0.1).to(dt)
-    sc = (torch.rand(b, co, generator=gen, device=dev) * 0.9 + 0.1).to(dt)
-    be = rnd(b, co, scale=0.1).to(dt)
-    xh, _, s_, be_ = tc.bn_stats_plain(x, w, bb, sc, be)
-    g = (rnd(b, n, ho, ho, co) * ((xh * s_ + be_).abs() > 1e-3)).to(dt)
-    return x, w, bb, sc, be, g
-
-
 def held(torch, got, want, dname: str, what: str, db=None) -> float:
     """|got - want| <= TOL (or DB_TOL * db, for the conv-bias gradient)
     everywhere -> the largest |got - want|."""
@@ -624,8 +621,48 @@ def held(torch, got, want, dname: str, what: str, db=None) -> float:
     return float(d.max())
 
 
+def held_bf16(tc, got, want, what: str) -> dict:
+    """A bf16 output of the tensor-core kernels against its twin's taken in
+    float64: within one bf16 ulp plus f32 noise (cnn4_cuda.bf16_agreement)
+    and differing from it in at most cnn4_cuda.BF16_SHARE of its elements,
+    rounded up to a whole element (an output of 64 may hold one element
+    within f32 noise of a bf16 rounding boundary) -> {over, share}."""
+    over, share = tc.bf16_agreement(got, want)
+    n = want.numel()
+    check(over <= 1.0, f"{what}: |kernel - twin| {over} of one bf16 ulp "
+                       f"plus f32 noise")
+    check(tc.bf16_share_holds(share, n),
+          f"{what}: a share {share} of {n} elements differs from the "
+          f"twin's, limit {tc.BF16_SHARE}")
+    return {"over": over, "share": share, "n": n}
+
+
+def tensor_core_sass(build) -> dict:
+    """HMMA (or HGMMA) instructions per kernel in the built library of
+    csrc/cnn4_block.cu, by cuobjdump: the bf16 kernels of TC_KERNEL_NAMES
+    hold them, every other kernel (the f32 instances among them) none."""
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass",
+                          build.library_path("cnn4_block.cu")],
+                         capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in ln:   # HGMMA included
+            counts[fn] += 1
+    tc_fns = [f for f in counts if any(k in f for k in TC_KERNEL_NAMES)]
+    check(len(tc_fns) == 4, f"SASS: the four tensor-core kernel instances, "
+                            f"found {tc_fns}")
+    for f, n in counts.items():
+        check(n > 0 if f in tc_fns else n == 0, f"SASS: {f} holds {n} HMMA")
+    return counts
+
+
 def kernel_phase(tc, F, torch) -> dict:
     """Phase 3: every kernel vs its twin at every block shape and dtype."""
+    from exploring_meta_tpu_torch.utils.profiling import graph_ms_per_call
     res = {name: {"max_abs_err": {}, "ms": 0.0, "plain_ms": 0.0,
                   "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                   "bound_ms": 0.0, "shapes": []}
@@ -642,6 +679,11 @@ def kernel_phase(tc, F, torch) -> dict:
                       "library_ms": (None if name == "cnn4_block_bwd_params"
                                      else 0.0)}
         r["bf16_b1"]["graph_ms"] = 0.0
+        for key in ("bf16", "bf16_b1"):
+            r[key].update(ms_block1=0.0, ms_blocks2_4=0.0)
+        r["bf16_b1"].update(graph_ms_block1=0.0, graph_ms_blocks2_4=0.0)
+        r["bf16_agreement"] = []
+    res["cnn4_block_bwd_params"]["rounded_dy_share"] = []
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     B, N, co = BATCH, WAYS * SHOTS, HIDDEN
 
@@ -649,16 +691,55 @@ def kernel_phase(tc, F, torch) -> dict:
         prev = res[name]["max_abs_err"].get(dname, 0.0)
         res[name]["max_abs_err"][dname] = max(prev, e)
 
+    def agreement(name, output, got, want, what, checked=True):
+        """bf16: one output's ulp ratio and share against its float64 twin,
+        kept and printed per output and shape (held for the tensor-core
+        kernels)."""
+        a = (held_bf16(tc, got, want, f"{name} {output} {what}") if checked
+             else dict(zip(("over", "share"), tc.bf16_agreement(got, want)),
+                       n=want.numel()))
+        res[name]["bf16_agreement"].append(
+            {"shape": what, "output": output, **a})
+        print(f"  bf16 {name} {output} {what}: {a['share']} of {a['n']} "
+              f"differ from the twin, ulp ratio {a['over']}", flush=True)
+
+    def held_fwd(x, w, b, sc, be, dname, what):
+        got = tc.block_fwd(x, w, b, sc, be)
+        want = tc.block_fwd_plain(x, w, b, sc, be)
+        note("cnn4_block_fwd", dname, held(torch, got, want, dname, what))
+        if dname == "bfloat16":
+            agreement("cnn4_block_fwd", "out", got, tc.block_fwd_plain(
+                x, w, b, sc, be, acc=torch.float64), what)
+
+    def held_bwd_input(dy, w, h, dname, what):
+        got = tc.block_bwd_input(dy, w, h, h)
+        want = tc.block_bwd_input_plain(dy, w, h, h)
+        note("cnn4_block_bwd_input", dname,
+             held(torch, got, want, dname, what))
+        if dname == "bfloat16":   # CUDA cores in both dtypes: reported
+            agreement("cnn4_block_bwd_input", "dx", got, want, what,
+                      checked=False)
+
     def held_bwd_params(x, w, b, sc, be, g, dname, what):
         """bwd_params against its twin, and twice bitwise equal -> its
-        outputs."""
+        outputs. In bf16 the f32 dy is held at float32's tolerance and
+        dw, dscale and dbias by held_bf16; db = sum(dy), rounding noise
+        on both sides, by DB_TOL."""
         got = tc.block_bwd_params(x, w, b, sc, be, g)
         want = tc.block_bwd_params_plain(x, w, b, sc, be, g)
         dy_abs = want[0].abs().sum(dim=(1, 2, 3))
         note("cnn4_block_bwd_params", dname, max(
-            held(torch, got[i], want[i], dname, f"{what} output {i}",
+            held(torch, got[i], want[i], "float32" if i == 0 else dname,
+                 f"{what} output {i}",
                  db=dy_abs + 1e-30 if i == 2 else None)
             for i in range(5)))
+        if dname == "bfloat16":
+            ref = tc.block_bwd_params_plain(x, w, b, sc, be, g,
+                                            acc=torch.float64)
+            for i, output in ((1, "dw"), (3, "dscale"), (4, "dbias")):
+                agreement("cnn4_block_bwd_params", output, got[i], ref[i],
+                          what)
+            del ref
         again = tc.block_bwd_params(x, w, b, sc, be, g)
         check(all(torch.equal(p, q) for p, q in zip(got, again)),
               f"{dname} {what}: bwd_params bitwise equal in two calls")
@@ -731,7 +812,8 @@ def kernel_phase(tc, F, torch) -> dict:
             shape = timed(name, b, x.shape[1], blk, kern, plain, lib,
                           on_path, into)
             if b == 1:
-                shape["graph_ms"] = graph_ms_per_call(torch, kern)
+                shape["graph_ms"] = graph_ms_per_call(kern, GRAPH_CALLS,
+                                                      GRAPH_REPLAYS)
             if name == "cnn4_block_bwd_params":
                 shape["dw_library_ms"] = time_ms(
                     lambda: torch.nn.grad.conv2d_weight(
@@ -742,22 +824,30 @@ def kernel_phase(tc, F, torch) -> dict:
                           "bytes_ms", "ops_ms", "bound_ms"):
                     if into.get(k) is not None and k in shape:
                         into[k] += shape[k]
+                # block 1 (Ci = 1, staged element by element) apart
+                part = "block1" if blk == 0 else "blocks2_4"
+                into[f"ms_{part}"] += shape["ms"]
+                if "graph_ms" in shape:
+                    into[f"graph_ms_{part}"] += shape["graph_ms"]
 
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for blk, (h, ci) in enumerate(BLOCKS):
-            x, w, b, sc, be, g = block_inputs(torch, tc, gen, B, N, h, ci, dt)
+            x, w, b, sc, be, g = tc.block_inputs(gen, B, N, h, ci, HIDDEN, dt)
             what = f"block {blk + 1} N {N}"
-            note("cnn4_block_fwd", dname, held(
-                torch, tc.block_fwd(x, w, b, sc, be),
-                tc.block_fwd_plain(x, w, b, sc, be), dname, what))
+            held_fwd(x, w, b, sc, be, dname, what)
             dy = held_bwd_params(x, w, b, sc, be, g, dname, what)[0]
-            note("cnn4_block_bwd_input", dname, held(
-                torch, tc.block_bwd_input(dy, w, h, h),
-                tc.block_bwd_input_plain(dy, w, h, h), dname, what))
+            held_bwd_input(dy, w, h, dname, what)
             torch.cuda.synchronize()
 
             # Timing: kernel, twin, yardstick; bf16's rows apart.
             if dt != torch.float32:
+                # the check's power: a dw from dy rounded to one bf16
+                share = tc.rounded_dy_share(x, w, b, sc, be, g)
+                res["cnn4_block_bwd_params"]["rounded_dy_share"].append(
+                    share)
+                check(share > 10 * tc.BF16_SHARE,
+                      f"{what}: a dw from a bf16-rounded dy differs in a "
+                      f"share {share}, which the bf16 check would pass")
                 bf16_rows(B, blk, x, w, b, sc, be, g, dy, "bf16")
                 continue
             o = grouped(x, w, b, sc, be, dy)
@@ -800,19 +890,15 @@ def kernel_phase(tc, F, torch) -> dict:
         # every kernel at the other shapes its tiling must handle
         for b_, n_, blk in EXTRA_SHAPES:
             h, ci = BLOCKS[blk]
-            x, w, b, sc, be, g = block_inputs(torch, tc, gen, b_, n_, h, ci,
-                                              dt)
+            x, w, b, sc, be, g = tc.block_inputs(gen, b_, n_, h, ci,
+                                                 HIDDEN, dt)
             ho = (h - 1) // 2 + 1
             dy = torch.randn(b_, n_, ho, ho, co, generator=gen,
                              device="cuda")
             what = f"block {blk + 1} B {b_} N {n_}"
-            note("cnn4_block_fwd", dname, held(
-                torch, tc.block_fwd(x, w, b, sc, be),
-                tc.block_fwd_plain(x, w, b, sc, be), dname, what))
+            held_fwd(x, w, b, sc, be, dname, what)
             held_bwd_params(x, w, b, sc, be, g, dname, what)
-            note("cnn4_block_bwd_input", dname, held(
-                torch, tc.block_bwd_input(dy, w, h, h),
-                tc.block_bwd_input_plain(dy, w, h, h), dname, what))
+            held_bwd_input(dy, w, h, dname, what)
             torch.cuda.synchronize()
             if dt == torch.float32 and (b_, n_) == (BATCH, QUERIES):
                 shape = timed("cnn4_block_fwd", b_, n_, blk,
@@ -827,16 +913,12 @@ def kernel_phase(tc, F, torch) -> dict:
             # one request's support forward and inner step (B = 1, N = 25),
             # each kernel held against its twin, then timed
             for blk, (h, ci) in enumerate(BLOCKS):
-                x, w, b, sc, be, g = block_inputs(torch, tc, gen, 1, N, h,
-                                                  ci, dt)
+                x, w, b, sc, be, g = tc.block_inputs(gen, 1, N, h, ci,
+                                                     HIDDEN, dt)
                 what = f"block {blk + 1} B 1 N {N}"
-                note("cnn4_block_fwd", dname, held(
-                    torch, tc.block_fwd(x, w, b, sc, be),
-                    tc.block_fwd_plain(x, w, b, sc, be), dname, what))
+                held_fwd(x, w, b, sc, be, dname, what)
                 dy = held_bwd_params(x, w, b, sc, be, g, dname, what)[0]
-                note("cnn4_block_bwd_input", dname, held(
-                    torch, tc.block_bwd_input(dy, w, h, h),
-                    tc.block_bwd_input_plain(dy, w, h, h), dname, what))
+                held_bwd_input(dy, w, h, dname, what)
                 torch.cuda.synchronize()
                 bf16_rows(1, blk, x, w, b, sc, be, g, dy, "bf16_b1")
     for name, r in res.items():
@@ -854,8 +936,12 @@ def kernel_phase(tc, F, torch) -> dict:
         for key in ("bf16", "bf16_b1"):
             b = r[key]
             print(f"kernel {name} {key} (the path's blocks summed): ms "
-                  f"{b['ms']}" + (f" graph_ms {b['graph_ms']}"
-                                  if "graph_ms" in b else "")
+                  f"{b['ms']} (block 1 {b['ms_block1']}, blocks 2-4 "
+                  f"{b['ms_blocks2_4']})"
+                  + (f" graph_ms {b['graph_ms']} (block 1 "
+                     f"{b['graph_ms_block1']}, blocks 2-4 "
+                     f"{b['graph_ms_blocks2_4']})"
+                     if "graph_ms" in b else "")
                   + f" bound_ms {b['bound_ms']} (bytes {b['bytes_ms']}, "
                   f"operations {b['ops_ms']}) plain_ms {b['plain_ms']} "
                   f"library_ms {b['library_ms']}", flush=True)
@@ -2537,8 +2623,7 @@ def fused_phase(torch, gc, tc, gpu, tmp) -> dict:
             prof["wall_us"] = 1e6 * wall
             prof["idle_share"] = 1 - prof["busy_union_us"] / prof["wall_us"]
         # a kernel of each wrapper of the path ran inside the replays
-        for n in (names if kind == "rl" else (
-                "fwd_conv_stats_kernel", "bwd_dw_kernel", "bwd_input_kernel")):
+        for n in (names if kind == "rl" else BF16_WRAPPER_KERNELS):
             check(gprof["named_kernels"][n] > 0,
                   f"{name}: {n} ran inside the replays, "
                   f"{gprof['named_kernels']}")
@@ -2974,37 +3059,6 @@ def analysis_phase(torch, gc, tc, gpu, tmp) -> dict:
           f"{out['probes']['s']} s [{gpu}]", flush=True)
     return out
 
-def graph_ms_per_call(torch, fn, calls: int = GRAPH_CALLS,
-                      replays: int = GRAPH_REPLAYS) -> float:
-    """ms of one call of ``fn`` run back to back: ``calls`` calls captured
-    in one CUDA graph, its replays timed by CUDA events. A call of a few
-    microseconds launched from Python one at a time is timed by the host's
-    dispatch (``time_ms``); a replay launches the same kernels with no
-    host between them, so this is their device time and the gaps between
-    kernels on the device. (The profiler's per-kernel records are not
-    used: after the earlier phases' sessions CUPTI has been seen to
-    deliver a session's records into the next one.)"""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (replays * calls)
-
-
 def single_task_kernels(tc, F, torch, gpu) -> dict:
     """Phase 11, rows 1-2 of the TPU-kernel table: the single-task forms
     (B = 1) at the vision baseline's N = SINGLE_N images, at each of the
@@ -3012,14 +3066,15 @@ def single_task_kernels(tc, F, torch, gpu) -> dict:
     f32 its bound, its CUDA-event time, its time back to back in a CUDA
     graph (the device's), its twin's time and phase 3's library
     yardstick."""
+    from exploring_meta_tpu_torch.utils.profiling import graph_ms_per_call
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     co, out = HIDDEN, {name: [] for name in tc.KERNELS}
     err = {name: {} for name in tc.KERNELS}
     for dname, dt in (("float32", torch.float32),
                       ("bfloat16", torch.bfloat16)):
         for blk, (h, ci) in enumerate(BLOCKS):
-            x, w, b, sc, be, g = block_inputs(torch, tc, gen, 1, SINGLE_N, h,
-                                              ci, dt)
+            x, w, b, sc, be, g = tc.block_inputs(gen, 1, SINGLE_N,
+                                                 h, ci, HIDDEN, dt)
             what = f"block {blk + 1} B 1 N {SINGLE_N}"
             got = tc.block_bwd_params(x, w, b, sc, be, g)
             want = tc.block_bwd_params_plain(x, w, b, sc, be, g)
@@ -3066,7 +3121,8 @@ def single_task_kernels(tc, F, torch, gpu) -> dict:
                        "on_path": not (name == "cnn4_block_bwd_input"
                                        and blk == 0),
                        "ms": time_ms(kern),
-                       "graph_ms": graph_ms_per_call(torch, kern),
+                       "graph_ms": graph_ms_per_call(kern, GRAPH_CALLS,
+                                                     GRAPH_REPLAYS),
                        "plain_ms": time_ms(plain),
                        "library_ms": time_ms(lib) if lib else None,
                        "bytes_ms": bms, "ops_ms": oms,
@@ -3784,7 +3840,7 @@ def profile_phase(torch, gc, tc, gpu, tmp) -> dict:
     with open(os.path.join(trace_dir, files[0])) as f:
         text = f.read()
     names = {k: text.count(k) for k in ("cnn4_block_fwd",
-                                        "fwd_conv_stats_kernel")}
+                                        "fwd_conv_stats_tc_kernel")}
     check(names["cnn4_block_fwd"] > 0,
           f"the trace names cnn4_block_fwd: {names}")
     s_iter = {name: s_per_row(r) for name, r in runs.items()}
@@ -4318,7 +4374,8 @@ def seeded_cnn4_kernels(tc, F, torch, gpu, b: int) -> dict:
     out["cnn4_block_bwd_params"]["library_ms"] = None
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for blk, (h, ci) in enumerate(BLOCKS):
-            x, w, bb, sc, be, g = block_inputs(torch, tc, gen, b, n, h, ci, dt)
+            x, w, bb, sc, be, g = tc.block_inputs(gen, b, n, h, ci,
+                                                  HIDDEN, dt)
             what = f"B {b} block {blk + 1}"
             r = out["cnn4_block_fwd"]
             r["max_abs_err"] = max(r["max_abs_err"], held(
@@ -4525,7 +4582,7 @@ def multiseed_vision_case(torch, tc, F, gc, gpu, tmp, S: int) -> dict:
                      S * MULTISEED_FUSE * cfg.meta_batch_size)
     prof = seeded_profile(torch, seeded, CNN4_KERNEL_NAMES,
                           rates["one_program_chunk_s"])
-    for n in ("fwd_conv_stats_kernel", "bwd_dw_kernel", "bwd_input_kernel"):
+    for n in BF16_WRAPPER_KERNELS:
         check(prof["named_kernels"][n] > 0,
               f"{name}: {n} ran inside the seeded replays")
     print(f"{name} (--vmap_seeds, S = {S}, meta-batch {cfg.meta_batch_size}"
@@ -6157,6 +6214,7 @@ def captured_serving_phase(torch, np, tc, gc, gpu) -> dict:
 
 
 def main() -> int:
+    start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6188,6 +6246,8 @@ def main() -> int:
             check(not spill or spill.groups() == ("0", "0"),
                   f"no register spills in {src}: {ln}")
 
+    sass = tensor_core_sass(build)
+    print(f"SASS HMMA per kernel of cnn4_block.cu: {sass}", flush=True)
     res = kernel_phase(tc, F, torch)
     for name, r in res.items():
         print(f"kernel {name}: max_abs_err {r['max_abs_err']} ms {r['ms']} "
@@ -6230,9 +6290,14 @@ def main() -> int:
         slice14 = scale_out_phase(torch, np, gc, tc, gpu, tmp)
     slice15 = parity_phase(torch, tc, gc, gpu)
 
+    wall_s = time.perf_counter() - start
+    print(f"chip_smoke.py: {wall_s} s from its start to its last phase's "
+          f"end, the build included [{gpu}]", flush=True)
     os.makedirs(os.path.join(repo, "chiprun_out"), exist_ok=True)
     with open(os.path.join(repo, "chiprun_out", "chip_smoke.json"), "w") as f:
-        json.dump({"gpu": gpu, "build_s": build_s, "ptxas": ptxas,
+        json.dump({"gpu": gpu, "wall_s": wall_s, "build_s": build_s,
+                   "ptxas": ptxas,
+                   "sass_hmma": sass,
                    "kernels": {**res, **sweeps}, "serve": served,
                    "trpo": trpo, "outer_step": outer, "trpo_profile": prof,
                    "vision_second_order": second_order,
@@ -6303,7 +6368,10 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
-            "library_ms": r["library_ms"]})
+            "library_ms": r["library_ms"],
+            **({f"bf16_{k}": r["bf16"][k]
+                for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
+               if "bf16" in r else {})})
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

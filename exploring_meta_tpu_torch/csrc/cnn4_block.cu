@@ -43,8 +43,9 @@
 //   itself, which is the padding. Each of 256 threads keeps a 4 x 4 tile of
 //   f32 accumulators in registers and reads its operands as float4: 16
 //   FMAs for every 2 shared loads, and 16 independent chains per thread.
-// - bf16 loads are converted to f32 in registers on their way to shared
-//   memory (cp.async cannot convert); the math is the same f32 FMAs.
+// - In bf16, cnn4_block_bwd_input converts its loads to f32 in registers
+//   on their way to shared memory (cp.async cannot convert); the math is
+//   the same f32 FMAs. (bf16's forward conv takes the tensor cores, below.)
 // - Outputs go through a shared-memory tile, so each thread stores 4
 //   contiguous channels of one position (16 bytes in f32).
 // - Shapes the 16-byte path does not fit (Ci or Co not a multiple of the
@@ -119,9 +120,53 @@
 // card about 528 CTAs, two waves at two CTAs an SM (block 1: 64 tiles of
 // dw in a batch, so 9 chunks; blocks 2-4: 576 tiles, one chunk).
 //
+// bf16: the conv of cnn4_block_fwd and of cnn4_block_bwd_params, and the
+// dw GEMM, on the tensor cores (mma.sync m16n8k16, bf16 in, f32 out).
+//
+// What bounds them. With the products on the tensor cores (989 TFLOP/s
+// dense bf16 on an H100 SXM at 700 W) the forward's four served shapes
+// take ~9 us of operations against a 37 us bytes bound, and bwd_params
+// ~0.02 ms against 0.07: bytes set the floor. What held the bf16 kernels
+// at 0.55 and 1.46 ms (B = 64, N = 25) was the f32 FMA design above. What
+// holds them now: the f32 y scratch (block 1: 80 MB written, read back by
+// kernel B, the tile sums and the dy pass) and the L2 traffic of 64 x 64
+// tiles (the dw GEMM's nine row tiles each read all of dy's terms).
+//
+// Precision. The reference upcasts bf16 inputs and contracts at HIGHEST in
+// f32. A product of two bf16 is exact in f32, so the conv's MMAs (bf16 x
+// and w) take the same products as f32 FMAs. dw's other operand, dy, is
+// f32: it goes in as three bf16 terms, hi + mid + lo == dy (split3), three
+// MMAs a k-step whose products are exact. The tensor cores round a running
+// sum toward zero inside each MMA: left to accumulate a whole reduction,
+// that moved 0.13-0.24 % of the bf16 dw elements off the twin's (PERF.md),
+// so each stage's MMAs sum from zero and the stage's sum is added to the
+// accumulator in f32.
+//
+// What the design does about it:
+// - conv_tile_tc: a CTA owns 64 positions x 64 channels, 8 warps of 16 x
+//   32, fed by ldmatrix (.trans for w's [k][n] rows). A stage is 32
+//   channels of one tap: the gathered NHWC rows of A and the HWIO rows of B
+//   go to shared memory as bf16 by 16-byte cp.async, zero-filled outside
+//   the image (the padding), on a ring of 4 stages; rows padded to 80 and
+//   144 bytes keep ldmatrix free of bank conflicts. Block 1 (Ci = 1, K = 9)
+//   stages element by element into one k-step of 16. Kernel A
+//   (fwd_conv_stats_tc_kernel) writes y and the tile statistics as the f32
+//   kernel does (tile_y_stats); C and B are shared. A kernel B that
+//   recomputed its tile from x instead of reading y measured no faster at
+//   block 1 and slower at blocks 2-4 (PERF.md), so y stays.
+// - cnn4_block_bwd_params: A and C as the forward, the tile sums and their
+//   combine as in f32; then bwd_dy_split_kernel forms dy once per element
+//   (the f32 output) and writes its three terms to the workspace, and
+//   bwd_dw_tc_kernel (4 warps of 32 x 32, 32 positions a stage, a 4-stage
+//   cp.async ring in 72 KB of dynamic shared memory) reads x as A with
+//   ldmatrix.trans and the terms as B. Against dy formed in registers by
+//   all nine row tiles, one stage ahead, that took bwd_params at block 2
+//   from 0.40 to 0.23 ms (PERF.md). db is summed from the terms by the CTAs
+//   of row tile 0; chunks and their reduce as in f32.
+//
 // Every sum has a fixed order (k or m ascending within a thread, the row
-// groups, tiles and chunks in order) and no result is summed with atomics,
-// so results are deterministic.
+// groups, stages, tiles and chunks in order) and no result is summed with
+// atomics, so results are deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -129,6 +174,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <atomic>
 #include <type_traits>
 
 namespace {
@@ -325,9 +371,10 @@ __device__ __forceinline__ void k_loop(int nk, float* ring, Stage stage,
 // w[k][co0+4tx+c] over K = 9 Ci, k = tap*Ci + ci, where A[m][k] =
 // x[n, 2i+ty-1, 2j+tx-1, ci] for m = (n, i, j), zero outside the image.
 // kVec: a stage is 16 channels of one tap, copied 16 bytes at a time.
-template <typename T, bool kVec>
-__device__ __forceinline__ void conv_tile(const T* __restrict__ x,
-                                          const T* __restrict__ w,
+// f32 only: bf16 takes conv_tile_tc.
+template <bool kVec>
+__device__ __forceinline__ void conv_tile(const float* __restrict__ x,
+                                          const float* __restrict__ w,
                                           const Shape& s, int m0, int co0,
                                           float* ring, float (&acc)[4][4]) {
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
@@ -343,7 +390,7 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x,
     const int m = m0 + row;
     const bool in = m < s.M;
     const int j = m % s.Wo, i = (m / s.Wo) % s.Ho, n = m / (s.Wo * s.Ho);
-    const T* xn = x + (in ? (size_t)n * s.H * s.W * s.Ci : 0);
+    const float* xn = x + (in ? (size_t)n * s.H * s.W * s.Ci : 0);
     const bool bin = co0 + bc < s.Co;
     k_loop(K / kTileK, ring, [&](int c, float* buf) {
       const int k0 = c * kTileK, tap = k0 / s.Ci, ci0 = k0 - tap * s.Ci;
@@ -378,38 +425,17 @@ __device__ __forceinline__ void conv_tile(const T* __restrict__ x,
   }
 }
 
-// Kernel A of the forward. grid (tiles, ceil(Co/64), B). The conv plus
-// bias of one tile -> yout[b][m][co] (f32); per channel its mean and
-// centred sum of squares over the tile's rows -> tstats[b][tile][co] =
-// (mean_t, M2_t).
-template <typename T, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-fwd_conv_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                      const T* __restrict__ b, float* __restrict__ yout,
-                      float2* __restrict__ tstats, Shape s) {
-  __shared__ __align__(16) float ring[kRing];
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int tile = blockIdx.x, co0 = blockIdx.y * kTileN, t = blockIdx.z;
-  const int m0 = tile * kTileM, rows = min(kTileM, s.M - m0);
-  x += (size_t)t * s.N * s.H * s.W * s.Ci;
-  w += (size_t)t * 9 * s.Ci * s.Co;
-  b += (size_t)t * s.Co;
-  float acc[4][4];
-  conv_tile<T, kVec>(x, w, s, m0, co0, ring, acc);
-
-  float* C = ring;  // [kTileM][kLdC]: y of the tile
-  float bias[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const int co = co0 + 4 * tx + c;
-    bias[c] = co < s.Co ? ld(b + co) : 0.f;
-  }
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-    st4(C + (4 * ty + r) * kLdC + 4 * tx,
-        make_float4(acc[r][0] + bias[0], acc[r][1] + bias[1],
-                    acc[r][2] + bias[2], acc[r][3] + bias[3]));
-  __syncthreads();
+// The epilogue of kernel A: C [kTileM][kLdC] holds the tile's y (conv +
+// bias, f32). Its rows go to yout[b][m][co]; per channel its mean and
+// centred sum of squares over the tile's rows ->
+// tstats[b][tile][co] = (mean_t, M2_t): 4 groups of 16 rows each, then the
+// groups in order; the mean first, then the centred squares. The caller
+// has synced after writing C.
+__device__ __forceinline__ void tile_y_stats(float* C, float* yout,
+                                             float2* __restrict__ tstats,
+                                             const Shape& s, int t, int tile,
+                                             int co0, int rows) {
+  const int tid = threadIdx.x, m0 = tile * kTileM;
   yout += (size_t)t * s.M * s.Co;
   const bool vec = (s.Co & 3) == 0;
   for (int e = tid; e < kTileM * kTileN / 4; e += kThreads) {
@@ -419,9 +445,6 @@ fwd_conv_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  *reinterpret_cast<const float4*>(C + row * kLdC + col),
                  s.Co - co0 - col, vec);
   }
-
-  // The tile's statistics per channel: 4 groups of 16 rows each, then the
-  // groups in order; the mean first, then the centred squares.
   float* red = C + kTileM * kLdC;  // [4][kTileN]
   float* mean = red + 4 * kTileN;  // [kTileN]
   const int col = tid & (kTileN - 1), part = tid / kTileN;
@@ -446,6 +469,40 @@ fwd_conv_stats_kernel(const T* __restrict__ x, const T* __restrict__ w,
     tstats[((size_t)t * gridDim.x + tile) * s.Co + co0 + col] =
         make_float2(mu, red[col] + red[kTileN + col] + red[2 * kTileN + col] +
                             red[3 * kTileN + col]);
+}
+
+// Kernel A of the forward in f32 (bf16: fwd_conv_stats_tc_kernel). grid
+// (tiles, ceil(Co/64), B). The conv plus bias of one tile -> yout[b][m][co]
+// (f32) and the tile's statistics (tile_y_stats).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+fwd_conv_stats_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                      const float* __restrict__ b, float* __restrict__ yout,
+                      float2* __restrict__ tstats, Shape s) {
+  __shared__ __align__(16) float ring[kRing];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tile = blockIdx.x, co0 = blockIdx.y * kTileN, t = blockIdx.z;
+  const int m0 = tile * kTileM, rows = min(kTileM, s.M - m0);
+  x += (size_t)t * s.N * s.H * s.W * s.Ci;
+  w += (size_t)t * 9 * s.Ci * s.Co;
+  b += (size_t)t * s.Co;
+  float acc[4][4];
+  conv_tile<kVec>(x, w, s, m0, co0, ring, acc);
+
+  float* C = ring;  // [kTileM][kLdC]: y of the tile
+  float bias[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int co = co0 + 4 * tx + c;
+    bias[c] = co < s.Co ? ld(b + co) : 0.f;
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    st4(C + (4 * ty + r) * kLdC + 4 * tx,
+        make_float4(acc[r][0] + bias[0], acc[r][1] + bias[1],
+                    acc[r][2] + bias[2], acc[r][3] + bias[3]));
+  __syncthreads();
+  tile_y_stats(C, yout, tstats, s, t, tile, co0, rows);
 }
 
 // grid (ceil(Co/64), B), one thread per (task, channel): Chan's combine of
@@ -731,7 +788,8 @@ bwd_combine_kernel(const float2* __restrict__ tsums, const T* __restrict__ sc,
   consts[pc] = make_float2(scale * db / s.M, scale * ds / s.M);
 }
 
-// Step 4. grid (chunks, dw row tiles x column tiles, B). dw[k][co] = sum
+// Step 4 in f32 (bf16: bwd_dy_split_kernel and bwd_dw_tc_kernel). grid
+// (chunks, dw row tiles x column tiles, B). dw[k][co] = sum
 // over the chunk's positions m of x_tap(m, ci) * dy(m, co), k = tap * Ci
 // + ci, for the CTA's 64 x 64 tile of dw. A stage is 16 positions: the x
 // slice [m][k] gathered as conv_tile gathers it (kVec: Ci % 4 == 0, each
@@ -740,16 +798,15 @@ bwd_combine_kernel(const float2* __restrict__ tsums, const T* __restrict__ sc,
 // skip the FMAs: block 1 has 9 rows), the dy slice [m][co] formed in
 // registers from y and g. The CTAs of dw row tile 0 also
 // store dy and sum the chunk's db. With one chunk (gridDim.x == 1) the CTA
-// stores dw and db in T; else the f32 partial part[b][chunk] = (dw [K][Co],
-// db [Co]). At least two CTAs an SM: left to itself, ptxas holds the bf16
-// kVec form to 80 registers (three CTAs) and spills two values.
-template <typename T, bool kVec>
+// stores dw and db; else the f32 partial part[b][chunk] = (dw [K][Co],
+// db [Co]). At least two CTAs an SM, as dw_chunk's grid of kDwCtas assumes.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 2)
-bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ sc,
-              const T* __restrict__ be, const T* __restrict__ g,
+bwd_dw_kernel(const float* __restrict__ x, const float* __restrict__ sc,
+              const float* __restrict__ be, const float* __restrict__ g,
               const float* __restrict__ y, const float2* __restrict__ stats,
               const float2* __restrict__ consts, float* __restrict__ dy,
-              T* __restrict__ dw, T* __restrict__ db,
+              float* __restrict__ dw, float* __restrict__ db,
               float* __restrict__ part, int chunk, bool vec, Shape s) {
   __shared__ __align__(16) float ring[kRing];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, col = 4 * tx;
@@ -878,7 +935,7 @@ bwd_dw_kernel(const T* __restrict__ x, const T* __restrict__ sc,
 
   // dw rows k0 + 4ty + r, channels co0 + col .. + 3
   const bool vw = (s.Co & 3) == 0;
-  T* dwt = dw + (size_t)t * K * s.Co;
+  float* dwt = dw + (size_t)t * K * s.Co;
   float* pt = part + ((size_t)t * nchunks + ch) * ((size_t)K * s.Co + s.Co);
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -927,6 +984,558 @@ bwd_dw_reduce_kernel(const float* __restrict__ part, T* __restrict__ dw,
     st(db + t * s.Co + (i - kco), a);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: the conv tile of the forward (kernel A)
+// and the dw GEMM of cnn4_block_bwd_params
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcK = 32;       // reduction depth of one conv stage (2 MMA k-steps)
+constexpr int kTcStages = 4;   // the conv's cp.async ring
+constexpr int kLdA = kTcK + 8;     // bf16 row stride of A [m][k]: 80 B
+constexpr int kLdB = kTileN + 8;   // bf16 row stride of a [k][n] slice: 144 B
+// (both strides put the 8 rows an ldmatrix phase reads in 8 distinct
+// 16-byte bank groups)
+constexpr int kTcSliceA = kTileM * kLdA;           // bf16 elements
+constexpr int kTcStage = kTcSliceA + kTcK * kLdB;  // + B [k][n]
+constexpr int kTcRing = kTcStages * kTcStage;      // 38,912 bytes
+static_assert(kTileM * kLdC * 4 + 5 * kTileN * 4 <= kTcRing * 2,
+              "the epilogue's tile and reductions fit the conv ring");
+static_assert(kThreads == 8 * kTcK && kThreads == 4 * kTileM,
+              "one 16-byte piece of each conv slice per thread");
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Four 8x8 b16 matrices from shared memory: lane l gives the address of row
+// l % 8 of matrix l / 8; register j of lane l holds row l / 4, columns
+// 2 (l % 4) .. + 1 of matrix j (.trans: column l / 4, rows 2 (l % 4) .. + 1).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p))
+      : "memory");
+}
+
+// d += a b: a 16 x 16 bf16 (row), b 16 x 8 bf16 (col), d 16 x 8 f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The warp layout of a 64 x 64 tile: warp w owns rows 16 (w % 4) .. + 15
+// and columns 32 (w / 4) .. + 31, four 16 x 8 MMA tiles; lane l holds
+// acc[j][0..1] at row r0, columns c0 + 8 j .. + 1 and acc[j][2..3] at row
+// r0 + 8 (tc_rc).
+__device__ __forceinline__ void tc_rc(int& r0, int& c0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  r0 = 16 * (warp & 3) + (lane >> 2);
+  c0 = 32 * (warp >> 2) + 2 * (lane & 3);
+}
+
+// B fragments of n-tiles 2h and 2h + 1 of a warp whose columns start at
+// n0, from a [k][n] slice (row stride kLdB) at reduction rows k0 .. + 15.
+__device__ __forceinline__ void ldsm_b(unsigned (&b)[4], const bf16* Bk,
+                                       int k0, int n0, int h) {
+  const int lane = threadIdx.x & 31, j = lane >> 3, r = lane & 7;
+  ldsm_x4_t(b, Bk + (k0 + r + 8 * (j & 1)) * kLdB + n0 + 16 * h +
+                   8 * (j >> 1));
+}
+
+// One stage of the conv tile: A [m][k] (kLdA) x B [k][n] (kLdB) over its
+// first `ksteps` k-steps of 16. The stage's products are summed from zero
+// on the tensor cores and added to acc in f32, so the tensor cores' own
+// rounding of a running sum acts on one stage's sum, never on the total.
+__device__ __forceinline__ void tc_stage_nn(const bf16* A, const bf16* Bk,
+                                            float (&acc)[4][4], int ksteps) {
+  const int lane = threadIdx.x & 31, j = lane >> 3, r = lane & 7;
+  const int wm = (threadIdx.x >> 5) & 3;
+  float part[4][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < kTcK / 16; ++ks) {
+    if (ks >= ksteps) break;
+    unsigned a[4];
+    ldsm_x4(a, A + (16 * wm + r + 8 * (j & 1)) * kLdA + 16 * ks + 8 * (j >> 1));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      unsigned b[4];
+      ldsm_b(b, Bk, 16 * ks, 32 * (threadIdx.x >> 7), h);
+      mma_bf16(part[2 * h], a, b[0], b[1]);
+      mma_bf16(part[2 * h + 1], a, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] += part[n][i];
+}
+
+// The bf16 conv of one forward tile on the tensor cores: acc (tc_rc's
+// layout) = sum_k A[m][k] w[k][co] as conv_tile, in stages of kTcK on a
+// ring of kTcStages. kVec (Ci % kTcK == 0, Co % 8 == 0, x and w 16-byte
+// aligned): a stage is 32 channels of one tap, each thread copies one
+// 16-byte piece of A and one of B. Else element by element, with zeros
+// past K (block 1: K = 9, one k-step of 16).
+template <bool kVec>
+__device__ __forceinline__ void conv_tile_tc(const bf16* __restrict__ x,
+                                             const bf16* __restrict__ w,
+                                             const Shape& s, int m0, int co0,
+                                             bf16* ring, float (&acc)[4][4]) {
+  const int tid = threadIdx.x;
+  const int K = 9 * s.Ci, nk = cdiv(K, kTcK);
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[n][i] = 0.f;
+  const bf16 zero = __ushort_as_bfloat16(0);
+  // A piece: position m0 + row, channels 8 q .. + 7 of the stage; B piece:
+  // reduction row bk, channels co0 + bc .. + 7
+  const int row = tid >> 2, q = tid & 3, bk = tid >> 3, bc = 8 * (tid & 7);
+  const int m = m0 + row;
+  const bool in = m < s.M;
+  const int j = m % s.Wo, i = (m / s.Wo) % s.Ho, n = m / (s.Wo * s.Ho);
+  const bf16* xn = x + (in ? (size_t)n * s.H * s.W * s.Ci : 0);
+  const bool bin = co0 + bc < s.Co;
+  auto stage = [&](int c, bf16* buf) {
+    const int k0 = c * kTcK;
+    if constexpr (kVec) {
+      const int tap = k0 / s.Ci, ci0 = k0 - tap * s.Ci;
+      const int hi = 2 * i + tap / 3 - 1, wi = 2 * j + tap % 3 - 1;
+      const bool ok = in && hi >= 0 && hi < s.H && wi >= 0 && wi < s.W;
+      __pipeline_memcpy_async(
+          buf + row * kLdA + 8 * q,
+          ok ? xn + ((size_t)hi * s.W + wi) * s.Ci + ci0 + 8 * q : x, 16,
+          ok ? 0 : 16);
+      __pipeline_memcpy_async(
+          buf + kTcSliceA + bk * kLdB + bc,
+          bin ? w + (size_t)(k0 + bk) * s.Co + co0 + bc : w, 16,
+          bin ? 0 : 16);
+    } else {
+      // the columns the MMA reads (the stage's k-steps of 16), zeros past
+      // K; thread (row, q) takes k = q, q + 4, .. of its own position
+      const int kend = min(kTcK, 16 * cdiv(K - k0, 16));
+#pragma unroll 1
+      for (int kk = q; kk < kend; kk += 4) {
+        const int k = k0 + kk;
+        bf16 v = zero;
+        if (in && k < K) {
+          const int tap = k / s.Ci, ci = k - tap * s.Ci;
+          const int hi = 2 * i + tap / 3 - 1, wi = 2 * j + tap % 3 - 1;
+          if (hi >= 0 && hi < s.H && wi >= 0 && wi < s.W)
+            v = xn[((size_t)hi * s.W + wi) * s.Ci + ci];
+        }
+        buf[row * kLdA + kk] = v;
+      }
+      for (int e = tid; e < kend * kTileN; e += kThreads) {
+        const int k = k0 + e / kTileN, co = co0 + e % kTileN;
+        buf[kTcSliceA + (e / kTileN) * kLdB + e % kTileN] =
+            (k < K && co < s.Co) ? w[(size_t)k * s.Co + co] : zero;
+      }
+    }
+  };
+  // the ring: stage c + kTcStages - 1 is issued while stage c is consumed;
+  // the barrier at the top of step c also frees the buffer step c - 1 read
+  for (int c = 0; c < kTcStages - 1; ++c) {
+    if (c < nk) stage(c, ring + c * kTcStage);
+    __pipeline_commit();
+  }
+  for (int c = 0; c < nk; ++c) {
+    __pipeline_wait_prior(kTcStages - 2);
+    __syncthreads();
+    const int nx = c + kTcStages - 1;
+    if (nx < nk) stage(nx, ring + (nx % kTcStages) * kTcStage);
+    __pipeline_commit();
+    const bf16* buf = ring + (c % kTcStages) * kTcStage;
+    tc_stage_nn(buf, buf + kTcSliceA, acc, min(kTcK, K - c * kTcK) > 16 ? 2 : 1);
+  }
+  __syncthreads();  // every warp is done with the ring
+}
+
+// C [kTileM][kLdC] <- acc + b: the tile's y (conv + bias, f32).
+__device__ __forceinline__ void tc_tile_to_smem(const float (&acc)[4][4],
+                                                const bf16* __restrict__ b,
+                                                const Shape& s, int co0,
+                                                float* C) {
+  int r0, c0;
+  tc_rc(r0, c0);
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    const int col = c0 + 8 * n;
+    const float b0 = co0 + col < s.Co ? ld(b + co0 + col) : 0.f;
+    const float b1 = co0 + col + 1 < s.Co ? ld(b + co0 + col + 1) : 0.f;
+    *reinterpret_cast<float2*>(C + r0 * kLdC + col) =
+        make_float2(acc[n][0] + b0, acc[n][1] + b1);
+    *reinterpret_cast<float2*>(C + (r0 + 8) * kLdC + col) =
+        make_float2(acc[n][2] + b0, acc[n][3] + b1);
+  }
+}
+
+// Kernel A of the forward in bf16: fwd_conv_stats_kernel with the conv
+// tile on the tensor cores.
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+fwd_conv_stats_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+                         const bf16* __restrict__ b, float* __restrict__ yout,
+                         float2* __restrict__ tstats, Shape s) {
+  __shared__ __align__(16) bf16 ring[kTcRing];
+  const int tile = blockIdx.x, co0 = blockIdx.y * kTileN, t = blockIdx.z;
+  const int m0 = tile * kTileM, rows = min(kTileM, s.M - m0);
+  x += (size_t)t * s.N * s.H * s.W * s.Ci;
+  w += (size_t)t * 9 * s.Ci * s.Co;
+  b += (size_t)t * s.Co;
+  float acc[4][4];
+  conv_tile_tc<kVec>(x, w, s, m0, co0, ring, acc);
+  float* C = reinterpret_cast<float*>(ring);
+  tc_tile_to_smem(acc, b, s, co0, C);
+  __syncthreads();
+  tile_y_stats(C, yout, tstats, s, t, tile, co0, rows);
+}
+
+// f32 d as three bf16 terms, hi + mid + lo == d exactly for 0 and for
+// 2^-110 <= |d| <= the largest bf16 (each remainder is exact in f32 and
+// the last has at most 8 significant bits; cuda/cnn4_cuda.py:split3_bf16).
+__device__ __forceinline__ void split3(float d, bf16& hi, bf16& mid,
+                                       bf16& lo) {
+  hi = __float2bfloat16_rn(d);
+  const float r1 = d - __bfloat162float(hi);
+  mid = __float2bfloat16_rn(r1);
+  lo = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+}
+
+__device__ __forceinline__ void st_bf16x4(bf16* p, const bf16 (&v)[4]) {
+  uint2 raw;
+  raw.x = (unsigned)__bfloat16_as_ushort(v[0]) |
+          (unsigned)__bfloat16_as_ushort(v[1]) << 16;
+  raw.y = (unsigned)__bfloat16_as_ushort(v[2]) |
+          (unsigned)__bfloat16_as_ushort(v[3]) << 16;
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// p[0..1] <- (a, b) for the channels below `limit`: one store where `vec`
+// says p is aligned for two.
+__device__ __forceinline__ void store_pair(float* p, float a, float b,
+                                           int limit, bool vec) {
+  if (vec && limit >= 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(a, b);
+  } else {
+    if (limit > 0) p[0] = a;
+    if (limit > 1) p[1] = b;
+  }
+}
+__device__ __forceinline__ void store_pair(bf16* p, float a, float b,
+                                           int limit, bool vec) {
+  if (vec && limit >= 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+  } else {
+    if (limit > 0) p[0] = __float2bfloat16(a);
+    if (limit > 1) p[1] = __float2bfloat16(b);
+  }
+}
+
+// Step 4a of cnn4_block_bwd_params in bf16. grid (tiles, ceil(Co/64), B),
+// thread (rg, q) on rows rg, rg + 16, .. of channels 4q .. 4q + 3 as
+// bwd_tile_sums_kernel. dy = inv_std (dz scale - m1 - xhat m2) from y, g
+// and the constants -> dy (f32, the output) and its three bf16 terms
+// (split3) -> terms[3][B][M][Co] for the dw GEMM: formed once, not once
+// for every row tile of dw.
+__global__ void __launch_bounds__(kThreads)
+bwd_dy_split_kernel(const bf16* __restrict__ sc, const bf16* __restrict__ be,
+                    const bf16* __restrict__ g, const float* __restrict__ y,
+                    const float2* __restrict__ stats,
+                    const float2* __restrict__ consts, float* __restrict__ dy,
+                    bf16* __restrict__ terms, bool vec, int B, Shape s) {
+  constexpr int kGroups = kThreads / (kTileN / 4);
+  __shared__ float par[6][kTileN];  // mean, inv_std, scale, bias, m1, m2
+  const int tid = threadIdx.x, col = 4 * (tid & 15), rg = tid >> 4;
+  const int tile = blockIdx.x, co0 = blockIdx.y * kTileN, t = blockIdx.z;
+  const int m0 = tile * kTileM, rows = min(kTileM, s.M - m0);
+  const int limit = s.Co - co0 - col;
+  load_bn_par(par, stats, sc, be, t, co0, s);
+  if (tid < kTileN) {
+    const float2 c2 = co0 + tid < s.Co ? consts[(size_t)t * s.Co + co0 + tid]
+                                       : make_float2(0.f, 0.f);
+    par[4][tid] = c2.x;
+    par[5][tid] = c2.y;
+  }
+  __syncthreads();
+  const size_t plane = (size_t)B * s.M * s.Co;
+  for (int r = rg; r < rows && limit > 0; r += kGroups) {
+    const size_t off = ((size_t)t * s.M + m0 + r) * s.Co + co0 + col;
+    const float4 yv = load_row4(y + off, limit, vec);
+    const float4 gv = load_row4(g + off, limit, vec);
+    float d[4];
+    bf16 hi[4], mid[4], lo[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float xh;
+      const int c = col + u;
+      const float dz = bn_dz(f4(yv, u), f4(gv, u), par[0][c], par[1][c],
+                             par[2][c], par[3][c], xh);
+      d[u] = par[1][c] * (fmaf(dz, par[2][c], -par[4][c]) - xh * par[5][c]);
+      split3(d[u], hi[u], mid[u], lo[u]);
+    }
+    store_row4(dy + off, make_float4(d[0], d[1], d[2], d[3]), limit, vec);
+    if (vec && limit >= 4) {
+      st_bf16x4(terms + off, hi);
+      st_bf16x4(terms + plane + off, mid);
+      st_bf16x4(terms + 2 * plane + off, lo);
+    } else {
+      for (int u = 0; u < 4 && u < limit; ++u) {
+        terms[off + u] = hi[u];
+        terms[plane + off + u] = mid[u];
+        terms[2 * plane + off + u] = lo[u];
+      }
+    }
+  }
+}
+
+// The dw GEMM on the tensor cores: 4 warps, each 32 rows of dw x 32
+// channels (2 x 4 MMA tiles); a stage is 32 positions, two MMA k-steps,
+// on a ring of kDwStages in dynamic shared memory.
+constexpr int kDwThreads = 128;
+constexpr int kDwK = 32;                   // positions a stage
+constexpr int kDwSlice = kDwK * kLdB;      // one [position][row] slice
+constexpr int kDwStage = 4 * kDwSlice;     // x, then dy's hi, mid and lo
+constexpr int kDwStages = 4;
+constexpr int kDwSmem = kDwStages * kDwStage * 2;  // 73,728 bytes
+constexpr int kDwTcMinBlocks = 3;          // CTAs an SM (the ring's bytes)
+constexpr int kDwGroups = kDwThreads / (kTileN / 4);  // db's row groups
+static_assert(kDwGroups * kTileN * 4 <= kDwSmem, "db's groups fit the ring");
+static_assert(kDwK % kDwGroups == 0, "db: whole row groups a stage");
+
+// Step 4b of cnn4_block_bwd_params in bf16, on the tensor cores. grid
+// (chunks, dw row tiles x column tiles, B), chunks as bwd_dw_kernel's.
+// dw[k][co] = sum over the chunk's positions m of x_tap(m, ci) dy(m, co),
+// k = tap * Ci + ci, for the CTA's 64 x 64 tile of dw. A stage holds the
+// x slice [position][row (tap, ci)], gathered as bwd_dw_kernel gathers it
+// (kVec: Ci % 8 == 0, 16 bytes a piece by cp.async; else element by
+// element, the rows past K zero), read as the A operand with
+// ldmatrix.trans, and dy's three bf16 terms [position][co] (16 bytes a
+// piece by cp.async where vec8), each read as B with ldmatrix.trans.
+// Three MMAs a k-step and tile (x hi, x mid, x lo) into a stage sum from
+// zero, added to acc in f32: the products of bf16 x and the terms are
+// exact, so dw carries the f32 dy, as the reference's f32 dw does. The CTAs
+// of dw row tile 0 also sum db over the chunk from the terms ((lo + mid) +
+// hi == dy exactly). With one chunk the CTA stores dw and db in bf16; else
+// its f32 partial part[b][chunk] = (dw [K][Co], db [Co]).
+template <bool kVec>
+__global__ void __launch_bounds__(kDwThreads, kDwTcMinBlocks)
+bwd_dw_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ terms,
+                 bf16* __restrict__ dw, bf16* __restrict__ db,
+                 float* __restrict__ part, int chunk, bool vec8, int B,
+                 Shape s) {
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  bf16* ring = reinterpret_cast<bf16*>(dw_smem);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lj = lane >> 3, lr = lane & 7;
+  const int wm = warp & 1, wn = warp >> 1;  // rows 32 wm .., columns 32 wn ..
+  const int K = 9 * s.Ci, nct = cdiv(s.Co, kTileN), nchunks = gridDim.x;
+  const int ch = blockIdx.x, t = blockIdx.z;
+  const int k0 = blockIdx.y / nct * kTileM, co0 = blockIdx.y % nct * kTileN;
+  const bool first = k0 == 0;
+  const int mb = ch * chunk, me = min(mb + chunk, s.M);
+  const size_t row0 = (size_t)t * s.M, plane = (size_t)B * s.M * s.Co;
+  x += (size_t)t * s.N * s.H * s.W * s.Ci;
+
+  // x pieces: positions m0 + (tid >> 3) + 16 u, rows k0 + cq .. + 7 of dw
+  // (one tap, 8 channels); term pieces: channels co0 + cq .. + 7
+  const int cq = 8 * (tid & 7), pr = tid >> 3;
+  const int ka = k0 + cq, tap = ka / s.Ci, ci = ka - tap * s.Ci;
+  const int dty = tap / 3 - 1, dtx = tap % 3 - 1;
+  const bool kin = ka < K, cin = co0 + cq < s.Co;
+  const int kw = min(kTileM, K - k0);  // rows of dw in this tile (block 1: 9)
+  const bf16 zero = __ushort_as_bfloat16(0);
+  auto stage = [&](int c, bf16* buf) {
+    const int m0 = mb + c * kDwK;
+    if constexpr (kVec) {
+#pragma unroll
+      for (int u = 0; u < kDwK / 16; ++u) {
+        const int r = pr + 16 * u, m = m0 + r;
+        const int j = m % s.Wo, i = (m / s.Wo) % s.Ho, n = m / (s.Wo * s.Ho);
+        const int hi = 2 * i + dty, wi = 2 * j + dtx;
+        const bool ok =
+            kin && m < me && hi >= 0 && hi < s.H && wi >= 0 && wi < s.W;
+        __pipeline_memcpy_async(
+            buf + r * kLdB + cq,
+            ok ? x + (((size_t)n * s.H + hi) * s.W + wi) * s.Ci + ci : x, 16,
+            ok ? 0 : 16);
+      }
+    } else {  // thread (r, q): rows k0 + q, q + 4, .. < K of position r;
+              // the rows past K stay zero
+      const int r = tid >> 2, q = tid & 3, m = m0 + r;
+      const int j = m % s.Wo, i = (m / s.Wo) % s.Ho, n = m / (s.Wo * s.Ho);
+#pragma unroll 1
+      for (int kk = q; kk < kw; kk += 4) {
+        const int k = k0 + kk, tp = k / s.Ci, cc = k - tp * s.Ci;
+        const int hi = 2 * i + tp / 3 - 1, wi = 2 * j + tp % 3 - 1;
+        buf[r * kLdB + kk] =
+            m < me && hi >= 0 && hi < s.H && wi >= 0 && wi < s.W
+                ? x[(((size_t)n * s.H + hi) * s.W + wi) * s.Ci + cc]
+                : zero;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 3 * kDwK / 16; ++u) {  // term u / 2, rows pr + 16 (u % 2)
+      const int term = u >> 1, r = pr + 16 * (u & 1), m = m0 + r;
+      bf16* dst = buf + (1 + term) * kDwSlice + r * kLdB + cq;
+      const size_t off = term * plane + (row0 + m) * s.Co + co0 + cq;
+      if (vec8) {
+        const bool ok = m < me && cin;
+        __pipeline_memcpy_async(dst, ok ? terms + off : terms, 16,
+                                ok ? 0 : 16);
+      } else {
+        for (int v = 0; v < 8; ++v)
+          dst[v] = m < me && co0 + cq + v < s.Co ? terms[off + v] : zero;
+      }
+    }
+  };
+
+  // db: thread (g, q) sums channels 4 q .. + 3 over rows g, g + 8, ..
+  const int dq = 4 * (tid & 15), dg = tid >> 4;
+  float acc[2][4][4] = {};
+  float dbacc[4] = {0.f, 0.f, 0.f, 0.f};
+  auto consume = [&](const bf16* buf) {
+    if (first) {
+#pragma unroll
+      for (int r = dg; r < kDwK; r += kDwGroups) {
+        const int c = r * kLdB + dq;
+        const float4 hi = ld4(buf + kDwSlice + c),
+                     mid = ld4(buf + 2 * kDwSlice + c),
+                     lo = ld4(buf + 3 * kDwSlice + c);
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          dbacc[u] += (f4(lo, u) + f4(mid, u)) + f4(hi, u);
+      }
+    }
+    const int mts = min(2, cdiv(kw - 32 * wm, 16));  // MMA row tiles in K
+    if (mts <= 0) return;
+    float sum[2][4][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kDwK / 16; ++ks) {
+      unsigned a[2][4];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        if (mt < mts)
+          ldsm_x4_t(a[mt], buf + (16 * ks + lr + 8 * (lj >> 1)) * kLdB +
+                               32 * wm + 16 * mt + 8 * (lj & 1));
+#pragma unroll
+      for (int term = 1; term <= 3; ++term)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          unsigned b[4];
+          ldsm_b(b, buf + term * kDwSlice, 16 * ks, 32 * wn, h);
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+            if (mt < mts) {
+              mma_bf16(sum[mt][2 * h], a[mt], b[0], b[1]);
+              mma_bf16(sum[mt][2 * h + 1], a[mt], b[2], b[3]);
+            }
+        }
+    }
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[mt][n][i] += sum[mt][n][i];
+  };
+
+  const int nk = cdiv(me - mb, kDwK);
+  if (!kVec && kw < kTileM) {  // x rows past K: zero in every stage, once
+    for (int e = tid; e < kDwStages * kDwSlice; e += kDwThreads)
+      ring[(e / kDwSlice) * kDwStage + e % kDwSlice] = zero;
+    __syncthreads();
+  }
+  // the ring: stage c + kDwStages - 1 is issued while stage c is consumed;
+  // the barrier at the top of step c also frees the buffer step c - 1 read
+  for (int c = 0; c < kDwStages - 1; ++c) {
+    if (c < nk) stage(c, ring + c * kDwStage);
+    __pipeline_commit();
+  }
+  for (int c = 0; c < nk; ++c) {
+    __pipeline_wait_prior(kDwStages - 2);
+    __syncthreads();
+    const int nx = c + kDwStages - 1;
+    if (nx < nk) stage(nx, ring + (nx % kDwStages) * kDwStage);
+    __pipeline_commit();
+    consume(ring + (c % kDwStages) * kDwStage);
+  }
+
+  // dw rows k0 + 32 wm + 16 mt + lane / 4 (+ 8), channels co0 + 32 wn + 8 n
+  // + 2 (lane % 4) .. + 1
+  const bool vw = (s.Co & 1) == 0;
+  bf16* dwt = dw + (size_t)t * K * s.Co;
+  float* pt = part + ((size_t)t * nchunks + ch) * ((size_t)K * s.Co + s.Co);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int k = k0 + 32 * wm + 16 * mt + (lane >> 2) + 8 * hf;
+        const int cc = co0 + 32 * wn + 8 * n + 2 * (lane & 3);
+        if (k >= K || cc >= s.Co) continue;
+        const size_t off = (size_t)k * s.Co + cc;
+        const float v0 = acc[mt][n][2 * hf], v1 = acc[mt][n][2 * hf + 1];
+        if (nchunks == 1)
+          store_pair(dwt + off, v0, v1, s.Co - cc, vw);
+        else
+          store_pair(pt + off, v0, v1, s.Co - cc, vw);
+      }
+  if (!first) return;
+  // db over the chunk: the row groups of each channel, in order
+  __pipeline_wait_prior(0);
+  __syncthreads();  // every warp is done with the ring
+  float* red = reinterpret_cast<float*>(dw_smem);  // [kDwGroups][kTileN]
+#pragma unroll
+  for (int u = 0; u < 4; ++u) red[dg * kTileN + dq + u] = dbacc[u];
+  __syncthreads();
+  if (tid < kTileN && co0 + tid < s.Co) {
+    float a = 0.f;
+    for (int r = 0; r < kDwGroups; ++r) a += red[r * kTileN + tid];
+    if (nchunks == 1)
+      st(db + (size_t)t * s.Co + co0 + tid, a);
+    else
+      pt[(size_t)K * s.Co + co0 + tid] = a;
+  }
+}
+
+// The dw GEMM's ring exceeds the 48 KB of static shared memory. The
+// attribute belongs to the current device's context, so it is set once a
+// device, at the first call there (eager, before any capture of it); a
+// server mesh runs its shards on several devices in one process.
+constexpr int kMaxDevices = 64;
+cudaError_t dw_tc_smem_once() {
+  static std::atomic<bool> done[kMaxDevices];  // zero: not yet set
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (done[dev].load(std::memory_order_acquire)) return cudaSuccess;
+  e = cudaFuncSetAttribute(bwd_dw_tc_kernel<true>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kDwSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(bwd_dw_tc_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDwSmem);
+  if (e == cudaSuccess) done[dev].store(true, std::memory_order_release);
+  return e;
+}
+
 Shape make_shape(int N, int H, int W, int Ci, int Co) {
   Shape s;
   s.N = N; s.H = H; s.W = W; s.Ci = Ci; s.Co = Co;
@@ -938,20 +1547,33 @@ Shape make_shape(int N, int H, int W, int Ci, int Co) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
+bool tc_vec(const bf16* x, const bf16* w, const Shape& s) {
+  return s.Ci % kTcK == 0 && s.Co % 8 == 0 && aligned16(x) && aligned16(w);
+}
+
 // Kernels A and C of the forward: y = conv + bias (f32) and per (task,
 // channel) stats = (mean, inv_std); tstats holds the tile statistics
-// between them.
+// between them. bf16 takes the tensor cores (fwd_conv_stats_tc_kernel).
 template <typename T>
 int conv_stats(const T* x, const T* w, const T* b, float* y, float2* tstats,
                float2* stats, int B, const Shape& s, cudaStream_t st) {
   const int ntiles = cdiv(s.M, kTileM);
   const dim3 grid(ntiles, cdiv(s.Co, kTileN), B);
-  if (s.Ci % kTileK == 0 && s.Co % 4 == 0 && aligned16(x) && aligned16(w))
-    fwd_conv_stats_kernel<T, true><<<grid, kThreads, 0, st>>>(x, w, b, y,
-                                                               tstats, s);
-  else
-    fwd_conv_stats_kernel<T, false><<<grid, kThreads, 0, st>>>(x, w, b, y,
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (tc_vec(x, w, s))
+      fwd_conv_stats_tc_kernel<true><<<grid, kThreads, 0, st>>>(x, w, b, y,
                                                                 tstats, s);
+    else
+      fwd_conv_stats_tc_kernel<false><<<grid, kThreads, 0, st>>>(x, w, b, y,
+                                                                 tstats, s);
+  } else if (s.Ci % kTileK == 0 && s.Co % 4 == 0 && aligned16(x) &&
+             aligned16(w)) {
+    fwd_conv_stats_kernel<true><<<grid, kThreads, 0, st>>>(x, w, b, y,
+                                                            tstats, s);
+  } else {
+    fwd_conv_stats_kernel<false><<<grid, kThreads, 0, st>>>(x, w, b, y,
+                                                             tstats, s);
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   fwd_combine_kernel<<<dim3(cdiv(s.Co, kTileN), B), kTileN, 0, st>>>(
@@ -965,6 +1587,7 @@ int launch_fwd(const T* x, const T* w, const T* b, const T* sc, const T* be,
                T* out, float* ws, int B, const Shape& s, cudaStream_t st) {
   if (B == 0 || s.M == 0) return 0;
   const int ntiles = cdiv(s.M, kTileM);
+  const dim3 grid(ntiles, cdiv(s.Co, kTileN), B);
   float2* tstats = reinterpret_cast<float2*>(ws);
   float2* stats = tstats + (size_t)B * ntiles * s.Co;
   float* y;  // y between kernels A and B
@@ -975,8 +1598,7 @@ int launch_fwd(const T* x, const T* w, const T* b, const T* sc, const T* be,
   }
   const int err = conv_stats(x, w, b, y, tstats, stats, B, s, st);
   if (err != 0) return err;
-  fwd_norm_kernel<T><<<dim3(ntiles, cdiv(s.Co, kTileN), B), kThreads, 0,
-                       st>>>(sc, be, y, stats, out, s);
+  fwd_norm_kernel<T><<<grid, kThreads, 0, st>>>(sc, be, y, stats, out, s);
   return (int)cudaGetLastError();
 }
 
@@ -996,7 +1618,8 @@ int dw_chunk(const Shape& s, int B) {
 // ws: f32 scratch of cuda/cnn4_cuda.py:bwd_params_workspace_floats, in
 // order: tile statistics, then tile sums [B][tiles][Co] (float2); stats
 // and consts [B][Co] (float2); y [B][M][Co]; the dw partials [B][chunks]
-// [9 Ci Co + Co] where there is more than one chunk.
+// [9 Ci Co + Co] where there is more than one chunk; in bf16, dy's three
+// terms [3][B][M][Co] (bf16).
 template <typename T>
 int launch_bwd_params(const T* x, const T* w, const T* b, const T* sc,
                       const T* be, const T* g, float* dy, T* dw, T* db,
@@ -1033,12 +1656,31 @@ int launch_bwd_params(const T* x, const T* w, const T* b, const T* sc,
   if (err != 0) return err;
   const int chunk = dw_chunk(s, B), nchunks = cdiv(s.M, chunk);
   const dim3 grid(nchunks, cdiv(K, kTileM) * nct, B);
-  if (s.Ci % 4 == 0 && aligned16(x))
-    bwd_dw_kernel<T, true><<<grid, kThreads, 0, st>>>(
+  const bool xvec = s.Ci % 4 == 0 && aligned16(x);
+  if constexpr (std::is_same<T, bf16>::value) {
+    err = (int)dw_tc_smem_once();
+    if (err != 0) return err;
+    bf16* terms = reinterpret_cast<bf16*>(
+        part + (nchunks > 1 ? (size_t)B * nchunks * ((size_t)K * s.Co + s.Co)
+                            : 0));
+    bwd_dy_split_kernel<<<dim3(ntiles, nct, B), kThreads, 0, st>>>(
+        sc, be, g, y, stats, consts, dy, terms, vec, B, s);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    const bool vec8 = s.Co % 8 == 0 && aligned16(terms);
+    if (s.Ci % 8 == 0 && aligned16(x))
+      bwd_dw_tc_kernel<true><<<grid, kDwThreads, kDwSmem, st>>>(
+          x, terms, dw, db, part, chunk, vec8, B, s);
+    else
+      bwd_dw_tc_kernel<false><<<grid, kDwThreads, kDwSmem, st>>>(
+          x, terms, dw, db, part, chunk, vec8, B, s);
+  } else if (xvec) {
+    bwd_dw_kernel<true><<<grid, kThreads, 0, st>>>(
         x, sc, be, g, y, stats, consts, dy, dw, db, part, chunk, vec, s);
-  else
-    bwd_dw_kernel<T, false><<<grid, kThreads, 0, st>>>(
+  } else {
+    bwd_dw_kernel<false><<<grid, kThreads, 0, st>>>(
         x, sc, be, g, y, stats, consts, dy, dw, db, part, chunk, vec, s);
+  }
   err = (int)cudaGetLastError();
   if (err != 0 || nchunks == 1) return err;
   const size_t outs = (size_t)B * ((size_t)K * s.Co + s.Co);

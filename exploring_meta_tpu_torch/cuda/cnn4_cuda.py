@@ -12,14 +12,22 @@ TPU-kernel table in PERF.md). One block is zero-pad -> 3x3 stride-2 conv
   the dw/db half of ``_conv_s2_bwd``): the forward's conv and statistics
   recomputed, per-tile BN-backward sums and their combine in tile order,
   then dw as an implicit GEMM whose reduction over the positions is split
-  into chunks, summed in chunk order (five or six launches);
+  into chunks, summed in chunk order (five or six launches; six or seven
+  in bfloat16, where dy and its three bf16 terms are formed by a launch
+  of their own);
 - ``cnn4_block_bwd_input``  dx, the transposed stride-2 conv as four
   parity-class GEMMs.
 
 Every tensor has a leading task axis B (the JAX single-task form is
 B = 1): x ``[B, N, H, W, Ci]`` NHWC, w ``[B, 3, 3, Ci, Co]`` HWIO,
 b/scale/bias ``[B, Co]``, all of one dtype (float32 or bfloat16; math in
-float32, outputs in that dtype).
+float32, outputs in that dtype). float32 computes on the CUDA cores (no
+TF32, as the reference's ``Precision.HIGHEST``). bfloat16's conv and dw
+products run on the tensor cores (``mma.sync`` m16n8k16, f32
+accumulation); dw's f32 operand dy goes in as three bf16 terms whose sum
+is dy (:func:`split3_bf16`), so both carry float32 products, as JAX's
+kernel does after upcasting its bf16 inputs (:func:`dw_split3_plain`
+emulates that arithmetic).
 
 Each wrapper (:func:`block_fwd`, :func:`block_bwd_params`,
 :func:`block_bwd_input`) runs the plain PyTorch twin for CPU tensors and
@@ -32,14 +40,19 @@ their device time to it.
 Beside the twins stand plain versions of the kernels' decompositions
 (:func:`tile_stats_plain`, :func:`combine_tile_stats_plain`,
 :func:`bwd_tile_sums_plain`, :func:`combine_bwd_sums_plain`,
-:func:`bwd_dy_plain`, :func:`dw_split_plain`, :func:`parity_classes`,
+:func:`bwd_dy_plain`, :func:`dw_split_plain`, :func:`split3_bf16`,
+:func:`dw_split3_plain`, :func:`parity_classes`,
 :func:`block_bwd_input_parity_plain`), which the tests hold against the
-JAX package.
+JAX package; :func:`bf16_agreement` and :func:`bf16_share_holds`, the
+bf16 kernels' check against a twin taken in float64 (``acc``), with
+:func:`rounded_dy_share`, what that check gives a dy rounded to one bf16;
+and :func:`block_inputs`, random inputs for such checks on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 import torch.nn.functional as F
@@ -89,18 +102,22 @@ def dw_chunk(b: int, m: int, ci: int, co: int) -> int:
 
 
 def bwd_params_workspace_floats(b: int, n: int, h: int, w: int, ci: int,
-                                co: int) -> int:
+                                co: int,
+                                dtype: torch.dtype = torch.float32) -> int:
     """f32 scratch of ``cnn4_block_bwd_params`` (mirrors
     ``launch_bwd_params``): the tile statistics, later the tile sums, and
     per (task, channel) the statistics and dy's constants, all as pairs; y
-    ``[B, M, Co]``; and the dw partials ``[B, chunks, 9 Ci Co + Co]``
-    where the positions are split into more than one chunk."""
+    ``[B, M, Co]``; the dw partials ``[B, chunks, 9 Ci Co + Co]`` where
+    the positions are split into more than one chunk; in bfloat16, dy's
+    three bf16 terms ``[3, B, M, Co]`` for the tensor cores' dw."""
     m = n * out_hw(h) * out_hw(w)
     if m == 0:
         return 0
     chunks = _cdiv(m, dw_chunk(b, m, ci, co))
     part = b * chunks * (9 * ci * co + co) if chunks > 1 else 0
-    return 2 * b * _cdiv(m, _TILE_M) * co + 4 * b * co + b * m * co + part
+    terms = 0 if dtype == torch.float32 else _cdiv(3 * b * m * co, 2)
+    return (2 * b * _cdiv(m, _TILE_M) * co + 4 * b * co + b * m * co + part
+            + terms)
 
 
 # ---------------------------------------------------------------------------
@@ -116,19 +133,21 @@ def _taps(x: torch.Tensor):
             for dy in range(3) for dx in range(3)]
 
 
-def conv_plain(x, w, b) -> torch.Tensor:
-    """The block's conv plus bias in f32 (``_conv_s2`` + b)."""
-    x, w, b = x.float(), w.float(), b.float()
+def conv_plain(x, w, b, acc=torch.float32) -> torch.Tensor:
+    """The block's conv plus bias in f32 (``_conv_s2`` + b), or in ``acc``
+    (float64: the reference the bf16 kernels' agreement is held to)."""
+    x, w, b = x.to(acc), w.to(acc), b.to(acc)
     wt = w.reshape(w.shape[0], 9, w.shape[3], w.shape[4])
     y = sum(torch.einsum("bnhwc,bco->bnhwo", t, wt[:, k])
             for k, t in enumerate(_taps(x)))
     return y + b[:, None, None, None, :]
 
 
-def bn_stats_plain(x, w, b, scale, bias):
-    """-> (xhat, inv_std, scale, bias) in f32, from ``_block_fwd``."""
-    y = conv_plain(x, w, b)
-    scale, bias = scale.float(), bias.float()
+def bn_stats_plain(x, w, b, scale, bias, acc=torch.float32):
+    """-> (xhat, inv_std, scale, bias) in f32 (or ``acc``), from
+    ``_block_fwd``."""
+    y = conv_plain(x, w, b, acc)
+    scale, bias = scale.to(acc), bias.to(acc)
     mu = y.mean(dim=(1, 2, 3), keepdim=True)
     var = (y - mu).square().mean(dim=(1, 2, 3), keepdim=True)
     inv = torch.rsqrt(var + EPS)
@@ -136,23 +155,23 @@ def bn_stats_plain(x, w, b, scale, bias):
             bias[:, None, None, None, :])
 
 
-def block_fwd_plain(x, w, b, scale, bias) -> torch.Tensor:
-    xh, _, s, be = bn_stats_plain(x, w, b, scale, bias)
+def block_fwd_plain(x, w, b, scale, bias, acc=torch.float32) -> torch.Tensor:
+    xh, _, s, be = bn_stats_plain(x, w, b, scale, bias, acc)
     return torch.relu(xh * s + be).to(x.dtype)
 
 
-def block_bwd_params_plain(x, w, b, scale, bias, g):
+def block_bwd_params_plain(x, w, b, scale, bias, g, acc=torch.float32):
     """-> (dy f32, dw, db, dscale, dbias), from ``_block_bwd`` and
-    ``_conv_s2_bwd``."""
-    xh, inv, s, be = bn_stats_plain(x, w, b, scale, bias)
-    dz = g.float() * ((xh * s + be) > 0)
+    ``_conv_s2_bwd`` (computed in ``acc``; dy then in ``acc`` too)."""
+    xh, inv, s, be = bn_stats_plain(x, w, b, scale, bias, acc)
+    dz = g.to(acc) * ((xh * s + be) > 0)
     dscale = (dz * xh).sum(dim=(1, 2, 3))
     dbias = dz.sum(dim=(1, 2, 3))
     dxh = dz * s
     dy = inv * (dxh - dxh.mean(dim=(1, 2, 3), keepdim=True)
                 - xh * (dxh * xh).mean(dim=(1, 2, 3), keepdim=True))
     dw = torch.stack([torch.einsum("bnhwc,bnhwo->bco", t, dy)
-                      for t in _taps(x.float())], dim=1)
+                      for t in _taps(x.to(acc))], dim=1)
     dw = dw.reshape(w.shape)
     db = dy.sum(dim=(1, 2, 3))
     pd = w.dtype
@@ -259,6 +278,107 @@ def dw_split_plain(x, dy, chunk: int):
                                d[:, r:r + chunk])
         db = db + d[:, r:r + chunk].sum(dim=1)
     return dw.reshape(B, 3, 3, ci, co), db
+
+
+def split3_bf16(d: torch.Tensor):
+    """float32 d as three bfloat16 terms (``split3`` in the source): hi =
+    bf16(d), mid = bf16(d - hi), lo = bf16(d - hi - mid). Each remainder
+    is exact in float32 and the last has at most 8 significant bits, so
+    hi + mid + lo == d exactly for 0 and for 2^-110 <= |d| <= the largest
+    bfloat16; below 2^-110 the bits under bfloat16's least subnormal,
+    2^-133, are lost."""
+    d = d.float()
+    hi = d.to(torch.bfloat16)
+    r1 = d - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def dw_split3_plain(x, dy, chunk: int, step: int = _TILE_K):
+    """dw as ``bwd_dw_tc_kernel`` computes it in bfloat16: x (bf16) times
+    each of dy's three bf16 terms, every product exact in float32; per
+    k-step of ``step`` positions the three terms' products summed from
+    zero, then added to the chunk's sum in float32; the chunk partials
+    summed in order. -> dw ``[B, 3, 3, Ci, Co]`` f32."""
+    B, ci, co = x.shape[0], x.shape[4], dy.shape[-1]
+    a = torch.stack(_taps(x.float()), dim=4).reshape(B, -1, 9 * ci)
+    terms = [t.float().reshape(B, -1, co) for t in split3_bf16(dy)]
+    dw = a.new_zeros(B, 9 * ci, co)
+    for r in range(0, a.shape[1], chunk):
+        acc = a.new_zeros(B, 9 * ci, co)
+        for k in range(r, min(r + chunk, a.shape[1]), step):
+            ak = a[:, k:min(k + step, r + chunk)]
+            acc = acc + sum(torch.einsum("bmk,bmo->bko", ak,
+                                         t[:, k:k + ak.shape[1]])
+                            for t in terms)
+        dw = dw + acc
+    return dw.reshape(B, 3, 3, ci, co)
+
+
+# A bfloat16 output of a kernel against its twin's: within one bfloat16
+# ulp of it plus float32 noise, |got - want| <= 2^-7 |want| + 1e-5
+# max|want|, and equal in all but a share BF16_SHARE of its elements
+# (values within float32 noise of a bfloat16 rounding boundary). The twin
+# is taken in float64 (``acc``). BF16_SHARE lies between two readings on
+# an H100 at every shape of the card tests (PERF.md, PR 17):
+# float32-precision sums differ from the float64 twin in up to 2.2e-3 of
+# dw's elements (the f32 twin and the CUDA-core kernels, over up to ~10^5
+# positions), a dw taken from dy rounded to one bf16 in 0.32-0.47 of them
+# (:func:`rounded_dy_share`).
+BF16_RTOL, BF16_ATOL, BF16_SHARE = 2.0 ** -7, 1e-5, 1e-2
+
+
+def bf16_agreement(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """-> (the largest |got - want| over its limit, BF16_RTOL |want| +
+    BF16_ATOL max|want| (at most 1 holds), the share of elements with
+    got != want)."""
+    got, want = got.float(), want.float()
+    d = (got - want).abs()
+    lim = BF16_RTOL * want.abs() + BF16_ATOL * want.abs().max()
+    over = torch.where(d == 0, torch.zeros_like(d), d / lim)
+    return (float(over.max()) if d.numel() else 0.0,
+            float((d > 0).float().mean()) if d.numel() else 0.0)
+
+
+def bf16_share_holds(share: float, n: int) -> bool:
+    """At most BF16_SHARE of ``n`` elements differ, rounded up to a whole
+    element (an output of 64 may hold one value at a tie)."""
+    return round(share * n) <= math.ceil(BF16_SHARE * n)
+
+
+def rounded_dy_share(x, w, b, scale, bias, g) -> float:
+    """The share of dw's bf16 elements that a dw taken from dy rounded to
+    one bf16 gets wrong against the float64 twin's: what a design that
+    rounds dy before the product would give."""
+    dy, dw = block_bwd_params_plain(x, w, b, scale, bias, g,
+                                    acc=torch.float64)[:2]
+    a = torch.stack(_taps(x.float()), dim=4).reshape(
+        x.shape[0], -1, 9 * x.shape[4])
+    d = dy.to(torch.bfloat16).float().reshape(x.shape[0], -1, dy.shape[-1])
+    rounded = torch.einsum("bmk,bmo->bko", a, d).reshape(dw.shape)
+    return bf16_agreement(rounded.to(dw.dtype), dw)[1]
+
+
+def block_inputs(gen: torch.Generator, b: int, n: int, h: int, ci: int,
+                 co: int, dtype: torch.dtype):
+    """Random block inputs on ``gen``'s device: x, w, b, scale, bias and a
+    cotangent g, zero where the ReLU input lies within 1e-3 of its kink:
+    there the kernel's and the twin's f32 rounding may disagree on the
+    mask, which is a tie, not an error."""
+    dev, ho = gen.device, out_hw(h)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+
+    x = rnd(b, n, h, h, ci).to(dtype)
+    w = rnd(b, 3, 3, ci, co, scale=(2.0 / (9 * ci)) ** 0.5).to(dtype)
+    bb = rnd(b, co, scale=0.1).to(dtype)
+    sc = (torch.rand(b, co, generator=gen, device=dev) * 0.9 + 0.1).to(dtype)
+    be = rnd(b, co, scale=0.1).to(dtype)
+    xh, _, s_, be_ = bn_stats_plain(x, w, bb, sc, be)
+    g = (rnd(b, n, ho, ho, co) * ((xh * s_ + be_).abs() > 1e-3)).to(dtype)
+    return x, w, bb, sc, be, g
 
 
 def parity_classes():
@@ -386,7 +506,8 @@ def block_bwd_params(x, w, b, scale, bias, g):
                          f"match the block output {shape} {x.dtype}")
     dy = torch.empty(shape, dtype=torch.float32, device=x.device)
     dw, db, ds, dbe = (torch.empty_like(t) for t in (w, b, scale, bias))
-    ws = torch.empty(bwd_params_workspace_floats(B, N, H, W, ci, co),
+    ws = torch.empty(bwd_params_workspace_floats(B, N, H, W, ci, co,
+                                                 x.dtype),
                      dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device), torch.profiler.record_function("cnn4_block_bwd_params"):
         err = _load().cnn4_block_bwd_params(

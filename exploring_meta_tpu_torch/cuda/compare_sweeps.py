@@ -47,9 +47,9 @@ def substitute(text: str, spec: str) -> str:
     return text
 
 
-def _compile(name: str, text: str) -> tuple[str, list]:
-    """-> (library path, ptxas lines)."""
-    out = os.path.join(build.BUILD_DIR, "compare")
+def _compile(name: str, text: str, subdir: str = "compare") -> tuple[str, list]:
+    """-> (library path, ptxas lines), built under ``build/<subdir>``."""
+    out = os.path.join(build.BUILD_DIR, subdir)
     os.makedirs(out, exist_ok=True)
     src, lib = os.path.join(out, f"{name}.cu"), os.path.join(out, f"{name}.so")
     with open(src, "w") as f:
@@ -59,7 +59,7 @@ def _compile(name: str, text: str) -> tuple[str, list]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}:\n{proc.stderr}")
     return lib, [ln.strip() for ln in (proc.stdout + proc.stderr).splitlines()
-                 if "Used" in ln or "spill" in ln]
+                 if "Used" in ln or "spill" in ln or "entry function" in ln]
 
 
 def _load(path: str):

@@ -5,7 +5,9 @@
 ``{name: {"total_s", "mean_ms", "count"}}``. A phase's clock stops after
 a barrier on the device of the tensors it produced, so it times the work
 and not its dispatch. ``device_trace`` records the host and the card with
-``torch.profiler`` and writes a Chrome trace.
+``torch.profiler`` and writes a Chrome trace. ``graph_ms_per_call``
+times a call's kernels back to back in a CUDA graph: the device time
+that ``chip_smoke.py`` and ``cuda/compare_cnn4.py`` report.
 """
 
 from __future__ import annotations
@@ -102,3 +104,33 @@ def device_trace(log_dir: str):
         prof.stop()
         prof.export_chrome_trace(os.path.join(
             log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+
+
+def graph_ms_per_call(fn, calls: int = 20, replays: int = 10) -> float:
+    """ms of one call of ``fn`` run back to back on the current CUDA
+    device: ``calls`` calls captured in one CUDA graph, its replays timed
+    by CUDA events. A call of a few microseconds launched from Python one
+    at a time is timed by the host's dispatch; a replay launches the same
+    kernels with no host between them, so this is their device time and
+    the gaps between kernels on the device. (The profiler's per-kernel
+    records are not used: after many sessions in one process CUPTI has
+    been seen to deliver a session's records into the next one.)"""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)

@@ -244,17 +244,25 @@ def test_bwd_params_workspace_floats():
     """The scratch of ``cnn4_block_bwd_params`` (mirrors
     ``launch_bwd_params``): tile and task pairs and y, plus the dw
     partials where the positions are split (block 1 of a served batch:
-    9 chunks; block 2: one)."""
+    9 chunks; block 2: one); in bf16 also dy's three bf16 terms, half a
+    float each."""
     b, co = 64, 64
     m1, m2 = 25 * 14 * 14, 25 * 7 * 7
     assert tc.dw_chunk(b, m1, 1, co) == 560
     assert -(-m1 // 560) == 9
-    assert tc.bwd_params_workspace_floats(b, 25, 28, 28, 1, co) == (
-        2 * b * 77 * co + 4 * b * co + b * m1 * co + b * 9 * (9 * co + co))
+    f32_1 = 2 * b * 77 * co + 4 * b * co + b * m1 * co + b * 9 * (9 * co + co)
+    assert tc.bwd_params_workspace_floats(b, 25, 28, 28, 1, co) == f32_1
     assert tc.dw_chunk(b, m2, 64, co) == 1232        # one chunk of all M
-    assert tc.bwd_params_workspace_floats(b, 25, 14, 14, 64, co) == (
-        2 * b * 20 * co + 4 * b * co + b * m2 * co)
+    f32_2 = 2 * b * 20 * co + 4 * b * co + b * m2 * co
+    assert tc.bwd_params_workspace_floats(b, 25, 14, 14, 64, co) == f32_2
     assert tc.bwd_params_workspace_floats(b, 0, 14, 14, 64, co) == 0
+    assert tc.bwd_params_workspace_floats(
+        b, 25, 28, 28, 1, co, torch.bfloat16) == f32_1 + 3 * b * m1 * co // 2
+    assert tc.bwd_params_workspace_floats(
+        b, 25, 14, 14, 64, co, torch.bfloat16) == f32_2 + 3 * b * m2 * co // 2
+    assert tc.bwd_params_workspace_floats(1, 1, 4, 4, 64, 3,
+                                          torch.bfloat16) == (
+        2 * 3 + 4 * 3 + 4 * 3 + (3 * 4 * 3 + 1) // 2)
 
 
 def test_plain_path_counts_no_launches():

@@ -124,6 +124,103 @@ def test_tiled_kernels_match_plain_twins(cuda_device, b, n, h, ci, dtype,
     assert torch.equal(got, tc.block_bwd_input(dy, w, h, h))
 
 
+# The bf16 tensor-core kernels (the conv of cnn4_block_fwd and of
+# cnn4_block_bwd_params, and its dw GEMM) at every block shape, at one
+# request, a bucket of 8 and a served batch, from one image a task to 400
+_BF16_SHAPES = [(b, n, h, ci) for h, ci in _BLOCKS for b in (1, 8, 64)
+                for n in (1, 5, 25, 128, 400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,h,ci", _BF16_SHAPES)
+def test_bf16_tensor_core_kernels_carry_f32_products(cuda_device, b, n, h,
+                                                     ci):
+    """bf16: every output of the forward and of bwd_params but db within
+    one bf16 ulp plus f32 noise of its twin taken in float64, equal to it
+    in all but cnn4_cuda.BF16_SHARE of its elements (chip_smoke.held_bf16;
+    over ~10^5 positions an f32 twin's own rounding flips as many), the f32
+    dy within float32's 1e-4, db by its magnitude; two calls bitwise equal.
+    The f32 kernels at the same inputs within 1e-4 (chip_smoke.TOL)."""
+    rng = np.random.default_rng(b * 1009 + n * h + ci)
+    x, w, p, g = _block_inputs(rng, cuda_device, b, n, h, ci)
+    _held(tc.block_fwd(x, w, *p), tc.block_fwd_plain(x, w, *p), 1e-4)
+    for i, (a, c) in enumerate(zip(tc.block_bwd_params(x, w, *p, g),
+                                   tc.block_bwd_params_plain(x, w, *p, g))):
+        if i != 2:
+            _held(a, c, 1e-4)
+    x, w, p = x.to(torch.bfloat16), w.to(torch.bfloat16), [
+        t.to(torch.bfloat16) for t in p]
+    xh, _, s, be = tc.bn_stats_plain(x, w, *p)
+    g = (g * ((xh * s + be).abs() > 1e-3)).to(torch.bfloat16)
+    what = f"B {b} N {n} H {h}"
+    f64 = torch.float64
+    got = tc.block_fwd(x, w, *p)
+    chip_smoke.held_bf16(tc, got, tc.block_fwd_plain(x, w, *p, acc=f64),
+                         f"fwd {what}")
+    assert torch.equal(got, tc.block_fwd(x, w, *p))
+    got = tc.block_bwd_params(x, w, *p, g)
+    want = tc.block_bwd_params_plain(x, w, *p, g)
+    _held(got[0], want[0], 1e-4)
+    lim = _DB_TOL[torch.bfloat16] * want[0].abs().sum(dim=(1, 2, 3))
+    assert ((got[2].float() - want[2].float()).abs() <= lim).all()
+    want = tc.block_bwd_params_plain(x, w, *p, g, acc=f64)
+    for i, name in ((1, "dw"), (3, "dscale"), (4, "dbias")):
+        chip_smoke.held_bf16(tc, got[i], want[i], f"{name} {what}")
+    again = tc.block_bwd_params(x, w, *p, g)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_bf16_kernels_run_on_every_device(cuda_device):
+    """A server mesh runs its shards on several cards in one process: the
+    bf16 forward and bwd_params (whose dw kernel needs more than 48 KB of
+    shared memory, an attribute of each device's context) on every
+    visible card in turn, each held as above and equal to the first
+    card's result bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ins = tc.block_inputs(gen, 8, 25, 14, 64, 64, torch.bfloat16)
+    first = None
+    for d in range(torch.cuda.device_count()):
+        on = [t.to(f"cuda:{d}") for t in ins]
+        got = (tc.block_fwd(*on[:5]),) + tc.block_bwd_params(*on)
+        want = tc.block_bwd_params_plain(*on, acc=torch.float64)
+        chip_smoke.held_bf16(tc, got[0], tc.block_fwd_plain(
+            *on[:5], acc=torch.float64), f"fwd on cuda:{d}")
+        chip_smoke.held_bf16(tc, got[2], want[1], f"dw on cuda:{d}")
+        got = [t.cpu() for t in got]
+        if first is None:
+            first = got
+        assert all(torch.equal(a, c) for a, c in zip(got, first)), d
+
+
+@pytest.mark.cuda
+def test_bf16_server_mesh_on_every_device(cuda_device):
+    """A bf16 vision server with a shard on every visible card: its first
+    batch (eager on each card, then captured) gives finite probabilities,
+    and its replay gives them again bit for bit."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    from exploring_meta_tpu_torch.parallel.mesh import make_task_mesh
+    spec = omniglot_spec(ways=5)
+    params = init_cnn4(torch.Generator().manual_seed(0), spec,
+                       device=cuda_device)
+    server = VisionServer(spec, params, inner_lr=0.5, adapt_steps=1,
+                          compute_dtype=torch.bfloat16,
+                          mesh=make_task_mesh())
+    n = 2 * torch.cuda.device_count()
+    rng = np.random.default_rng(0)
+    sx = torch.tensor(rng.normal(size=(n, 25, 28, 28, 1)),
+                      dtype=torch.float32)
+    sy = torch.arange(5).repeat(5).expand(n, -1)
+    preds, probs = server.batch(sx, sy, sx[:, :15])
+    again = server.batch(sx, sy, sx[:, :15])
+    torch.cuda.synchronize()
+    assert preds.shape == (n, 15) and torch.isfinite(probs).all()
+    assert torch.equal(preds, again[0]) and torch.equal(probs, again[1])
+
+
 @pytest.mark.cuda
 def test_served_batch_runs_every_kernel(cuda_device):
     spec = omniglot_spec(ways=5)

@@ -144,7 +144,9 @@ def test_port_module_list_is_complete():
                 "ops.stats", "parallel.mesh", "parallel.launch",
                 # slice 15: accuracy parity and the last entry points
                 "parity", "parity.check", "parity.reference_vision",
-                "parity.reference_rl", "serve_load", "render"):
+                "parity.reference_rl", "serve_load", "render",
+                # slice 17: bf16 CNN4 kernels on the tensor cores
+                "cuda.compare_cnn4"):
         assert f"exploring_meta_tpu_torch.{mod}" in names
 
 
