@@ -381,13 +381,31 @@ CNN4_KERNEL_NAMES = ("fwd_conv_stats_kernel", "fwd_combine_kernel",
                      "bwd_tile_sums_kernel", "bwd_combine_kernel",
                      "bwd_dw_kernel", "bwd_dw_reduce_kernel",
                      "fwd_conv_stats_tc_kernel", "bwd_dy_split_kernel",
-                     "bwd_dw_tc_kernel")
+                     "bwd_dw_tc_kernel", "bwd_input_tc_kernel")
 # the bf16 kernels on the tensor cores: their SASS holds HMMA, every other
 # kernel of csrc/cnn4_block.cu none (tensor_core_sass)
-TC_KERNEL_NAMES = ("fwd_conv_stats_tc_kernel", "bwd_dw_tc_kernel")
+TC_KERNEL_NAMES = ("fwd_conv_stats_tc_kernel", "bwd_dw_tc_kernel",
+                   "bwd_input_tc_kernel")
 # a kernel of each CNN4 wrapper on a bf16 path (the vision meta-training
-# cells compute in bf16)
-BF16_WRAPPER_KERNELS = TC_KERNEL_NAMES + ("bwd_input_kernel",)
+# cells compute in bf16): all three on the tensor cores
+BF16_WRAPPER_KERNELS = TC_KERNEL_NAMES
+# the kernels each CNN4 wrapper launches, per dtype (the kernels line)
+CNN4_WRAPPER_KERNELS = {
+    "cnn4_block_fwd": {
+        "float32": ["fwd_conv_stats_kernel", "fwd_combine_kernel",
+                    "fwd_norm_kernel"],
+        "bfloat16": ["fwd_conv_stats_tc_kernel", "fwd_combine_kernel",
+                     "fwd_norm_kernel"]},
+    "cnn4_block_bwd_params": {
+        "float32": ["fwd_conv_stats_kernel", "fwd_combine_kernel",
+                    "bwd_tile_sums_kernel", "bwd_combine_kernel",
+                    "bwd_dw_kernel", "bwd_dw_reduce_kernel"],
+        "bfloat16": ["fwd_conv_stats_tc_kernel", "fwd_combine_kernel",
+                     "bwd_tile_sums_kernel", "bwd_combine_kernel",
+                     "bwd_dy_split_kernel", "bwd_dw_tc_kernel",
+                     "bwd_dw_reduce_kernel"]},
+    "cnn4_block_bwd_input": {"float32": ["bwd_input_kernel"],
+                             "bfloat16": ["bwd_input_tc_kernel"]}}
 # Meta-RL serving (slice 7), bench.py's serve_rl (bench.py:625-683): 64
 # requests, each a support batch of 10 episodes x 50 steps on Particles2D,
 # one first-order inner step at inner_lr 0.05; the batch timed as the mean
@@ -653,8 +671,9 @@ def tensor_core_sass(build) -> dict:
         elif fn is not None and "HMMA" in ln:   # HGMMA included
             counts[fn] += 1
     tc_fns = [f for f in counts if any(k in f for k in TC_KERNEL_NAMES)]
-    check(len(tc_fns) == 4, f"SASS: the four tensor-core kernel instances, "
-                            f"found {tc_fns}")
+    check(len(tc_fns) == 2 * len(TC_KERNEL_NAMES),
+          f"SASS: the {2 * len(TC_KERNEL_NAMES)} tensor-core kernel "
+          f"instances (kVec true and false), found {tc_fns}")
     for f, n in counts.items():
         check(n > 0 if f in tc_fns else n == 0, f"SASS: {f} holds {n} HMMA")
     return counts
@@ -684,6 +703,7 @@ def kernel_phase(tc, F, torch) -> dict:
         r["bf16_b1"].update(graph_ms_block1=0.0, graph_ms_blocks2_4=0.0)
         r["bf16_agreement"] = []
     res["cnn4_block_bwd_params"]["rounded_dy_share"] = []
+    res["cnn4_block_bwd_input"]["rounded_dy_share"] = []
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     B, N, co = BATCH, WAYS * SHOTS, HIDDEN
 
@@ -691,13 +711,10 @@ def kernel_phase(tc, F, torch) -> dict:
         prev = res[name]["max_abs_err"].get(dname, 0.0)
         res[name]["max_abs_err"][dname] = max(prev, e)
 
-    def agreement(name, output, got, want, what, checked=True):
+    def agreement(name, output, got, want, what):
         """bf16: one output's ulp ratio and share against its float64 twin,
-        kept and printed per output and shape (held for the tensor-core
-        kernels)."""
-        a = (held_bf16(tc, got, want, f"{name} {output} {what}") if checked
-             else dict(zip(("over", "share"), tc.bf16_agreement(got, want)),
-                       n=want.numel()))
+        held, kept and printed per output and shape."""
+        a = held_bf16(tc, got, want, f"{name} {output} {what}")
         res[name]["bf16_agreement"].append(
             {"shape": what, "output": output, **a})
         print(f"  bf16 {name} {output} {what}: {a['share']} of {a['n']} "
@@ -712,13 +729,19 @@ def kernel_phase(tc, F, torch) -> dict:
                 x, w, b, sc, be, acc=torch.float64), what)
 
     def held_bwd_input(dy, w, h, dname, what):
+        """dx against its twin, and twice bitwise equal; in bf16 (the
+        tensor cores) also by held_bf16 against the twin taken in
+        float64."""
         got = tc.block_bwd_input(dy, w, h, h)
         want = tc.block_bwd_input_plain(dy, w, h, h)
         note("cnn4_block_bwd_input", dname,
              held(torch, got, want, dname, what))
-        if dname == "bfloat16":   # CUDA cores in both dtypes: reported
-            agreement("cnn4_block_bwd_input", "dx", got, want, what,
-                      checked=False)
+        if dname == "bfloat16":
+            agreement("cnn4_block_bwd_input", "dx", got,
+                      tc.block_bwd_input_plain(dy, w, h, h,
+                                               acc=torch.float64), what)
+        check(torch.equal(got, tc.block_bwd_input(dy, w, h, h)),
+              f"{dname} {what}: bwd_input bitwise equal in two calls")
 
     def held_bwd_params(x, w, b, sc, be, g, dname, what):
         """bwd_params against its twin, and twice bitwise equal -> its
@@ -848,6 +871,14 @@ def kernel_phase(tc, F, torch) -> dict:
                 check(share > 10 * tc.BF16_SHARE,
                       f"{what}: a dw from a bf16-rounded dy differs in a "
                       f"share {share}, which the bf16 check would pass")
+                if blk > 0:   # and a dx from it (block 1 has no dx)
+                    share = tc.rounded_dy_dx_share(dy, w, h, h)
+                    res["cnn4_block_bwd_input"]["rounded_dy_share"].append(
+                        share)
+                    check(share > 10 * tc.BF16_SHARE,
+                          f"{what}: a dx from a bf16-rounded dy differs in "
+                          f"a share {share}, which the bf16 check would "
+                          f"pass")
                 bf16_rows(B, blk, x, w, b, sc, be, g, dy, "bf16")
                 continue
             o = grouped(x, w, b, sc, be, dy)
@@ -921,6 +952,14 @@ def kernel_phase(tc, F, torch) -> dict:
                 held_bwd_input(dy, w, h, dname, what)
                 torch.cuda.synchronize()
                 bf16_rows(1, blk, x, w, b, sc, be, g, dy, "bf16_b1")
+    # bf16 dx per block
+    for key in ("bf16", "bf16_b1"):
+        print(f"kernel cnn4_block_bwd_input {key} per block: " + "; ".join(
+            f"block {sh['block']} ms {sh['ms']}"
+            + (f" graph_ms {sh['graph_ms']}" if "graph_ms" in sh else "")
+            + f" bound_ms {sh['bound_ms']}"
+            for sh in res["cnn4_block_bwd_input"][key]["shapes"]),
+            flush=True)
     for name, r in res.items():
         for dname, shapes in (("f32", r["shapes"]),
                               ("bf16", r["bf16"]["shapes"]),
@@ -1108,6 +1147,17 @@ def serve_phase(torch, np, tc, gpu) -> dict:
         print(f"serve {dname}: {BATCH / serve_s[dname]} requests/s, "
               f"{1e3 * serve_s[dname]} ms per batch of {BATCH} [{gpu}]",
               flush=True)
+        if dt is not None:
+            # a replayed bf16 batch takes dx on the tensor cores: three
+            # launches of bwd_input_tc_kernel, none of the f32 kernel
+            named = launch_profile(torch, lambda: srv.batch(sx, sy, qx), 1,
+                                   CNN4_KERNEL_NAMES)["named_kernels"]
+            check(named["bwd_input_tc_kernel"] == 3
+                  and named["bwd_input_kernel"] == 0,
+                  f"a bf16 served batch runs dx on the tensor cores: "
+                  f"{named}")
+            bf16_kernels = named
+            print(f"kernels of a replayed bf16 batch: {named}", flush=True)
 
     device_us, top = device_profile(torch, lambda: server.batch(sx, sy, qx))
     print(f"profile of one served batch: kernels busy {device_us} us of "
@@ -1116,6 +1166,7 @@ def serve_phase(torch, np, tc, gpu) -> dict:
         print(f"  {us:12.1f} us  x{count:4d}  {key}")
 
     return {"launches": launches, "serve_s": serve_s,
+            "bf16_named_kernels": bf16_kernels,
             "support_acc": support_acc, "query_acc": query_acc,
             "profile_top": top, "profile_device_us": device_us}
 
@@ -6369,6 +6420,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": "bytes" if r["bytes_ms"] >= r["ops_ms"] else "operations",
             "library_ms": r["library_ms"],
+            **({"cuda_kernels": CNN4_WRAPPER_KERNELS[name]}
+               if name in CNN4_WRAPPER_KERNELS else {}),
             **({f"bf16_{k}": r["bf16"][k]
                 for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
                if "bf16" in r else {})})

@@ -43,9 +43,7 @@
 //   itself, which is the padding. Each of 256 threads keeps a 4 x 4 tile of
 //   f32 accumulators in registers and reads its operands as float4: 16
 //   FMAs for every 2 shared loads, and 16 independent chains per thread.
-// - In bf16, cnn4_block_bwd_input converts its loads to f32 in registers
-//   on their way to shared memory (cp.async cannot convert); the math is
-//   the same f32 FMAs. (bf16's forward conv takes the tensor cores, below.)
+// - These kernels are f32 only: bf16 takes the tensor cores (below).
 // - Outputs go through a shared-memory tile, so each thread stores 4
 //   contiguous channels of one position (16 bytes in f32).
 // - Shapes the 16-byte path does not fit (Ci or Co not a multiple of the
@@ -120,8 +118,9 @@
 // card about 528 CTAs, two waves at two CTAs an SM (block 1: 64 tiles of
 // dw in a batch, so 9 chunks; blocks 2-4: 576 tiles, one chunk).
 //
-// bf16: the conv of cnn4_block_fwd and of cnn4_block_bwd_params, and the
-// dw GEMM, on the tensor cores (mma.sync m16n8k16, bf16 in, f32 out).
+// bf16: the conv of cnn4_block_fwd and of cnn4_block_bwd_params, the dw
+// GEMM and the dx GEMMs of cnn4_block_bwd_input, on the tensor cores
+// (mma.sync m16n8k16, bf16 in, f32 out).
 //
 // What bounds them. With the products on the tensor cores (989 TFLOP/s
 // dense bf16 on an H100 SXM at 700 W) the forward's four served shapes
@@ -130,17 +129,19 @@
 // at 0.55 and 1.46 ms (B = 64, N = 25) was the f32 FMA design above. What
 // holds them now: the f32 y scratch (block 1: 80 MB written, read back by
 // kernel B, the tile sums and the dy pass) and the L2 traffic of 64 x 64
-// tiles (the dw GEMM's nine row tiles each read all of dy's terms).
+// tiles (the dw GEMM's nine row tiles each read all of dy's terms). dx
+// reads dy (f32) and writes dx (bf16): 28.6 us of bytes at blocks 2-4 of a
+// served batch, against 25 us of operations for its three MMAs a product.
 //
 // Precision. The reference upcasts bf16 inputs and contracts at HIGHEST in
 // f32. A product of two bf16 is exact in f32, so the conv's MMAs (bf16 x
 // and w) take the same products as f32 FMAs. dw's other operand, dy, is
 // f32: it goes in as three bf16 terms, hi + mid + lo == dy (split3), three
-// MMAs a k-step whose products are exact. The tensor cores round a running
-// sum toward zero inside each MMA: left to accumulate a whole reduction,
-// that moved 0.13-0.24 % of the bf16 dw elements off the twin's (PERF.md),
-// so each stage's MMAs sum from zero and the stage's sum is added to the
-// accumulator in f32.
+// MMAs a k-step whose products are exact; so does dx's operand dy. The
+// tensor cores round a running sum toward zero inside each MMA: left to
+// accumulate a whole reduction, that moved 0.13-0.24 % of the bf16 dw
+// elements off the twin's (PERF.md), so each stage's MMAs sum from zero
+// and the stage's sum is added to the accumulator in f32.
 //
 // What the design does about it:
 // - conv_tile_tc: a CTA owns 64 positions x 64 channels, 8 warps of 16 x
@@ -163,6 +164,18 @@
 //   all nine row tiles, one stage ahead, that took bwd_params at block 2
 //   from 0.40 to 0.23 ms (PERF.md). db is summed from the terms by the CTAs
 //   of row tile 0; chunks and their reduce as in f32.
+// - bwd_input_tc_kernel: the f32 kernel's four parity-class GEMMs and grid,
+//   the CTA's 64 x 64 tile in conv_tile_tc's warp layout. A stage is 32
+//   channels co of one tap: dy's rows loaded 16 bytes at a time into
+//   registers a stage ahead (cp.async cannot convert), split into three
+//   bf16 terms (split3x2) and stored as three A slices; w[tap] as it lies,
+//   [ci][co], is the MMA's .col B operand, copied by cp.async and read by
+//   ldmatrix without .trans. Two stages in 40 KB of static shared memory:
+//   a 3-stage ring with dy loaded two or three stages ahead, and dy staged
+//   unconverted by cp.async and split per MMA fragment, each measured
+//   slower (PERF.md). It does not read the terms bwd_params wrote: they
+//   are 6 bytes an element against dy's 4, and that workspace is gone by
+//   then.
 //
 // Every sum has a fixed order (k or m ascending within a thread, the row
 // groups, stages, tiles and chunks in order) and no result is summed with
@@ -244,16 +257,11 @@ __device__ __forceinline__ float4 load_row4(const T* p, int limit, bool vec) {
                      limit > 2 ? ld(p + 2) : 0.f, limit > 3 ? ld(p + 3) : 0.f);
 }
 
-// dst[0..3] <- src[0..3] as f32, or zeros where !valid (src is then not
-// read). f32 goes as one 16-byte cp.async; bf16 through registers.
+// dst[0..3] <- src[0..3], or zeros where !valid (src is then not read):
+// one 16-byte cp.async.
 __device__ __forceinline__ void stage4(float* dst, const float* src,
                                        bool valid) {
   __pipeline_memcpy_async(dst, src, 16, valid ? 0 : 16);
-}
-__device__ __forceinline__ void stage4(float* dst, const __nv_bfloat16* src,
-                                       bool valid) {
-  *reinterpret_cast<float4*>(dst) =
-      valid ? ld4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 __device__ __forceinline__ void st4(float* p, float4 v) {
@@ -590,27 +598,57 @@ __host__ __device__ inline int class_extent(int extent, int parity) {
 __host__ __device__ inline int class_ph(int cls) { return cls < 2 ? 1 : 0; }
 __host__ __device__ inline int class_pw(int cls) { return (cls & 1) ? 0 : 1; }
 
-// cnn4_block_bwd_input. grid (tiles of all four classes, ceil(Ci/64), B).
-// dx[n, hi, wi, ci] = sum over the class's taps (ty, tx) and co of
-// dy[n, i, j, co] * w[ty, tx, ci, co]. kVec (Co % 16 == 0): a stage is 16
-// channels co of one tap, copied 16 bytes at a time.
-template <typename T, bool kVec>
+// The CTA's parity class of cnn4_block_bwd_input: blockIdx.x counts the
+// tiles of kTileM positions of all four classes, heaviest first. -> the
+// class, its tile, its extents hc x wc and its P = N hc wc positions.
+struct DxClass {
+  int cls, tile, hc, wc, P;
+};
+__device__ __forceinline__ DxClass dx_class(const Shape& s) {
+  DxClass c{0, (int)blockIdx.x, 0, 0, 0};
+  for (; c.cls < 4; ++c.cls) {
+    c.hc = class_extent(s.H, class_ph(c.cls));
+    c.wc = class_extent(s.W, class_pw(c.cls));
+    c.P = s.N * c.hc * c.wc;
+    if (c.tile < cdiv(c.P, kTileM)) break;
+    c.tile -= cdiv(c.P, kTileM);
+  }
+  return c;
+}
+
+// Stage c of a class's K loop, `width` channels co a stage and nco stages a
+// tap: tap u = c / nco of the class, channels co0 .. co0 + width - 1. Tap
+// (ky, kx) of the class is w[wtap] read from dy[n, a + di, b + dj].
+struct DxTap {
+  int wtap, di, dj, co0;
+};
+__device__ __forceinline__ DxTap dx_tap(int c, int nco, int ph, int pw,
+                                        int width) {
+  const int ntx = 1 + pw, u = c / nco, ky = u / ntx, kx = u - ky * ntx;
+  DxTap tp;
+  tp.wtap = (ph ? 2 * ky : 1) * 3 + (pw ? 2 * kx : 1);
+  tp.di = ph ? 1 - ky : 0;
+  tp.dj = pw ? 1 - kx : 0;
+  tp.co0 = (c - u * nco) * width;
+  return tp;
+}
+
+// cnn4_block_bwd_input in f32 (bf16: bwd_input_tc_kernel). grid (tiles of
+// all four classes, ceil(Ci/64), B). dx[n, hi, wi, ci] = sum over the
+// class's taps (ty, tx) and co of dy[n, i, j, co] * w[ty, tx, ci, co].
+// kVec (Co % 16 == 0): a stage is 16 channels co of one tap, copied 16
+// bytes at a time.
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-bwd_input_kernel(const float* __restrict__ dy, const T* __restrict__ w,
-                 T* __restrict__ dx, Shape s) {
+bwd_input_kernel(const float* __restrict__ dy, const float* __restrict__ w,
+                 float* __restrict__ dx, Shape s) {
   __shared__ __align__(16) float ring[kRing];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int ci0 = blockIdx.y * kTileN, t = blockIdx.z;
-  int cls = 0, tile = blockIdx.x, hc = 0, wc = 0, P = 0;
-  for (; cls < 4; ++cls) {
-    hc = class_extent(s.H, class_ph(cls));
-    wc = class_extent(s.W, class_pw(cls));
-    P = s.N * hc * wc;
-    if (tile < cdiv(P, kTileM)) break;
-    tile -= cdiv(P, kTileM);
-  }
+  const DxClass dc = dx_class(s);
+  const int cls = dc.cls, tile = dc.tile, hc = dc.hc, wc = dc.wc, P = dc.P;
   const int ph = class_ph(cls), pw = class_pw(cls);
-  const int ntx = 1 + pw, ntaps = (1 + ph) * ntx;
+  const int ntaps = (1 + ph) * (1 + pw);
   const int p0 = tile * kTileM;
   const int nco = cdiv(s.Co, kTileK);  // stages per tap
   dy += (size_t)t * s.M * s.Co;
@@ -623,20 +661,7 @@ bwd_input_kernel(const float* __restrict__ dy, const T* __restrict__ w,
 #pragma unroll
     for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
   auto mma = [&](const float* buf) { mma_nt(buf, buf + kSliceA, acc, tx, ty); };
-  // stage c: tap u = c / nco of the class, channels co0 .. co0 + 15; tap
-  // (ky, kx) of the class is w[ty_w, tx_w] read from dy[n, a + di, b + dj]
-  struct Tap {
-    int wtap, di, dj, co0;
-  };
-  auto tap_of = [&](int c) {
-    const int u = c / nco, ky = u / ntx, kx = u - ky * ntx;
-    Tap tp;
-    tp.wtap = (ph ? 2 * ky : 1) * 3 + (pw ? 2 * kx : 1);
-    tp.di = ph ? 1 - ky : 0;
-    tp.dj = pw ? 1 - kx : 0;
-    tp.co0 = (c - u * nco) * kTileK;
-    return tp;
-  };
+  auto tap_of = [&](int c) { return dx_tap(c, nco, ph, pw, kTileK); };
   if constexpr (kVec) {
     const int row = tid >> 2, q = tid & 3;  // A piece; B piece: ci row `row`
     const int p = p0 + row;
@@ -645,7 +670,7 @@ bwd_input_kernel(const float* __restrict__ dy, const T* __restrict__ w,
     const float* dyn = dy + (in ? (size_t)n * s.Ho * s.Wo * s.Co : 0);
     const bool bin = ci0 + row < s.Ci;
     k_loop(ntaps * nco, ring, [&](int c, float* buf) {
-      const Tap tp = tap_of(c);
+      const DxTap tp = tap_of(c);
       const int i = a + tp.di, j = bb + tp.dj;
       const bool ok = in && i < s.Ho && j < s.Wo;
       stage4(buf + row * kLdK + 4 * q,
@@ -659,7 +684,7 @@ bwd_input_kernel(const float* __restrict__ dy, const T* __restrict__ w,
     }, mma);
   } else {
     k_loop(ntaps * nco, ring, [&](int c, float* buf) {
-      const Tap tp = tap_of(c);
+      const DxTap tp = tap_of(c);
       for (int e = tid; e < kTileM * kTileK; e += kThreads) {
         const int row = e / kTileK, co = tp.co0 + e % kTileK, p = p0 + row;
         float v = 0.f;
@@ -1536,6 +1561,240 @@ cudaError_t dw_tc_smem_once() {
   return e;
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: the dx GEMMs of cnn4_block_bwd_input
+// ---------------------------------------------------------------------------
+
+// A stage: dy's hi, mid and lo [m][k] (kLdA), then w[tap] [n][k] (kLdA), k
+// the stage's 32 channels co; two stages.
+constexpr int kDxStage = 3 * kTcSliceA + kTileN * kLdA;  // bf16 elements
+constexpr int kDxRing = 2 * kDxStage;                    // 40,960 bytes
+static_assert(kTileM * kLdC * 4 <= kDxRing * 2, "the epilogue's tile fits");
+static_assert(kThreads * 8 == kTileM * kTcK && kThreads * 8 == kTileN * kTcK,
+              "one 8-channel piece of dy and one of w a thread a stage");
+
+__device__ __forceinline__ unsigned bf16x2_bits(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);  // a in the low half
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// split3 of two values at once, as bf16x2 words (a in the low half): the
+// same three terms, one conversion for every two.
+__device__ __forceinline__ void split3x2(float a, float b, unsigned& hi,
+                                         unsigned& mid, unsigned& lo) {
+  auto low = [](unsigned u) { return __uint_as_float(u << 16); };
+  auto high = [](unsigned u) { return __uint_as_float(u & 0xffff0000u); };
+  hi = bf16x2_bits(a, b);
+  const float ra = a - low(hi), rb = b - high(hi);
+  mid = bf16x2_bits(ra, rb);
+  lo = bf16x2_bits(ra - low(mid), rb - high(mid));
+}
+
+// cnn4_block_bwd_input in bf16, on the tensor cores. grid as
+// bwd_input_kernel's, (tiles of all four classes, ceil(Ci/64), B), and the
+// same GEMM a class: dx[p][ci] = sum over the class's taps and co of
+// dy[p + tap][co] w[tap][ci][co]. A stage is 32 channels co of one tap. A:
+// dy's rows (f32), each split into three bf16 terms hi + mid + lo == dy
+// (split3x2), three [m][k] slices; B: w[tap] as it lies, [ci][co] = [n][k]
+// with k contiguous, the .col operand of mma.sync, read by ldmatrix without
+// .trans. Three MMAs a k-step and tile (hi, mid, lo times w, each product
+// exact in f32); a stage's MMAs sum from zero, and the stage's sum is added
+// to acc in f32. kVec (Co % 8 == 0, dy and w 16-byte aligned): each thread
+// loads 8 channels of one position of dy (two 16-byte loads) into
+// registers, issued before the current stage's MMAs, split and stored
+// after them (16 bytes a term), and copies 8 channels of one row of w by
+// cp.async; zero past Co, Ci and the image. Else element by element,
+// between the MMAs. The
+// epilogue stores dx through a shared-memory tile: 16 bytes (8 channels) a
+// piece where vec8 (Ci % 8 == 0, dx 16-byte aligned), else element by
+// element. Warps whose 32 columns lie past Ci skip their MMAs (block 1:
+// Ci = 1).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+bwd_input_tc_kernel(const float* __restrict__ dy, const bf16* __restrict__ w,
+                    bf16* __restrict__ dx, bool vec8, Shape s) {
+  __shared__ __align__(16) bf16 ring[kDxRing];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lj = lane >> 3, lr = lane & 7;
+  const int wm = warp & 3, wn = warp >> 2;  // rows 16 wm .., columns 32 wn ..
+  const int ci0 = blockIdx.y * kTileN, t = blockIdx.z;
+  const DxClass dc = dx_class(s);
+  const int hc = dc.hc, wc = dc.wc, P = dc.P;
+  const int ph = class_ph(dc.cls), pw = class_pw(dc.cls);
+  const int p0 = dc.tile * kTileM;
+  const int nco = cdiv(s.Co, kTcK);                 // stages per tap
+  const int nk = (1 + ph) * (1 + pw) * nco;
+  dy += (size_t)t * s.M * s.Co;
+  w += (size_t)t * 9 * s.Ci * s.Co;
+  dx += (size_t)t * s.N * s.H * s.W * s.Ci;
+  const bf16 zero = __ushort_as_bfloat16(0);
+
+  // kVec pieces: channels 8 bq .. + 7 of the stage, of dy at position
+  // p0 + br and of w at row ci0 + br
+  const int br = tid >> 2, bq = tid & 3;
+  const int pp = p0 + br;
+  const bool pin = pp < P;
+  const int pb = pp % wc, pa = (pp / wc) % hc;
+  const float* dyn =
+      dy + (pin ? (size_t)(pp / (wc * hc)) * s.Ho * s.Wo * s.Co : 0);
+  const bool bin = ci0 + br < s.Ci;
+  float4 av[2];
+  auto load_a = [&](int c) {
+    const DxTap tp = dx_tap(c, nco, ph, pw, kTcK);
+    const int i = pa + tp.di, j = pb + tp.dj;
+    const bool ok = pin && tp.co0 + 8 * bq < s.Co && i < s.Ho && j < s.Wo;
+    const float* src = dyn + ((size_t)i * s.Wo + j) * s.Co + tp.co0 + 8 * bq;
+    av[0] = ok ? ld4(src) : make_float4(0.f, 0.f, 0.f, 0.f);
+    av[1] = ok ? ld4(src + 4) : make_float4(0.f, 0.f, 0.f, 0.f);
+  };
+  auto store_a = [&](bf16* buf) {
+    uint4 hi, mid, lo;
+    split3x2(av[0].x, av[0].y, hi.x, mid.x, lo.x);
+    split3x2(av[0].z, av[0].w, hi.y, mid.y, lo.y);
+    split3x2(av[1].x, av[1].y, hi.z, mid.z, lo.z);
+    split3x2(av[1].z, av[1].w, hi.w, mid.w, lo.w);
+    const int off = br * kLdA + 8 * bq;
+    *reinterpret_cast<uint4*>(buf + off) = hi;
+    *reinterpret_cast<uint4*>(buf + kTcSliceA + off) = mid;
+    *reinterpret_cast<uint4*>(buf + 2 * kTcSliceA + off) = lo;
+  };
+  auto copy_b = [&](int c, bf16* buf) {
+    const DxTap tp = dx_tap(c, nco, ph, pw, kTcK);
+    const bool ok = bin && tp.co0 + 8 * bq < s.Co;
+    __pipeline_memcpy_async(
+        buf + 3 * kTcSliceA + br * kLdA + 8 * bq,
+        ok ? w + ((size_t)tp.wtap * s.Ci + ci0 + br) * s.Co + tp.co0 + 8 * bq
+           : w,
+        16, ok ? 0 : 16);
+  };
+  auto stage_elems = [&](int c, bf16* buf) {
+    const DxTap tp = dx_tap(c, nco, ph, pw, kTcK);
+    for (int e = tid; e < kTileM * kTcK; e += kThreads) {
+      const int row = e / kTcK, kk = e % kTcK, co = tp.co0 + kk, p = p0 + row;
+      float v = 0.f;
+      if (p < P && co < s.Co) {
+        const int j = p % wc + tp.dj, i = (p / wc) % hc + tp.di;
+        const int n = p / (wc * hc);
+        if (i < s.Ho && j < s.Wo)
+          v = dy[(((size_t)n * s.Ho + i) * s.Wo + j) * s.Co + co];
+      }
+      bf16 hi, mid, lo;
+      split3(v, hi, mid, lo);
+      buf[row * kLdA + kk] = hi;
+      buf[kTcSliceA + row * kLdA + kk] = mid;
+      buf[2 * kTcSliceA + row * kLdA + kk] = lo;
+    }
+    for (int e = tid; e < kTileN * kTcK; e += kThreads) {
+      const int r = e / kTcK, kk = e % kTcK, ci = ci0 + r, co = tp.co0 + kk;
+      buf[3 * kTcSliceA + r * kLdA + kk] =
+          ci < s.Ci && co < s.Co ? w[((size_t)tp.wtap * s.Ci + ci) * s.Co + co]
+                                 : zero;
+    }
+  };
+
+  // one stage's MMAs: hi, mid and lo times w, summed from zero, then into
+  // acc (tc_rc's layout)
+  float acc[4][4] = {};
+  const bool cols = ci0 + 32 * wn < s.Ci;  // this warp's columns hold a ci
+  auto consume = [&](int c, const bf16* buf) {
+    if (!cols) return;
+    const int ksteps = s.Co - dx_tap(c, nco, ph, pw, kTcK).co0 > 16 ? 2 : 1;
+    float part[4][4] = {};
+#pragma unroll
+    for (int ks = 0; ks < kTcK / 16; ++ks) {
+      if (ks >= ksteps) break;
+      unsigned a[3][4];
+#pragma unroll
+      for (int term = 0; term < 3; ++term)
+        ldsm_x4(a[term], buf + term * kTcSliceA +
+                             (16 * wm + lr + 8 * (lj & 1)) * kLdA + 16 * ks +
+                             8 * (lj >> 1));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // n-tiles 2h, 2h + 1: rows n of the [n][k] slice, k 0-7 | 8-15
+        unsigned b[4];
+        ldsm_x4(b, buf + 3 * kTcSliceA +
+                       (32 * wn + 16 * h + 8 * (lj >> 1) + lr) * kLdA +
+                       16 * ks + 8 * (lj & 1));
+#pragma unroll
+        for (int term = 0; term < 3; ++term) {
+          mma_bf16(part[2 * h], a[term], b[0], b[1]);
+          mma_bf16(part[2 * h + 1], a[term], b[2], b[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] += part[n][i];
+  };
+
+  // the K loop on two stages: stage c + 1's copies and loads are in flight
+  // while stage c's MMAs run; one barrier a stage
+  if constexpr (kVec) {
+    load_a(0);
+    copy_b(0, ring);
+    __pipeline_commit();
+    store_a(ring);
+  } else {
+    stage_elems(0, ring);
+  }
+  for (int c = 0; c < nk; ++c) {
+    const bf16* cur = ring + (c & 1) * kDxStage;
+    bf16* nxt = ring + ((c + 1) & 1) * kDxStage;  // last read in stage c - 1
+    const bool more = c + 1 < nk;
+    if constexpr (kVec) __pipeline_wait_prior(0);
+    __syncthreads();
+    if constexpr (kVec) {
+      if (more) {
+        copy_b(c + 1, nxt);
+        __pipeline_commit();
+        load_a(c + 1);
+      }
+    }
+    consume(c, cur);
+    if (more) {
+      if constexpr (kVec)
+        store_a(nxt);
+      else
+        stage_elems(c + 1, nxt);
+    }
+  }
+  __syncthreads();  // every warp is done with the ring
+
+  // through the tile: each thread then stores 8 contiguous channels
+  float* C = reinterpret_cast<float*>(ring);
+  int r0, c0;
+  tc_rc(r0, c0);
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    *reinterpret_cast<float2*>(C + r0 * kLdC + c0 + 8 * n) =
+        make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(C + (r0 + 8) * kLdC + c0 + 8 * n) =
+        make_float2(acc[n][2], acc[n][3]);
+  }
+  __syncthreads();
+  for (int e = tid; e < kTileM * kTileN / 8; e += kThreads) {
+    const int row = e >> 3, col = 8 * (e & 7), p = p0 + row;
+    if (p >= P || ci0 + col >= s.Ci) continue;
+    const int bb = p % wc, a = (p / wc) % hc, n = p / (wc * hc);
+    const size_t pos = ((size_t)n * s.H + 2 * a + ph) * s.W + 2 * bb + pw;
+    bf16* out = dx + pos * s.Ci + ci0 + col;
+    const float4 v0 = *reinterpret_cast<const float4*>(C + row * kLdC + col);
+    const float4 v1 =
+        *reinterpret_cast<const float4*>(C + row * kLdC + col + 4);
+    if (vec8) {
+      *reinterpret_cast<uint4*>(out) =
+          make_uint4(bf16x2_bits(v0.x, v0.y), bf16x2_bits(v0.z, v0.w),
+                     bf16x2_bits(v1.x, v1.y), bf16x2_bits(v1.z, v1.w));
+    } else {
+      const int limit = s.Ci - ci0 - col;
+      for (int u = 0; u < 8 && u < limit; ++u)
+        out[u] = __float2bfloat16(u < 4 ? f4(v0, u) : f4(v1, u - 4));
+    }
+  }
+}
+
 Shape make_shape(int N, int H, int W, int Ci, int Co) {
   Shape s;
   s.N = N; s.H = H; s.W = W; s.Ci = Ci; s.Co = Co;
@@ -1689,8 +1948,10 @@ int launch_bwd_params(const T* x, const T* w, const T* b, const T* sc,
   return (int)cudaGetLastError();
 }
 
+// f32 on the CUDA cores (bwd_input_kernel), bf16 on the tensor cores
+// (bwd_input_tc_kernel); one launch, no workspace.
 template <typename T>
-int launch_bwd_input(const void* dy, const void* w, void* dx, int B,
+int launch_bwd_input(const float* dy, const T* w, T* dx, int B,
                      const Shape& s, cudaStream_t st) {
   int tiles = 0;
   for (int cls = 0; cls < 4; ++cls)
@@ -1699,12 +1960,19 @@ int launch_bwd_input(const void* dy, const void* w, void* dx, int B,
                   kTileM);
   if (B == 0 || tiles == 0) return 0;
   const dim3 grid(tiles, cdiv(s.Ci, kTileN), B);
-  if (s.Co % kTileK == 0 && aligned16(dy) && aligned16(w))
-    bwd_input_kernel<T, true><<<grid, kThreads, 0, st>>>(
-        (const float*)dy, (const T*)w, (T*)dx, s);
-  else
-    bwd_input_kernel<T, false><<<grid, kThreads, 0, st>>>(
-        (const float*)dy, (const T*)w, (T*)dx, s);
+  if constexpr (std::is_same<T, bf16>::value) {
+    const bool vec8 = s.Ci % 8 == 0 && aligned16(dx);
+    if (s.Co % 8 == 0 && aligned16(dy) && aligned16(w))
+      bwd_input_tc_kernel<true><<<grid, kThreads, 0, st>>>(dy, w, dx, vec8,
+                                                           s);
+    else
+      bwd_input_tc_kernel<false><<<grid, kThreads, 0, st>>>(dy, w, dx, vec8,
+                                                            s);
+  } else if (s.Co % kTileK == 0 && aligned16(dy) && aligned16(w)) {
+    bwd_input_kernel<true><<<grid, kThreads, 0, st>>>(dy, w, dx, s);
+  } else {
+    bwd_input_kernel<false><<<grid, kThreads, 0, st>>>(dy, w, dx, s);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1762,8 +2030,13 @@ int cnn4_block_bwd_input(int dtype, const void* dy, const void* w, void* dx,
                          void* stream) {
   const Shape s = make_shape(N, H, W, Ci, Co);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_bwd_input<float>(dy, w, dx, B, s, st);
-  if (dtype == 1) return launch_bwd_input<__nv_bfloat16>(dy, w, dx, B, s, st);
+  using H16 = __nv_bfloat16;
+  if (dtype == 0)
+    return launch_bwd_input<float>((const float*)dy, (const float*)w,
+                                   (float*)dx, B, s, st);
+  if (dtype == 1)
+    return launch_bwd_input<H16>((const float*)dy, (const H16*)w, (H16*)dx, B,
+                                 s, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -22,12 +22,13 @@ Every tensor has a leading task axis B (the JAX single-task form is
 B = 1): x ``[B, N, H, W, Ci]`` NHWC, w ``[B, 3, 3, Ci, Co]`` HWIO,
 b/scale/bias ``[B, Co]``, all of one dtype (float32 or bfloat16; math in
 float32, outputs in that dtype). float32 computes on the CUDA cores (no
-TF32, as the reference's ``Precision.HIGHEST``). bfloat16's conv and dw
-products run on the tensor cores (``mma.sync`` m16n8k16, f32
-accumulation); dw's f32 operand dy goes in as three bf16 terms whose sum
-is dy (:func:`split3_bf16`), so both carry float32 products, as JAX's
-kernel does after upcasting its bf16 inputs (:func:`dw_split3_plain`
-emulates that arithmetic).
+TF32, as the reference's ``Precision.HIGHEST``). bfloat16's conv, dw and
+dx products run on the tensor cores (``mma.sync`` m16n8k16, f32
+accumulation); dw's and dx's f32 operand dy goes in as three bf16 terms
+whose sum is dy (:func:`split3_bf16`), so all three carry float32
+products, as JAX's kernel does after upcasting its bf16 inputs
+(:func:`dw_split3_plain` and :func:`dx_split3_plain` emulate that
+arithmetic).
 
 Each wrapper (:func:`block_fwd`, :func:`block_bwd_params`,
 :func:`block_bwd_input`) runs the plain PyTorch twin for CPU tensors and
@@ -42,10 +43,12 @@ Beside the twins stand plain versions of the kernels' decompositions
 :func:`bwd_tile_sums_plain`, :func:`combine_bwd_sums_plain`,
 :func:`bwd_dy_plain`, :func:`dw_split_plain`, :func:`split3_bf16`,
 :func:`dw_split3_plain`, :func:`parity_classes`,
-:func:`block_bwd_input_parity_plain`), which the tests hold against the
-JAX package; :func:`bf16_agreement` and :func:`bf16_share_holds`, the
-bf16 kernels' check against a twin taken in float64 (``acc``), with
-:func:`rounded_dy_share`, what that check gives a dy rounded to one bf16;
+:func:`block_bwd_input_parity_plain`, :func:`dx_split3_plain`), which the
+tests hold against the JAX package; :func:`bf16_agreement` and
+:func:`bf16_share_holds`, the bf16 kernels' check against a twin taken in
+float64 (``acc``), with :func:`rounded_dy_share` and
+:func:`rounded_dy_dx_share`, what that check gives a dy rounded to one
+bf16;
 and :func:`block_inputs`, random inputs for such checks on the card.
 """
 
@@ -64,6 +67,7 @@ EPS = 1e-5
 _TILE_M = 64              # kTileM: positions (or dw rows) per CTA
 _TILE_N = 64              # kTileN: channels per CTA
 _TILE_K = 16              # kTileK: positions per stage of the dw GEMM
+_TC_K = 32                # kTcK: channels co per stage of the bf16 dx GEMMs
 _DW_CTAS = 4 * 132        # kDwCtas: CTAs the dw grid aims at
 _DW_MIN_CHUNK = 256       # kDwMinChunk: fewest positions in a dw chunk
 MAX_TASKS = 65535         # the task axis is gridDim.y or .z of every kernel
@@ -178,13 +182,16 @@ def block_bwd_params_plain(x, w, b, scale, bias, g, acc=torch.float32):
     return dy, dw.to(pd), db.to(pd), dscale.to(pd), dbias.to(pd)
 
 
-def block_bwd_input_plain(dy, w, h: int, wd: int) -> torch.Tensor:
+def block_bwd_input_plain(dy, w, h: int, wd: int,
+                          acc=torch.float32) -> torch.Tensor:
     """dx of the conv from its output cotangent dy (f32): the transposed
-    stride-2 conv, as the tap scatter of ``_conv_s2_bwd``."""
+    stride-2 conv, as the tap scatter of ``_conv_s2_bwd``, computed in
+    ``acc`` (float64: the reference the bf16 kernel is held to)."""
     B, N, ho, wo, _ = dy.shape
     ci = w.shape[3]
+    dy = dy.to(acc)
     dxp = dy.new_zeros(B, N, h + 2, wd + 2, ci)
-    wf = w.float()
+    wf = w.to(acc)
     for dyy in range(3):
         for dxx in range(3):
             dxp[:, :, dyy:dyy + 2 * ho - 1:2, dxx:dxx + 2 * wo - 1:2, :] += \
@@ -316,6 +323,32 @@ def dw_split3_plain(x, dy, chunk: int, step: int = _TILE_K):
     return dw.reshape(B, 3, 3, ci, co)
 
 
+def dx_split3_plain(dy, w, h: int, wd: int, step: int = _TC_K):
+    """dx as ``bwd_input_tc_kernel`` computes it in bfloat16: per parity
+    class (:func:`parity_classes`) and stage of ``step`` channels co of one
+    tap, each of dy's three bf16 terms times w (bf16), every product exact
+    in float32, the three terms' products summed from zero, then added to
+    the class's sum in float32, stages in the kernel's order. dy ``[B, N,
+    Ho, Wo, Co]`` f32 -> dx ``[B, N, h, wd, Ci]`` f32."""
+    B, N, ho, wo, co = dy.shape
+    dx = dy.new_zeros(B, N, h, wd, w.shape[3], dtype=torch.float32)
+    # row Ho and column Wo are zero
+    terms = [F.pad(t.float(), (0, 0, 0, 1, 0, 1)) for t in split3_bf16(dy)]
+    wf = w.float()
+    for (ph, pw), taps in parity_classes():
+        hc, wc = (h - ph + 1) // 2, (wd - pw + 1) // 2
+        acc = dx.new_zeros(B, N, hc, wc, w.shape[3])
+        for ty, tx, di, dj in taps:
+            for c0 in range(0, co, step):
+                wt = wf[:, ty, tx, :, c0:c0 + step]
+                acc = acc + sum(torch.einsum(
+                    "bnhwo,bco->bnhwc",
+                    t[:, :, di:di + hc, dj:dj + wc, c0:c0 + step], wt)
+                    for t in terms)
+        dx[:, :, ph::2, pw::2, :] = acc
+    return dx
+
+
 # A bfloat16 output of a kernel against its twin's: within one bfloat16
 # ulp of it plus float32 noise, |got - want| <= 2^-7 |want| + 1e-5
 # max|want|, and equal in all but a share BF16_SHARE of its elements
@@ -360,6 +393,17 @@ def rounded_dy_share(x, w, b, scale, bias, g) -> float:
     return bf16_agreement(rounded.to(dw.dtype), dw)[1]
 
 
+def rounded_dy_dx_share(dy, w, h: int, wd: int) -> float:
+    """The share of dx's bf16 elements that a dx taken from dy rounded to
+    one bf16 gets wrong against the float64 twin's: what a design that
+    rounds dy before the product would give (the dx counterpart of
+    :func:`rounded_dy_share`)."""
+    want = block_bwd_input_plain(dy, w, h, wd, acc=torch.float64)
+    rounded = block_bwd_input_plain(dy.to(torch.bfloat16).to(torch.float64),
+                                    w, h, wd, acc=torch.float64)
+    return bf16_agreement(rounded, want)[1]
+
+
 def block_inputs(gen: torch.Generator, b: int, n: int, h: int, ci: int,
                  co: int, dtype: torch.dtype):
     """Random block inputs on ``gen``'s device: x, w, b, scale, bias and a
@@ -383,9 +427,9 @@ def block_inputs(gen: torch.Generator, b: int, n: int, h: int, ci: int,
 
 def parity_classes():
     """The parity classes (hi % 2, wi % 2) of the input positions in the
-    order of ``bwd_input_kernel``'s grid, each with its taps (ty, tx, di,
-    dj): input (2a + ph, 2b + pw) takes w[ty, tx] times dy at output
-    (a + di, b + dj)."""
+    order of ``bwd_input_kernel``'s and ``bwd_input_tc_kernel``'s grid,
+    each with its taps (ty, tx, di, dj): input (2a + ph, 2b + pw) takes
+    w[ty, tx] times dy at output (a + di, b + dj)."""
     rows = {0: [(1, 0)], 1: [(0, 1), (2, 0)]}
     return [((ph, pw), [(ty, tx, di, dj) for ty, di in rows[ph]
                         for tx, dj in rows[pw]])

@@ -20,14 +20,15 @@ At each CNN4-Omniglot block shape, for each task count of ``--batches``
 each build's three kernels are held against their plain twins as
 ``chip_smoke.py``'s ``kernel_phase`` holds the port's: float32 within
 1e-4 (``chip_smoke.TOL``), the f32 dy too; the bfloat16 outputs of the
-forward and of ``bwd_params`` against the twin taken in float64, by
-:func:`cnn4_cuda.bf16_agreement` and :func:`cnn4_cuda.bf16_share_holds`
-(one bf16 ulp plus f32 noise, and at most ``BF16_SHARE`` of the elements
-differing); dx's share against the f32 twin, reported; db, rounding noise
-by construction, by its magnitude. Beside the builds, two readings of
+forward, of ``bwd_params`` and of ``bwd_input`` against the twin taken in
+float64, by :func:`cnn4_cuda.bf16_agreement` and
+:func:`cnn4_cuda.bf16_share_holds` (one bf16 ulp plus f32 noise, and at
+most ``BF16_SHARE`` of the elements differing); db, rounding noise by
+construction, by its magnitude. Beside the builds, two readings of
 the share check in bfloat16: the f32 twin's own outputs against the
 float64 twin (``twin_f32``: what float32-precision sums give), and a dw
-from dy rounded to one bf16 (:func:`cnn4_cuda.rounded_dy_share`). Then,
+and a dx from dy rounded to one bf16 (:func:`cnn4_cuda.rounded_dy_share`,
+:func:`cnn4_cuda.rounded_dy_dx_share`). Then,
 unless ``--rounds 0``, each kernel's ms a call, back to back in a CUDA
 graph (``utils/profiling.py:graph_ms_per_call``), the builds in turns:
 in order, then reversed, ``--rounds`` times; with ``--profile`` also each
@@ -119,21 +120,21 @@ def _calls(lib, dname, ins):
 
 
 def twins(ins, acc) -> dict:
-    """{kernel: its twin's outputs}, the forward and bwd_params taken in
-    ``acc``; dx in float32."""
+    """{kernel: its twin's outputs}, each taken in ``acc``."""
     x, w, bb, sc, be, g, dyin = ins
     h = x.shape[2]
     return {"cnn4_block_fwd": [tc.block_fwd_plain(x, w, bb, sc, be, acc)],
             "cnn4_block_bwd_params": list(tc.block_bwd_params_plain(
                 x, w, bb, sc, be, g, acc)),
-            "cnn4_block_bwd_input": [tc.block_bwd_input_plain(dyin, w, h, h)]}
+            "cnn4_block_bwd_input": [tc.block_bwd_input_plain(dyin, w, h, h,
+                                                              acc)]}
 
 
 def held(dname, outs, want, want64) -> dict:
     """Each kernel's outputs (``outs``: {kernel: outputs}) against the
     twins' -> per output {"over": its error over its limit} (float32, dy,
     db), or bf16_agreement's ulp ratio and share against the float64 twin
-    with whether the share holds (dx: against the f32 twin, reported)."""
+    with whether the share holds."""
     res = {}
     for kernel, got_all in outs.items():
         names = NAMES if kernel == "cnn4_block_bwd_params" else ("out",)
@@ -151,9 +152,6 @@ def held(dname, outs, want, want64) -> dict:
             elif dname == "float32" or name == "dy":
                 lim = F32_TOL * reff.abs().max() + F32_TOL * reff.abs()
                 res[key] = {"over": float((d / lim).max())}
-            elif kernel == "cnn4_block_bwd_input":
-                over, share = tc.bf16_agreement(got, ref)
-                res[key] = {"over": over, "share": share}
             else:
                 over, share = tc.bf16_agreement(got, want64[kernel][i])
                 res[key] = {"over": over, "share": share,
@@ -245,9 +243,11 @@ def main() -> None:
                 for name, lib in libs.items()}
         if dname == "bfloat16":
             runs["twin_f32"] = want
-            controls[key] = tc.rounded_dy_share(*ins[:6])
-            print(f"{key}: dw from a bf16-rounded dy differs from the "
-                  f"float64 twin's in a share {controls[key]}", flush=True)
+            controls[key] = {
+                "dw": tc.rounded_dy_share(*ins[:6]),
+                "dx": tc.rounded_dy_dx_share(ins[6], ins[1], h, h)}
+            print(f"{key}: dw and dx from a bf16-rounded dy differ from the "
+                  f"float64 twin's in shares {controls[key]}", flush=True)
         for name, outs in runs.items():
             checks.setdefault(name, {})[key] = res = held(dname, outs, want,
                                                           want64)

@@ -20,7 +20,14 @@ their plain twins; these tests hold
   (f32 dy) and JAX's ``_conv_s2_bwd`` at the f32 tolerance, rtol 1e-4 /
   atol 1e-5 x max|dw|; rounded to bf16 it differs from the twin's bf16 dw
   in at most ``BF16_SHARE`` of the elements, where a dw from dy rounded to
-  one bf16 differs in far more.
+  one bf16 differs in far more;
+- ``dx_split3_plain`` (``bwd_input_tc_kernel``'s arithmetic: per parity
+  class and stage of 32 channels, dy's three terms times w summed from
+  zero, then added in f32) against JAX's dx from the two backward call
+  sites and from ``_conv_s2_bwd`` at the f32 tolerance, rtol 1e-4 / atol
+  1e-5 x max|dx|; rounded to bf16 against ``block_bwd_input_plain`` taken
+  in float64 within ``BF16_SHARE``, where a dx from dy rounded to one bf16
+  (``rounded_dy_dx_share``) misses that share many times over.
 """
 
 import jax.numpy as jnp
@@ -236,3 +243,76 @@ def test_block_inputs_and_the_rounded_dy_control_on_the_cpu():
     over, share = tc.bf16_agreement(dw32, dw64)
     assert over <= 1.0 and tc.bf16_share_holds(share, dw64.numel())
     assert tc.rounded_dy_share(x, w, b, sc, be, g) > 10 * tc.BF16_SHARE
+
+
+def _f32_dy(x, p4, g, batch):
+    """The f32 dy that the backward call sites form inside, from the same
+    bf16-valued inputs in f32 (the port's twin)."""
+    t = [torch.from_numpy(a) if batch else torch.from_numpy(a).unsqueeze(0)
+         for a in (x, *p4, g)]
+    return tc.block_bwd_params_plain(*t)[0], t[1]
+
+
+@pytest.mark.parametrize("batch", [False, True], ids=["single", "batched"])
+@pytest.mark.parametrize("blk", range(4))
+def test_three_term_dx_matches_the_pallas_backward(blk, batch):
+    """dx_split3_plain from the f32 dy against the dx of
+    ``_blk_bwd_call_single`` / ``_blk_bwd_pallas_batched`` (interpret
+    mode) on the same bf16-valued inputs in f32, at the f32 tolerance."""
+    h, ci = BLOCKS[blk]
+    x, p4, g = _bf16_inputs(40 + blk, h, ci, b=B if batch else None)
+    jp4 = tuple(jnp.asarray(p) for p in p4)
+    call = jp._blk_bwd_pallas_batched if batch else jp._blk_bwd_call_single
+    want = np.asarray(call(jp4, jnp.asarray(x), jnp.asarray(g))[4])
+    dy, w = _f32_dy(x, p4, g, batch)
+    got = tc.dx_split3_plain(dy, w.to(torch.bfloat16), h, h)
+    assert got.dtype == torch.float32
+    got = got.numpy() if batch else got[0].numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4,
+                               atol=1e-5 * float(np.abs(want).max()))
+
+
+def _dx_inputs(seed, b=2, n=5, h=14, ci=16, co=64):
+    rng = np.random.default_rng(seed)
+    ho = tc.out_hw(h)
+    dy = torch.from_numpy(rng.normal(size=(b, n, ho, ho, co)).astype(
+        np.float32)) * 1e-2
+    w = torch.from_numpy((rng.normal(size=(b, 3, 3, ci, co))
+                          * (2.0 / (9 * ci)) ** 0.5).astype(np.float32))
+    return dy, w.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("h,ci,co", [(28, 1, 64), (14, 16, 64), (7, 16, 64),
+                                     (4, 16, 64), (9, 8, 40), (6, 3, 8)])
+def test_three_term_dx_holds_f32_precision(h, ci, co):
+    """Across several stages a tap (Co 64: two; 40: a ragged second) and
+    odd extents, dx_split3_plain against the f32-dy dx of
+    ``block_bwd_input_plain`` and of JAX's ``_conv_s2_bwd`` at rtol 1e-4
+    / atol 1e-5 x max|dx|."""
+    dy, w = _dx_inputs(h + ci, h=h, ci=ci, co=co)
+    got = tc.dx_split3_plain(dy, w, h, h)
+    want = tc.block_bwd_input_plain(dy, w.float(), h, h)
+    top = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * top)
+    x0 = jnp.zeros((dy.shape[1], h, h, ci), jnp.float32)
+    for t in range(dy.shape[0]):
+        _, _, jdx = jp._conv_s2_bwd(x0, jnp.asarray(dy[t].numpy()),
+                                    jnp.asarray(w[t].float().numpy()))
+        np.testing.assert_allclose(got[t].numpy(), np.asarray(jdx),
+                                   rtol=1e-4, atol=1e-5 * top)
+
+
+@pytest.mark.parametrize("h,ci", [(14, 16), (7, 16), (4, 16)])
+def test_rounding_dy_to_one_bf16_fails_the_dx_share(h, ci):
+    """Rounded to bf16, the three-term dx lies within one bf16 ulp of the
+    float64 twin's and equals it in all but BF16_SHARE of the elements; a
+    dx from dy rounded to one bf16 misses that share many times over."""
+    dy, w = _dx_inputs(3 * h, n=25, h=h, ci=ci)
+    want = tc.block_bwd_input_plain(dy, w, h, h, acc=torch.float64)
+    assert want.dtype == torch.bfloat16
+    got = tc.dx_split3_plain(dy, w, h, h).to(torch.bfloat16)
+    over, share = tc.bf16_agreement(got, want)
+    assert over <= 1.0 and tc.bf16_share_holds(share, want.numel()), (
+        over, share)
+    bad = tc.rounded_dy_dx_share(dy, w, h, h)
+    assert bad > 20 * tc.BF16_SHARE, bad

@@ -125,8 +125,9 @@ def test_tiled_kernels_match_plain_twins(cuda_device, b, n, h, ci, dtype,
 
 
 # The bf16 tensor-core kernels (the conv of cnn4_block_fwd and of
-# cnn4_block_bwd_params, and its dw GEMM) at every block shape, at one
-# request, a bucket of 8 and a served batch, from one image a task to 400
+# cnn4_block_bwd_params, its dw GEMM, and the dx GEMMs of
+# cnn4_block_bwd_input) at every block shape, at one request, a bucket of
+# 8 and a served batch, from one image a task to 400
 _BF16_SHAPES = [(b, n, h, ci) for h, ci in _BLOCKS for b in (1, 8, 64)
                 for n in (1, 5, 25, 128, 400)]
 
@@ -135,12 +136,13 @@ _BF16_SHAPES = [(b, n, h, ci) for h, ci in _BLOCKS for b in (1, 8, 64)
 @pytest.mark.parametrize("b,n,h,ci", _BF16_SHAPES)
 def test_bf16_tensor_core_kernels_carry_f32_products(cuda_device, b, n, h,
                                                      ci):
-    """bf16: every output of the forward and of bwd_params but db within
-    one bf16 ulp plus f32 noise of its twin taken in float64, equal to it
-    in all but cnn4_cuda.BF16_SHARE of its elements (chip_smoke.held_bf16;
-    over ~10^5 positions an f32 twin's own rounding flips as many), the f32
-    dy within float32's 1e-4, db by its magnitude; two calls bitwise equal.
-    The f32 kernels at the same inputs within 1e-4 (chip_smoke.TOL)."""
+    """bf16: every output of the forward and of bwd_params but db, and
+    bwd_input's dx from bwd_params' dy, within one bf16 ulp plus f32 noise
+    of its twin taken in float64, equal to it in all but
+    cnn4_cuda.BF16_SHARE of its elements (chip_smoke.held_bf16; over ~10^5
+    positions an f32 twin's own rounding flips as many), the f32 dy within
+    float32's 1e-4, db by its magnitude; two calls bitwise equal. The f32
+    kernels at the same inputs within 1e-4 (chip_smoke.TOL)."""
     rng = np.random.default_rng(b * 1009 + n * h + ci)
     x, w, p, g = _block_inputs(rng, cuda_device, b, n, h, ci)
     _held(tc.block_fwd(x, w, *p), tc.block_fwd_plain(x, w, *p), 1e-4)
@@ -168,14 +170,51 @@ def test_bf16_tensor_core_kernels_carry_f32_products(cuda_device, b, n, h,
         chip_smoke.held_bf16(tc, got[i], want[i], f"{name} {what}")
     again = tc.block_bwd_params(x, w, *p, g)
     assert all(torch.equal(a, c) for a, c in zip(got, again))
+    dx = tc.block_bwd_input(got[0], w, h, h)
+    assert dx.dtype == torch.bfloat16
+    chip_smoke.held_bf16(tc, dx, tc.block_bwd_input_plain(
+        got[0], w, h, h, acc=f64), f"dx {what}")
+    assert torch.equal(dx, tc.block_bwd_input(got[0], w, h, h))
+
+
+@pytest.mark.cuda
+def test_bf16_served_batch_takes_dx_on_the_tensor_cores(cuda_device):
+    """A bf16 served batch, its eager first call and a replay, each under
+    the profiler: three launches of bwd_input_tc_kernel, none of the f32
+    bwd_input_kernel; the wrapper's counts 8 / 4 / 3."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def dx_kernels(fn):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        return {k: sum(1 for n in names if k in n)
+                for k in ("bwd_input_tc_kernel", "bwd_input_kernel")}
+
+    spec = omniglot_spec(ways=5)
+    params = init_cnn4(torch.Generator().manual_seed(0), spec,
+                       device=cuda_device)
+    server = VisionServer(spec, params, inner_lr=0.5, adapt_steps=1,
+                          compute_dtype=torch.bfloat16)
+    sx, sy, qx = _vision_requests(cuda_device, 8)
+    tc.reset_launch_counts()
+    eager = dx_kernels(lambda: server.batch(sx, sy, qx))
+    assert tc.launch_counts() == {"cnn4_block_fwd": 8,
+                                  "cnn4_block_bwd_params": 4,
+                                  "cnn4_block_bwd_input": 3}
+    replay = dx_kernels(lambda: server.batch(sx, sy, qx))
+    want = {"bwd_input_tc_kernel": 3, "bwd_input_kernel": 0}
+    assert eager == want and replay == want, (eager, replay)
 
 
 @pytest.mark.cuda
 def test_bf16_kernels_run_on_every_device(cuda_device):
     """A server mesh runs its shards on several cards in one process: the
-    bf16 forward and bwd_params (whose dw kernel needs more than 48 KB of
-    shared memory, an attribute of each device's context) on every
-    visible card in turn, each held as above and equal to the first
+    bf16 forward, bwd_params (whose dw kernel needs more than 48 KB of
+    shared memory, an attribute of each device's context) and bwd_input on
+    every visible card in turn, each held as above and equal to the first
     card's result bit for bit."""
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two or more cards")
@@ -185,10 +224,13 @@ def test_bf16_kernels_run_on_every_device(cuda_device):
     for d in range(torch.cuda.device_count()):
         on = [t.to(f"cuda:{d}") for t in ins]
         got = (tc.block_fwd(*on[:5]),) + tc.block_bwd_params(*on)
+        got += (tc.block_bwd_input(got[1], on[1], 14, 14),)
         want = tc.block_bwd_params_plain(*on, acc=torch.float64)
         chip_smoke.held_bf16(tc, got[0], tc.block_fwd_plain(
             *on[:5], acc=torch.float64), f"fwd on cuda:{d}")
         chip_smoke.held_bf16(tc, got[2], want[1], f"dw on cuda:{d}")
+        chip_smoke.held_bf16(tc, got[-1], tc.block_bwd_input_plain(
+            got[1], on[1], 14, 14, acc=torch.float64), f"dx on cuda:{d}")
         got = [t.cpu() for t in got]
         if first is None:
             first = got
