@@ -9,9 +9,13 @@ Phases, each of which fails the run (non-zero exit) on any error:
 2. build every CUDA source under ``exploring_meta_tpu_torch/csrc`` with
    ``nvcc``, one process per source, all started together, and print what
    ``ptxas`` reports (no spills); count the ``HMMA`` instructions of each
-   kernel in the built CNN4 library (``cuobjdump -sass``): the four bf16
-   tensor-core instances hold them, every other kernel, the f32 ones
-   among them, none;
+   kernel in the built CNN4 library (``cuobjdump -sass``): the bf16
+   tensor-core instances (``fwd_cluster_kernel``'s bf16 ones among them)
+   hold them, every other kernel, the f32 ones and block 1's
+   ``bwd_params_cluster_kernel`` among them, none; every instance of
+   ``fwd_cluster_kernel`` and ``bwd_params_cluster_kernel`` holds the
+   cluster barrier (``UCGABAR_ARV`` / ``UCGABAR_WAIT``) and loads from
+   its peers' shared memory (generic ``LD.E``);
 3. serving (slice 1): at each of the four CNN4-Omniglot block shapes (B =
    64 requests, 25 support images each), in float32 and bfloat16, launch
    every fused-block kernel, hold it against its plain PyTorch twin (in
@@ -30,7 +34,9 @@ Phases, each of which fails the run (non-zero exit) on any error:
    three kernels in bfloat16 (the served default) at the served batch and
    at one request (B = 1, N = 25: CUDA events and back to back in a CUDA
    graph), each with its bound at bf16's bytes and peak, its twin and
-   cuDNN in bf16, block 1 apart from blocks 2-4; then load
+   cuDNN in bf16, block 1 apart from blocks 2-4; the B = 64 calls routed
+   to the tiled kernels, the B = 1 ones as the plan routes them
+   (``cnn4_cuda.routes``, :func:`planned_route`); then load
    full-width
    ``omniglot_spec(ways=5)`` params from ``.npz`` and serve 64
    synthetic-Omniglot requests through ``VisionServer.batch`` with the
@@ -114,15 +120,22 @@ Phases, each of which fails the run (non-zero exit) on any error:
     logits, tie flips counted; ANIL once) and profiled (idle share); CKA
     and CCA of the RC activations against float64 on the CPU;
 11. the non-meta baselines and bf16 meta-RL (slice 10): the CNN4 kernels
-    at B = 1, N = 10 (TPU-kernel rows 1-2, the vision baseline's Adam
-    step) against their twins in f32 and bf16 at the four block shapes,
-    each timed (CUDA events, profiler device time, twin, library); the
+    at B = 1 (TPU-kernel rows 1-2), N = 10 (the vision baseline's Adam
+    step) and N = 25 (a served request), in f32 and bf16 at the four block
+    shapes: the forward and ``bwd_params`` routed as planned (the cluster
+    kernels at N = 10: the forward at blocks 2-4, ``bwd_params`` at block
+    1; at N = 25 the forward at blocks 3-4; ``cnn4_cuda.routes``), each
+    kernel against its twin (bf16 against the float64 twin too) and twice
+    bitwise equal, each timed (CUDA events, back to back in a CUDA graph,
+    twin, library), with its bound, the path's blocks summed; the
     PPO, TRPO and random baselines, 2 iterations each at the
     ``RLScriptConfig`` defaults, and the vision baseline, 2 iterations at
     the script's defaults on Omniglot's real shape, each with the
     counters zeroed just before: each sweep once a task (the random
     policy the discount sweep alone), the CNN4 kernels 4 / 4 / 3 an Adam
-    step, plus the meta-tests' launches, exactly; finite metrics, a
+    step, plus the meta-tests' launches, exactly, the Adam steps' forward
+    and ``bwd_params`` routed as planned and the meta-eval's on the tiled
+    kernels; finite metrics, a
     finite test reward or accuracy, run dirs that load; one PPO, one
     TRPO and one vision update card vs CPU (on the card's baseline fit);
     maml_trpo ``--bf16 --fuse 10`` through the trainer (one capture, 19
@@ -236,7 +249,11 @@ Phases, each of which fails the run (non-zero exit) on any error:
     with ``--random_init``, in process: their result lines parse,
     every kernel of their path launched in the first batch, and the
     timed batches and act steps were replays of one capture each;
-17. print one ``{"kernels": [...]}`` line, the card line again, and last
+17. print one ``{"kernels": [...]}`` line (the three CNN4 wrappers, the
+    two sweeps, and ``fwd_cluster_kernel`` / ``bwd_params_cluster_kernel``
+    with phase 11's bf16 N = 10 device time of the blocks each takes, and
+    their launches on phase 18's bucket 1 and the vision baseline), the
+    card line again, and last
     ``{"ok": true, "device": {...}}``;
 18. run right after phase 7, before the later phases' profiler sessions:
     captured serving (slice 16): both servers at full width serve each
@@ -247,9 +264,12 @@ Phases, each of which fails the run (non-zero exit) on any error:
     / 3 CNN4 calls a vision batch, ANIL's per-op base none; each sweep
     once an inner step, twice at 2 steps); a steady-state call is one
     replay and no wrapper launch, bit for bit the eager first call; 5 and
-    7 requests share bucket 8's one capture (two replays); bucket 1
-    (``__call__``, the CNN4 kernels at B = 1) launches and records the
-    batch's kernels; its replays, ``act``'s and ``act_batched``'s equal
+    7 requests share bucket 8's one capture (two replays), on the tiled
+    kernels; bucket 1 (``__call__``, the CNN4 kernels at B = 1) launches
+    and records the batch's kernels, each forward and ``bwd_params`` call
+    on its planned route (the forward's cluster kernel at blocks 3-4 of
+    the support set and 2-4 of the queries); its replays, ``act``'s and
+    ``act_batched``'s equal
     their eager calls; ``sample_batched``'s replays, from the eager
     call's generator and from a new one, draw what the eager call drew
     from the same generator state (one capture); ``act_batched`` from
@@ -381,11 +401,19 @@ CNN4_KERNEL_NAMES = ("fwd_conv_stats_kernel", "fwd_combine_kernel",
                      "bwd_tile_sums_kernel", "bwd_combine_kernel",
                      "bwd_dw_kernel", "bwd_dw_reduce_kernel",
                      "fwd_conv_stats_tc_kernel", "bwd_dy_split_kernel",
-                     "bwd_dw_tc_kernel", "bwd_input_tc_kernel")
+                     "bwd_dw_tc_kernel", "bwd_input_tc_kernel",
+                     "fwd_cluster_kernel", "bwd_params_cluster_kernel")
 # the bf16 kernels on the tensor cores: their SASS holds HMMA, every other
 # kernel of csrc/cnn4_block.cu none (tensor_core_sass)
 TC_KERNEL_NAMES = ("fwd_conv_stats_tc_kernel", "bwd_dw_tc_kernel",
                    "bwd_input_tc_kernel")
+# one launch a block at B = 1 where cnn4_cuda.cluster_plan takes it, by
+# the wrapper whose calls they take: thread-block clusters, whose SASS
+# holds the cluster barrier (UCGABAR_ARV / UCGABAR_WAIT) and generic loads
+# (LD.E) of the peers' shared memory; HMMA in fwd_cluster_kernel's bf16
+# instances only (bwd_params_cluster_kernel, block 1, on the CUDA cores)
+CLUSTER_KERNELS = {"fwd_cluster_kernel": "cnn4_block_fwd",
+                   "bwd_params_cluster_kernel": "cnn4_block_bwd_params"}
 # a kernel of each CNN4 wrapper on a bf16 path (the vision meta-training
 # cells compute in bf16): all three on the tensor cores
 BF16_WRAPPER_KERNELS = TC_KERNEL_NAMES
@@ -529,9 +557,11 @@ BASELINE_TRPO_TOL, VISION_TOL, VISION_FLIP_SHARE = 0.3, 1e-4, 1e-3
 BF16_STATES, BF16_DENSITY_TOL, BF16_TIE_SHARE = 2000, 1e-6, 0.01
 BF16_STEPS = 4 * 2.0 ** -8
 # the single-task CNN4 kernels (TPU-kernel rows 1-2) at the vision
-# baseline's N = 2 x ways x shots = 10 images; GRAPH_CALLS calls captured
-# back to back in one CUDA graph, replayed GRAPH_REPLAYS times
+# baseline's N = 2 x ways x shots = 10 images and at a served request's
+# support set (N = 25); GRAPH_CALLS calls captured back to back in one
+# CUDA graph, replayed GRAPH_REPLAYS times
 SINGLE_N, GRAPH_CALLS, GRAPH_REPLAYS = 10, 20, 10
+SINGLE_NS = (SINGLE_N, WAYS * SHOTS)
 # Accuracy parity (slice 15): BASELINE.json's north star, meta-test
 # accuracy within 0.5 % of the reference; for meta-RL the port's
 # post-adaptation reward may lie at most PARITY_RL_SHARE of the mean
@@ -655,28 +685,73 @@ def held_bf16(tc, got, want, what: str) -> dict:
     return {"over": over, "share": share, "n": n}
 
 
+def planned_route(tc, kernel: str, dt, b: int, n: int, h: int,
+                  ci: int) -> str:
+    """The route ``kernel`` takes for ``b`` tasks of ``n`` images at a
+    block shape: cnn4_cuda.cluster_plan on this card's largest cluster,
+    held equal to the plan the built source launches on."""
+    args = (b, n, h, h, ci, HIDDEN)
+    plan = tc.cluster_plan(*args, dt, kernel, tc.source_cluster_max())
+    check(plan == tc.source_cluster_plan(dt, kernel, *args),
+          f"cluster_plan mirrors the source's at {kernel} {dt} {args}: "
+          f"{plan}")
+    return tc.ROUTES[kernel][plan is None]
+
+
+def planned_routes(tc, dt, n: int, calls: int = 1, kernels=None) -> dict:
+    """routes() after ``calls`` four-block calls of ``kernels`` (both
+    routed wrappers by default) at B = 1 with ``n`` images."""
+    want = dict.fromkeys(tc.routes(), 0)
+    for kernel in kernels or tc.ROUTES:
+        for h, ci in BLOCKS:
+            want[planned_route(tc, kernel, dt, 1, n, h, ci)] += calls
+    return want
+
+
 def tensor_core_sass(build) -> dict:
     """HMMA (or HGMMA) instructions per kernel in the built library of
     csrc/cnn4_block.cu, by cuobjdump: the bf16 kernels of TC_KERNEL_NAMES
-    hold them, every other kernel (the f32 instances among them) none."""
+    and fwd_cluster_kernel's two bf16 instances hold them, every other
+    kernel (the f32 instances and bwd_params_cluster_kernel's among them)
+    none; each of the six instances of CLUSTER_KERNELS holds the cluster
+    barrier and loads from its peers' shared memory -> {"hmma": {kernel:
+    n}, "cluster": {instance: counts}}."""
     cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     out = subprocess.run([cuobjdump, "-sass",
                           build.library_path("cnn4_block.cu")],
                          capture_output=True, text=True, check=True).stdout
-    counts, fn = {}, None
+    counts, cluster, fn = {}, {}, None
+    ops = {"UCGABAR_ARV": r"UCGABAR_ARV", "UCGABAR_WAIT": r"UCGABAR_WAIT",
+           "LD.E": r"\bLD\.E", "HMMA": r"HMMA"}
     for ln in out.splitlines():
         if "Function :" in ln:
             fn = ln.split("Function :")[1].strip()
             counts[fn] = 0
-        elif fn is not None and "HMMA" in ln:   # HGMMA included
+            if any(k in fn for k in CLUSTER_KERNELS):
+                cluster[fn] = dict.fromkeys(ops, 0)
+            continue
+        if fn is None:
+            continue
+        if "HMMA" in ln:   # HGMMA included
             counts[fn] += 1
-    tc_fns = [f for f in counts if any(k in f for k in TC_KERNEL_NAMES)]
-    check(len(tc_fns) == 2 * len(TC_KERNEL_NAMES),
-          f"SASS: the {2 * len(TC_KERNEL_NAMES)} tensor-core kernel "
-          f"instances (kVec true and false), found {tc_fns}")
+        if fn in cluster:
+            for op, pat in ops.items():
+                cluster[fn][op] += bool(re.search(pat, ln))
+    tc_fns = [f for f in counts if any(k in f for k in TC_KERNEL_NAMES)
+              or (f in cluster and "bfloat16" in f
+                  and "fwd_cluster_kernel" in f)]
+    want = 2 * len(TC_KERNEL_NAMES) + 2
+    check(len(tc_fns) == want and len(cluster) == 6,
+          f"SASS: the {want} tensor-core kernel instances (kVec true and "
+          f"false) and the 4 + 2 instances of the cluster kernels, found "
+          f"{tc_fns}, {list(cluster)}")
     for f, n in counts.items():
         check(n > 0 if f in tc_fns else n == 0, f"SASS: {f} holds {n} HMMA")
-    return counts
+    for f, c in cluster.items():
+        check(c["UCGABAR_ARV"] > 0 and c["UCGABAR_WAIT"] > 0
+              and c["LD.E"] > 0,
+              f"SASS: {f} holds the cluster barrier and DSMEM loads, {c}")
+    return {"hmma": counts, "cluster": cluster}
 
 
 def kernel_phase(tc, F, torch) -> dict:
@@ -853,7 +928,19 @@ def kernel_phase(tc, F, torch) -> dict:
                 if "graph_ms" in shape:
                     into[f"graph_ms_{part}"] += shape["graph_ms"]
 
+    def routed(b: int, n: int, dt, what: str) -> None:
+        """The calls since the counts were zeroed, at the four block shapes
+        with ``b`` tasks of ``n`` images, took the routes planned there
+        (planned_route: the tiled kernels at B = 64) and no other."""
+        want = {planned_route(tc, k, dt, b, n, h, ci) for k in tc.ROUTES
+                for h, ci in BLOCKS}
+        r = tc.routes()
+        check(all((c > 0) == (k in want) for k, c in r.items()),
+              f"{what}: calls routed to {sorted(want)}, {r}")
+        res["cnn4_block_fwd"].setdefault("routes", {})[what] = r
+
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+        tc.reset_launch_counts()
         for blk, (h, ci) in enumerate(BLOCKS):
             x, w, b, sc, be, g = tc.block_inputs(gen, B, N, h, ci, HIDDEN, dt)
             what = f"block {blk + 1} N {N}"
@@ -917,6 +1004,7 @@ def kernel_phase(tc, F, torch) -> dict:
                     r["bytes_ms"] += shape["bytes_ms"]
                     r["ops_ms"] += shape["ops_ms"]
                     r["bound_ms"] += shape["bound_ms"]
+        routed(B, N, dt, f"{dname} B {B}")
 
         # every kernel at the other shapes its tiling must handle
         for b_, n_, blk in EXTRA_SHAPES:
@@ -943,6 +1031,7 @@ def kernel_phase(tc, F, torch) -> dict:
         if dt == torch.bfloat16:
             # one request's support forward and inner step (B = 1, N = 25),
             # each kernel held against its twin, then timed
+            tc.reset_launch_counts()
             for blk, (h, ci) in enumerate(BLOCKS):
                 x, w, b, sc, be, g = tc.block_inputs(gen, 1, N, h, ci,
                                                      HIDDEN, dt)
@@ -952,6 +1041,7 @@ def kernel_phase(tc, F, torch) -> dict:
                 held_bwd_input(dy, w, h, dname, what)
                 torch.cuda.synchronize()
                 bf16_rows(1, blk, x, w, b, sc, be, g, dy, "bf16_b1")
+            routed(1, N, dt, f"{dname} B 1")
     # bf16 dx per block
     for key in ("bf16", "bf16_b1"):
         print(f"kernel cnn4_block_bwd_input {key} per block: " + "; ".join(
@@ -3110,101 +3200,205 @@ def analysis_phase(torch, gc, tc, gpu, tmp) -> dict:
           f"{out['probes']['s']} s [{gpu}]", flush=True)
     return out
 
+def cuda_kernel_names(torch, fn) -> list:
+    """The CNN4 kernels one call of ``fn`` launched, by the profiler. CUPTI
+    has been seen to drop a profiler session's first kernel record on an
+    H100, so the session opens with a kernel of its own."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(k in e.name for k in CNN4_KERNEL_NAMES)]
+
+
 def single_task_kernels(tc, F, torch, gpu) -> dict:
     """Phase 11, rows 1-2 of the TPU-kernel table: the single-task forms
-    (B = 1) at the vision baseline's N = SINGLE_N images, at each of the
-    four block shapes. Each kernel against its twin in f32 and bf16; in
-    f32 its bound, its CUDA-event time, its time back to back in a CUDA
-    graph (the device's), its twin's time and phase 3's library
-    yardstick."""
+    (B = 1) at N = SINGLE_NS (the vision baseline's Adam step, a served
+    request's support set), at each of the four block shapes, in f32 and
+    bf16. cnn4_cuda.cluster_plan routes the forward and bwd_params to
+    fwd_cluster_kernel and bwd_params_cluster_kernel where they beat the
+    tiled launches (one launch a call; at N = 10 the forward at blocks 2-4
+    and bwd_params at block 1, at N = 25 the forward at blocks 3-4), else
+    to the tiled kernels (cnn4_cuda.routes() held against planned_routes;
+    the CUDA kernels of a four-block call by the profiler, printed), dx to
+    bwd_input. Each kernel against its twin (bf16 also against the twin in
+    float64, held_bf16); its bound, its CUDA-event time, its time back to
+    back in a CUDA graph (the device's), its twin's time and phase 3's
+    library yardstick (cuDNN, in bf16 for bf16), summed over the path's
+    blocks and, per route, over the blocks that route takes."""
     from exploring_meta_tpu_torch.utils.profiling import graph_ms_per_call
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
-    co, out = HIDDEN, {name: [] for name in tc.KERNELS}
-    err = {name: {} for name in tc.KERNELS}
+    co = HIDDEN
+    res = {name: {"max_abs_err": {}} for name in tc.KERNELS}
+
+    def block_runs(x, w, b, sc, be, g, dy):
+        """{kernel: (kernel, twin, library)} of one block's inputs, and
+        the dw part's library call (grouped conv2d_weight)."""
+        h, dt = x.shape[2], x.dtype
+        xg = x[0].permute(0, 3, 1, 2).contiguous()
+        wg = w[0].permute(3, 2, 0, 1).contiguous()
+        dyg = dy[0].permute(0, 3, 1, 2).contiguous().to(dt)
+        return {
+            "cnn4_block_fwd": (
+                lambda: tc.block_fwd(x, w, b, sc, be),
+                lambda: tc.block_fwd_plain(x, w, b, sc, be),
+                lambda: torch.relu(F.batch_norm(
+                    F.conv2d(xg, wg, b[0], stride=2, padding=1), None,
+                    None, sc[0].float(), be[0].float(), training=True,
+                    eps=tc.EPS))),
+            "cnn4_block_bwd_params": (
+                lambda: tc.block_bwd_params(x, w, b, sc, be, g),
+                lambda: tc.block_bwd_params_plain(x, w, b, sc, be, g),
+                None),
+            "cnn4_block_bwd_input": (
+                lambda: tc.block_bwd_input(dy, w, h, h),
+                lambda: tc.block_bwd_input_plain(dy, w, h, h),
+                lambda: torch.nn.grad.conv2d_input(
+                    xg.shape, wg, dyg, stride=2, padding=1)),
+            "dw_library": lambda: torch.nn.grad.conv2d_weight(
+                xg, wg.shape, dyg, stride=2, padding=1)}
     for dname, dt in (("float32", torch.float32),
                       ("bfloat16", torch.bfloat16)):
-        for blk, (h, ci) in enumerate(BLOCKS):
-            x, w, b, sc, be, g = tc.block_inputs(gen, 1, SINGLE_N,
-                                                 h, ci, HIDDEN, dt)
-            what = f"block {blk + 1} B 1 N {SINGLE_N}"
-            got = tc.block_bwd_params(x, w, b, sc, be, g)
-            want = tc.block_bwd_params_plain(x, w, b, sc, be, g)
-            dy_abs = want[0].abs().sum(dim=(1, 2, 3))
-            errs = {
-                "cnn4_block_fwd": held(torch, tc.block_fwd(x, w, b, sc, be),
-                                       tc.block_fwd_plain(x, w, b, sc, be),
-                                       dname, what),
-                "cnn4_block_bwd_params": max(
-                    held(torch, got[i], want[i], dname, f"{what} output {i}",
-                         db=dy_abs + 1e-30 if i == 2 else None)
-                    for i in range(5)),
-                "cnn4_block_bwd_input": held(
-                    torch, tc.block_bwd_input(got[0], w, h, h),
-                    tc.block_bwd_input_plain(got[0], w, h, h), dname, what)}
-            for name, e in errs.items():
-                err[name][dname] = max(err[name].get(dname, 0.0), e)
-            if dt != torch.float32:
-                continue
-            dy = got[0]
-            xg = x[0].permute(0, 3, 1, 2).contiguous()
-            wg = w[0].permute(3, 2, 0, 1).contiguous()
-            dyg = dy[0].permute(0, 3, 1, 2).contiguous()
-            runs = {
-                "cnn4_block_fwd": (
-                    lambda: tc.block_fwd(x, w, b, sc, be),
-                    lambda: tc.block_fwd_plain(x, w, b, sc, be),
-                    lambda: torch.relu(F.batch_norm(
-                        F.conv2d(xg, wg, b[0], stride=2, padding=1), None,
-                        None, sc[0], be[0], training=True, eps=tc.EPS))),
-                "cnn4_block_bwd_params": (
-                    lambda: tc.block_bwd_params(x, w, b, sc, be, g),
-                    lambda: tc.block_bwd_params_plain(x, w, b, sc, be, g),
-                    None),
-                "cnn4_block_bwd_input": (
-                    lambda: tc.block_bwd_input(dy, w, h, h),
-                    lambda: tc.block_bwd_input_plain(dy, w, h, h),
-                    lambda: torch.nn.grad.conv2d_input(
-                        xg.shape, wg, dyg, stride=2, padding=1)),
-            }
-            for name, (kern, plain, lib) in runs.items():
-                bms, oms = bound(name, 1, SINGLE_N, h, ci, co, 4)
-                row = {"block": blk + 1, "x": [1, SINGLE_N, h, h, ci],
-                       "on_path": not (name == "cnn4_block_bwd_input"
-                                       and blk == 0),
-                       "ms": time_ms(kern),
-                       "graph_ms": graph_ms_per_call(kern, GRAPH_CALLS,
-                                                     GRAPH_REPLAYS),
-                       "plain_ms": time_ms(plain),
-                       "library_ms": time_ms(lib) if lib else None,
-                       "bytes_ms": bms, "ops_ms": oms,
-                       "bound_ms": max(bms, oms)}
-                if name == "cnn4_block_bwd_params":
-                    row["dw_library_ms"] = time_ms(
-                        lambda: torch.nn.grad.conv2d_weight(
-                            xg, wg.shape, dyg, stride=2, padding=1))
-                out[name].append(row)
-    res = {}
-    for name, rows in out.items():
-        path = [r for r in rows if r["on_path"]]
-        res[name] = {"max_abs_err": err[name], "shapes": rows, **{
-            k: (None if any(r[k] is None for r in path)
-                else sum(r[k] for r in path))
-            for k in ("ms", "graph_ms", "plain_ms", "library_ms",
-                      "bytes_ms", "ops_ms", "bound_ms")}}
-        for r in rows:
-            print(f"  {name} B 1 block {r['block']} x {r['x']}: ms "
-                  f"{r['ms']} graph_ms {r['graph_ms']} bound_ms "
-                  f"{r['bound_ms']} plain_ms {r['plain_ms']} library_ms "
-                  f"{r['library_ms']}" + (f" dw_library_ms "
-                                          f"{r['dw_library_ms']}"
-                                          if "dw_library_ms" in r else ""),
-                  flush=True)
-        r = res[name]
-        print(f"single-task {name} (row {1 if name == 'cnn4_block_fwd' else 2}"
-              f", B 1, N {SINGLE_N}, the blocks on the path summed): ms "
-              f"{r['ms']} graph_ms {r['graph_ms']} bound_ms "
-              f"{r['bound_ms']} plain_ms {r['plain_ms']} library_ms "
-              f"{r['library_ms']} max_abs_err {r['max_abs_err']} [{gpu}]",
+        item, peak = (4, PEAK_F32) if dt == torch.float32 else (2, PEAK_BF16)
+        for n in SINGLE_NS:
+            key = f"{dname}_n{n}"
+            rows = {name: [] for name in tc.KERNELS}
+            runs_of = []
+            tc.reset_launch_counts()
+            for blk, (h, ci) in enumerate(BLOCKS):
+                x, w, b, sc, be, g = tc.block_inputs(gen, 1, n, h, ci,
+                                                     HIDDEN, dt)
+                what = f"block {blk + 1} B 1 N {n}"
+                got = tc.block_bwd_params(x, w, b, sc, be, g)
+                want = tc.block_bwd_params_plain(x, w, b, sc, be, g)
+                dy = got[0]
+                dy_abs = want[0].abs().sum(dim=(1, 2, 3))
+                fwd = tc.block_fwd(x, w, b, sc, be)
+                dx = tc.block_bwd_input(dy, w, h, h)
+                errs = {
+                    "cnn4_block_fwd": held(torch, fwd, tc.block_fwd_plain(
+                        x, w, b, sc, be), dname, what),
+                    "cnn4_block_bwd_params": max(
+                        held(torch, got[i], want[i],
+                             "float32" if i == 0 else dname,
+                             f"{what} output {i}",
+                             db=dy_abs + 1e-30 if i == 2 else None)
+                        for i in range(5)),
+                    "cnn4_block_bwd_input": held(
+                        torch, dx, tc.block_bwd_input_plain(dy, w, h, h),
+                        dname, what)}
+                if dt == torch.bfloat16:
+                    f64 = torch.float64
+                    held_bf16(tc, fwd, tc.block_fwd_plain(
+                        x, w, b, sc, be, acc=f64), f"fwd {what}")
+                    ref = tc.block_bwd_params_plain(x, w, b, sc, be, g,
+                                                    acc=f64)
+                    for i, out in ((1, "dw"), (3, "dscale"), (4, "dbias")):
+                        held_bf16(tc, got[i], ref[i], f"{out} {what}")
+                    del ref
+                check(torch.equal(fwd, tc.block_fwd(x, w, b, sc, be))
+                      and all(torch.equal(p, q) for p, q in zip(
+                          got, tc.block_bwd_params(x, w, b, sc, be, g))),
+                      f"{dname} {what}: two calls bitwise equal")
+                for name, e in errs.items():
+                    res[name]["max_abs_err"][dname] = max(
+                        res[name]["max_abs_err"].get(dname, 0.0), e)
+                runs = block_runs(x, w, b, sc, be, g, dy)
+                on_path = blk > 0
+                runs_of.append((runs, on_path))
+                for name in tc.KERNELS:
+                    kern, plain, lib = runs[name]
+                    bms, oms = bound(name, 1, n, h, ci, co, item, peak)
+                    row = {"block": blk + 1, "x": [1, n, h, h, ci],
+                           "route": (planned_route(tc, name, dt, 1, n, h, ci)
+                                     if name in tc.ROUTES else name),
+                           "on_path": on_path or name != "cnn4_block_bwd_input",
+                           "ms": time_ms(kern),
+                           "graph_ms": graph_ms_per_call(kern, GRAPH_CALLS,
+                                                         GRAPH_REPLAYS),
+                           "plain_ms": time_ms(plain, 1, 5),
+                           "library_ms": time_ms(lib) if lib else None,
+                           "bytes_ms": bms, "ops_ms": oms,
+                           "bound_ms": max(bms, oms)}
+                    if name == "cnn4_block_bwd_params":
+                        row["dw_library_ms"] = time_ms(runs["dw_library"])
+                    rows[name].append(row)
+            # each call of the forward and bwd_params on its planned route:
+            # every call of this (dtype, N) took a route planned at one of
+            # its blocks, and one four-block call is each block's once (the
+            # wrappers' route counts); the CUDA kernels the profiler saw are
+            # printed, not held (late in this script CUPTI has lost whole
+            # sessions' records)
+            planned = planned_routes(tc, dt, n)
+            routes = tc.routes()
+            check(all((c > 0) == (planned[k] > 0) for k, c in routes.items()),
+                  f"{key}: B = 1 calls take the planned routes {planned}, "
+                  f"{routes}")
+            tc.reset_launch_counts()
+            for runs, on in runs_of:
+                runs["cnn4_block_fwd"][0]()
+                runs["cnn4_block_bwd_params"][0]()
+                if on:
+                    runs["cnn4_block_bwd_input"][0]()
+            one, dx_calls = tc.routes(), tc.launch_counts()[
+                "cnn4_block_bwd_input"]
+            check(one == planned,
+                  f"{key}: a four-block call takes each block's planned "
+                  f"route once, {one}, want {planned}")
+            names = {name: cuda_kernel_names(torch, lambda: [
+                runs[name][0]() for runs, on in runs_of
+                if on or name != "cnn4_block_bwd_input"])
+                for name in tc.KERNELS}
+            for name, rs in rows.items():
+                path = [r for r in rs if r["on_path"]]
+                launched = names[name]
+                def summed(part):
+                    out = {k: (None if any(r_[k] is None for r_ in part)
+                               else sum(r_[k] for r_ in part))
+                           for k in ("ms", "graph_ms", "plain_ms",
+                                     "library_ms", "bytes_ms", "ops_ms",
+                                     "bound_ms")}
+                    out["bound_by"] = ("bytes"
+                                       if out["bytes_ms"] >= out["ops_ms"]
+                                       else "operations")
+                    out["blocks"] = [r_["block"] for r_ in part]
+                    return out
+                r = res[name][key] = {
+                    "shapes": rs, "profiled_kernels": launched,
+                    "launches_a_call": (
+                        {k: one[k] for k in tc.ROUTES[name]}
+                        if name in tc.ROUTES else dx_calls),
+                    **summed(path),
+                    "by_route": {rt: summed([r_ for r_ in path
+                                             if r_["route"] == rt])
+                                 for rt in {r_["route"] for r_ in path}}}
+                for sh in rs:
+                    print(f"  {name} {dname} B 1 block {sh['block']} x "
+                          f"{sh['x']} ({sh['route']}): ms {sh['ms']} graph_ms "
+                          f"{sh['graph_ms']} bound_ms {sh['bound_ms']} "
+                          f"plain_ms {sh['plain_ms']} library_ms "
+                          f"{sh['library_ms']}" + (
+                              f" dw_library_ms {sh['dw_library_ms']}"
+                              if "dw_library_ms" in sh else ""),
+                          flush=True)
+                print(f"single-task {name} (row "
+                      f"{1 if name == 'cnn4_block_fwd' else 2}, {dname}, B "
+                      f"1, N {n}, the blocks on the path summed): graph_ms "
+                      f"{r['graph_ms']} ms {r['ms']} bound_ms "
+                      f"{r['bound_ms']} ({r['bound_by']}) plain_ms "
+                      f"{r['plain_ms']} library_ms {r['library_ms']}; "
+                      f"calls by route a four-block call "
+                      f"{r['launches_a_call']} (the profiler saw "
+                      f"{len(launched)} CUDA launches: "
+                      f"{sorted(set(k.split('(')[0] for k in launched))}); "
+                      f"by route {r['by_route']} [{gpu}]", flush=True)
+            print(f"single-task routes ({key}): {routes}; one four-block "
+                  f"call {one}", flush=True)
+    for name, r in res.items():
+        print(f"single-task {name} max_abs_err {r['max_abs_err']} [{gpu}]",
               flush=True)
     return res
 
@@ -3330,11 +3524,20 @@ def vision_baseline_run(torch, gc, tc, gpu, tmp) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {**gc.launch_counts(), **tc.launch_counts()}
+    routes = tc.routes()
     want = {k: BASELINE_ITERATIONS * steps * n + META_EVAL_CALLS[k]
             for k, n in BASELINE_STEP_CALLS.items()}
     check({k: launches[k] for k in want} == want,
           f"vision baseline: {launches}, want {want} ({steps} Adam steps "
           f"an iteration at B = 1, then a meta-eval)")
+    # the Adam steps (B = 1, N = 10, f32) on their planned routes (the
+    # forward's cluster kernel at blocks 2-4, bwd_params' at block 1), the
+    # meta-eval (B = 32) on the tiled kernels
+    want = planned_routes(tc, torch.float32, SINGLE_N,
+                          BASELINE_ITERATIONS * steps)
+    for name, (_, tiled) in tc.ROUTES.items():
+        want[tiled] += META_EVAL_CALLS[name]
+    check(routes == want, f"vision baseline routes {routes}, want {want}")
     run = trainer.model_path
     with open(os.path.join(run, "metrics.json")) as f:
         metrics = json.load(f)
@@ -3352,10 +3555,11 @@ def vision_baseline_run(torch, gc, tc, gpu, tmp) -> dict:
               f"vision baseline {rel} loads, finite")
     print(f"vision baseline, Omniglot 5-way 1-shot, {steps} Adam steps an "
           f"iteration: {wall} s for {BASELINE_ITERATIONS} iterations and "
-          f"the meta-test; launches {launches}; metrics {metrics}; test_acc "
-          f"{test_acc} [{gpu}]", flush=True)
-    return {"launches": launches, "wall_s": wall, "metrics": metrics,
-            "test_acc": test_acc, "steps_an_iteration": steps}
+          f"the meta-test; launches {launches}; routes {routes}; metrics "
+          f"{metrics}; test_acc {test_acc} [{gpu}]", flush=True)
+    return {"launches": launches, "routes": routes, "wall_s": wall,
+            "metrics": metrics, "test_acc": test_acc,
+            "steps_an_iteration": steps}
 
 
 def baseline_card_vs_cpu(torch, gpu) -> dict:
@@ -6099,7 +6303,7 @@ def captured_serving_phase(torch, np, tc, gc, gpu) -> dict:
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     out = {"launches": {k: 0 for k in (*tc.KERNELS, *gc.KERNELS)},
-           "pool_mib": {}}
+           "routes": {k: 0 for k in tc.routes()}, "pool_mib": {}}
     sx, sy, qx, _ = make_requests(torch, td, ts, torch.device("cuda"))
     kw = dict(inner_lr=INNER_LR, adapt_steps=ADAPT_STEPS, device="cuda")
     cases = {
@@ -6121,17 +6325,37 @@ def captured_serving_phase(torch, np, tc, gc, gpu) -> dict:
             # all the same
             {k: 0 for k in tc.KERNELS} if server.anil else META_EVAL_CALLS)
         add_counts(out["launches"], r["launches"])
+        # batches (here bucket 8's first call, the last counted) take the
+        # tiled kernels
+        check(not any(n for k, n in tc.routes().items()
+                      if k.endswith("cluster_kernel")),
+              f"{name}: a batch takes the tiled kernels, {tc.routes()}")
         # bucket 1 (__call__, the kernels at B = 1): its first call eager
-        # and recorded as the batch's, then replays
+        # and recorded as the batch's, each forward and bwd_params call on
+        # its planned route (the support set's N = 25 an inner step, the
+        # queries' N = 15 once), then replays
         _counters_zeroed()
         one = server(sx[0], sy[0], qx[0])
         torch.cuda.synchronize()
         r["launches_b1"] = tc.launch_counts()
+        r["routes_b1"] = tc.routes()
         check(r["launches_b1"] == tc.captured_counts() == r["launches"]
               and _bitwise(torch, server(sx[0], sy[0], qx[0]), one),
               f"{name}: bucket 1 launches and records the batch's kernels, "
               f"{r['launches_b1']}, and its replay equals its eager call")
+        steps = r["launches_b1"]["cnn4_block_bwd_params"] // len(BLOCKS)
+        dt = torch.bfloat16 if "bf16" in name else torch.float32
+        want = dict.fromkeys(tc.routes(), 0)
+        if r["launches_b1"]["cnn4_block_fwd"]:
+            add_counts(want,
+                       planned_routes(tc, dt, WAYS * SHOTS, steps),
+                       planned_routes(tc, dt, QUERIES, 1,
+                                      ("cnn4_block_fwd",)))
+        check(r["routes_b1"] == want,
+              f"{name}: bucket 1's forward and bwd_params calls on their "
+              f"planned routes, {r['routes_b1']}, want {want}")
         add_counts(out["launches"], r["launches_b1"])
+        add_counts(out["routes"], r["routes_b1"])
         r["times"] = {
             1: eager_vs_replay(torch, graphs, lambda: server(
                 sx[0], sy[0], qx[0]), CAPTURE_REPS),
@@ -6298,7 +6522,13 @@ def main() -> int:
                   f"no register spills in {src}: {ln}")
 
     sass = tensor_core_sass(build)
-    print(f"SASS HMMA per kernel of cnn4_block.cu: {sass}", flush=True)
+    print(f"SASS HMMA per kernel of cnn4_block.cu: {sass['hmma']}",
+          flush=True)
+    for f, c in sass["cluster"].items():
+        kern = next(k for k in CLUSTER_KERNELS if k in f)
+        vec = f", kVec {'Lb1' in f}" if kern == "fwd_cluster_kernel" else ""
+        print(f"SASS {kern}<{'bf16' if 'bfloat16' in f else 'f32'}{vec}>: "
+              f"{c}", flush=True)
     res = kernel_phase(tc, F, torch)
     for name, r in res.items():
         print(f"kernel {name}: max_abs_err {r['max_abs_err']} ms {r['ms']} "
@@ -6425,6 +6655,29 @@ def main() -> int:
             **({f"bf16_{k}": r["bf16"][k]
                 for k in ("ms", "bound_ms", "plain_ms", "library_ms")}
                if "bf16" in r else {})})
+    # the single-task forms (B = 1, rows 1-2): their cluster kernels, timed
+    # in phase 11 at the vision baseline's N = 10 (bf16, device ms back to
+    # back in a CUDA graph, summed over the blocks each takes there: the
+    # forward's 2-4, bwd_params' 1; f32 apart) and launched on the main
+    # paths by phase 18's bucket-1 first calls and phase 11's vision
+    # baseline
+    single = slice10["single_task_kernels"]
+    for route, name in CLUSTER_KERNELS.items():
+        r = single[name][f"bfloat16_n{SINGLE_N}"]["by_route"][route]
+        err = single[name]["max_abs_err"]
+        f32 = single[name][f"float32_n{SINGLE_N}"]["by_route"][route]
+        kernels.append({
+            "name": route, "route": "cuda",
+            "source": "exploring_meta_tpu_torch/csrc/cnn4_block.cu",
+            "replaces": replaces[name],
+            "launches": (slice16["routes"][route]
+                         + slice10["vision_baseline"]["routes"][route]),
+            "max_abs_err": max(err.values()),
+            "ms": r["graph_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"], "blocks": r["blocks"],
+            "f32_n10": {k: f32[k] for k in ("graph_ms", "plain_ms",
+                                            "bound_ms", "library_ms")}})
     print(json.dumps({"kernels": kernels}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,11 @@
 //                             _blk_bwd_pallas_batched :364)
 //   cnn4_block_bwd_input  <- the dx half of the same two kernels
 //                            (_conv_s2_bwd :127, its lax.pad tap scatter)
-// The single-task TPU forms are the B = 1 case here.
+// The single-task TPU forms are the B = 1 case here: at one task a call,
+// at the shapes cluster_plan takes, the forward and bwd_params run
+// fwd_cluster_kernel and bwd_params_cluster_kernel, one thread-block-
+// cluster launch a block that keeps the task on chip (the last section
+// below); every other call, and every batch, takes the tiled kernels.
 //
 // cnn4_block_fwd and cnn4_block_bwd_input: tiled implicit GEMMs.
 //
@@ -181,6 +185,7 @@
 // groups, stages, tiles and chunks in order) and no result is summed with
 // atomics, so results are deterministic.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -189,6 +194,8 @@
 #include <algorithm>
 #include <atomic>
 #include <type_traits>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -1795,6 +1802,783 @@ bwd_input_tc_kernel(const float* __restrict__ dy, const bf16* __restrict__ w,
   }
 }
 
+// ---------------------------------------------------------------------------
+// One task in one launch a block: thread-block clusters (B = 1)
+// ---------------------------------------------------------------------------
+//
+// The single-task TPU kernels (_blk_fwd_call_single, _blk_bwd_call_single)
+// hold a whole task in VMEM and run as one program. Above, a task is tiles
+// of 64 positions on separate CTAs, so batch-statistics BN, its backward
+// sums and the dw reduction each cost a launch and a round trip through
+// device memory: at B = 1 a forward is 3 dependent launches a block,
+// bwd_params 5-7.
+//
+// fwd_cluster_kernel and bwd_params_cluster_kernel keep the task on chip
+// instead: one cluster of up to 16 CTAs owns the task (all Co <= 64
+// channels); CTA rank r owns the positions of tiles [r T, (r + 1) T), T =
+// the plan's tiles a CTA, and keeps their f32 conv output y in its shared
+// memory. The CTAs meet at cluster barriers and read each other's shared
+// memory (DSMEM), so what the tiled path combines in separate launches is
+// combined inside the one launch:
+// - BN statistics: each CTA takes its rows' (n, mean, M2) in two passes;
+//   after a cluster barrier every CTA reads all ranks' in rank order and
+//   combines them by Chan's formula, so every CTA holds the same (mean,
+//   inv_std) bit for bit;
+// - bwd_params: each CTA sums dz * xhat and dz over its rows; the ranks'
+//   sums in rank order give dscale, dbias and dy's constants in every
+//   CTA. dy is formed in place of y (and stored: it is output 0, which
+//   cnn4_block_bwd_input reads). Each CTA takes its dw and db partials over
+//   its own positions on the CUDA cores into its shared memory; after a
+//   cluster barrier each CTA sums its share of dw's rows over all ranks in
+//   rank order and stores them.
+// Every sum has a fixed order and none uses atomics. A final cluster
+// barrier keeps every CTA resident until no peer reads its shared memory.
+//
+// What bounds them: a cluster has at most 16 SMs, one CTA each, so a CTA's
+// tiles run one after another, where the tiled grid spreads them over one
+// CTA each. Against the tiled launches in turns (PERF.md), each kernel
+// wins only where that series is short, and cluster_plan takes only those
+// shapes:
+// - the forward where Ci % 64 == 0 and a CTA owns one tile (blocks 2-4 of
+//   a served request's query and of the vision baseline's step, blocks
+//   3-4 of its support set): a tap of 64 channels a stage ("fat"), on the
+//   tensor cores in bf16 (conv_tile_tc's arithmetic, each 32 channels
+//   summed from zero) and on the CUDA cores in f32 (conv_tile's); inputs
+//   not 16-byte aligned take the tiled path's stages element by element.
+//   Block 1 (Ci = 1) stays tiled: its conv is 9 products a position, and
+//   the tiled grid's 31-77 CTAs beat 16;
+// - bwd_params where Ci == 1 (block 1) and a CTA owns at most 3 tiles (N
+//   <= 15): the images its positions read and w are copied to shared
+//   memory once, and conv and dw gather their elements there (dw is 9 rows
+//   of 64: a tensor-core tile would waste most of it). Blocks 2-4 stay
+//   tiled: dw's 9 Ci rows on 16 CTAs lost to the tiled dw GEMM at every N.
+// A table of the CTA's positions (the offset of each in x and the taps
+// that fall inside the image), made once, replaces per-stage divisions.
+// Clusters past the portable 8 need the device to schedule them
+// (cluster_max asks it once a device, and takes 8 where it cannot).
+
+constexpr int kGroupsRed = kThreads / (kTileN / 4);  // row groups a sum
+constexpr int kClusterMax = 16;       // CTAs a cluster where schedulable
+constexpr int kClusterPortable = 8;   // else
+constexpr int kFwdTilesMax = 1;       // the forward's tiles a CTA at most
+constexpr int kBwdTilesMax = 3;       // bwd_params' (block 1)
+constexpr int kClusterSmemMax = 232448;  // 227 KB, an H100 CTA's most
+constexpr int kTileYBytes = kTileM * kLdC * 4;  // a tile of y
+// cst (mean, M2), csum (dz xhat, dz), dbp (db), par [6][kTileN]
+constexpr int kAuxBytes = (2 * kTileN + 2 * kTileN + kTileN + 6 * kTileN) * 4;
+// the forward's fat stages: 64 channels of one tap
+constexpr int kCW = 64;
+constexpr int kLdW = kCW + 8;         // bf16 row stride of a fat slice: 144 B
+constexpr int kLdA32 = kCW + 4;       // f32 row stride of the conv's A slice
+constexpr int kTcFat = 2 * kTileM * kLdW;           // bf16 conv: A + B
+constexpr int kF32Fat = kTileM * kLdA32 + kCW * kTileN;  // f32 conv: A + B
+constexpr int kConvDepthTc = 3;
+constexpr int kConvDepthF32 = 2;
+constexpr int kPartBytes = 9 * kLdC * 4;  // block 1's dw partial: 9 rows
+static_assert(kThreads * 2 * 8 == kTileM * kCW, "two bf16 pieces a thread");
+static_assert(kThreads * 4 * 4 == kTileM * kCW, "four f32 pieces a thread");
+
+// The ring's bytes: the fat stages where Ci % 64 == 0 (`fat`), else the
+// tiled path's stages two deep (the element paths)
+__host__ __device__ constexpr int cluster_ring_bytes(bool bf16, bool fat) {
+  return bf16 ? 2 * (fat ? kConvDepthTc * kTcFat : 2 * kTcStage)
+              : 4 * (fat ? kConvDepthF32 * kF32Fat : 2 * kStage);
+}
+static_assert(2 * kGroupsRed * kTileN * 4 <= cluster_ring_bytes(true, false) &&
+                  4 * 9 * kTileN * 4 <= cluster_ring_bytes(true, false),
+              "the reductions fit the smallest ring");
+
+// The route and its shared memory (cluster_plan): `size` CTAs of `tiles`
+// tiles each; `ring` bytes of ring, `xspan` / `wspan` bytes of x and w
+// where they are copied (bwd_params; 0 else); `smem` bytes in all.
+struct ClusterPlan {
+  int size, tiles, ring, xspan, wspan, smem;
+};
+
+// The cluster's shared memory: the ring (also the reductions' scratch),
+// what peers read (cst, csum, dbp), par (mean, inv_std, scale, bias, m1,
+// m2 per channel), the position table, y (T tiles of kTileM rows of kLdC
+// floats; dy in place), x and w where copied, and bwd_params' dw partial.
+struct ClusterSmem {
+  unsigned char* ring;
+  float2* cst;
+  float2* csum;
+  float* dbp;
+  float (*par)[kTileN];
+  int2* pos;
+  float* y;
+  unsigned char* xspan;
+  unsigned char* wspan;
+  float* part;
+  __device__ ClusterSmem(unsigned char* base, const ClusterPlan& p) {
+    ring = base;
+    cst = reinterpret_cast<float2*>(base + p.ring);
+    csum = cst + kTileN;
+    dbp = reinterpret_cast<float*>(csum + kTileN);
+    par = reinterpret_cast<float(*)[kTileN]>(dbp + kTileN);
+    pos = reinterpret_cast<int2*>(par + 6);
+    y = reinterpret_cast<float*>(pos + p.tiles * kTileM);
+    xspan = reinterpret_cast<unsigned char*>(y + (size_t)p.tiles * kTileM * kLdC);
+    wspan = xspan + p.xspan;
+    part = reinterpret_cast<float*>(wspan + p.wspan);
+  }
+};
+
+// Positions [m0, m1) of rank q when each rank owns `tiles` tiles.
+__device__ __forceinline__ int rank_m0(int q, int tiles, int M) {
+  return min(M, q * tiles * kTileM);
+}
+
+// n stages on a ring of kDepth buffers `stride` elements apart:
+// stage(g, buf) issues stage g (cp.async copies, or plain stores),
+// consume(g, buf) uses it. Stages g + 1 .. g + kDepth - 1 are in flight
+// while stage g is consumed; the barrier at the top of step g also frees
+// the buffer step g - 1 read. Ends with every copy landed and a barrier.
+template <int kDepth, typename E, class Stage, class Consume>
+__device__ __forceinline__ void ring_loop(int n, E* ring, int stride,
+                                          Stage stage, Consume consume) {
+#pragma unroll 1
+  for (int g = 0; g < kDepth - 1; ++g) {
+    if (g < n) stage(g, ring + g * stride);
+    __pipeline_commit();
+  }
+#pragma unroll 1
+  for (int g = 0; g < n; ++g) {
+    __pipeline_wait_prior(kDepth - 2);
+    __syncthreads();
+    const int nx = g + kDepth - 1;
+    if (nx < n) stage(nx, ring + (nx % kDepth) * stride);
+    __pipeline_commit();
+    consume(g, ring + (g % kDepth) * stride);
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+}
+
+// dst[0 .. n) <- src (16 bytes at a time where both sides allow).
+template <typename T>
+__device__ __forceinline__ void copy_span(T* dst, const T* src, size_t n) {
+  const size_t bytes = n * sizeof(T);
+  if (((uintptr_t)src & 15) == 0 && bytes % 16 == 0) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (size_t e = threadIdx.x; e < bytes / 16; e += kThreads) d4[e] = s4[e];
+  } else {
+    for (size_t e = threadIdx.x; e < n; e += kThreads) dst[e] = src[e];
+  }
+}
+
+// The position table of the CTA's `rows` positions from m0: for m < m1,
+// the offset in x (images from nf) of (image, row 2i - 1, column 2j - 1,
+// channel 0) and the taps (bit ky * 3 + kx) that fall inside the image;
+// zeros past m1. Tap t of position m reads x[pos.x + tap_off(t) + ci].
+__device__ __forceinline__ void cluster_positions(int2* pos, const Shape& s,
+                                                  int m0, int m1, int nf,
+                                                  int rows) {
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    const int m = m0 + r;
+    int2 v = make_int2(0, 0);
+    if (m < m1) {
+      const int j = m % s.Wo, i = (m / s.Wo) % s.Ho, n = m / (s.Wo * s.Ho);
+      v.x = (((n - nf) * s.H + 2 * i - 1) * s.W + 2 * j - 1) * s.Ci;
+#pragma unroll
+      for (int t = 0; t < 9; ++t) {
+        const int hi = 2 * i + t / 3 - 1, wi = 2 * j + t % 3 - 1;
+        v.y |= (hi >= 0 && hi < s.H && wi >= 0 && wi < s.W) << t;
+      }
+    }
+    pos[r] = v;
+  }
+}
+__device__ __forceinline__ int tap_off(int t, const Shape& s) {
+  return ((t / 3) * s.W + t % 3) * s.Ci;
+}
+
+// The conv's tile t into y: acc + bias, rows t * kTileM .. (tc_rc's
+// layout for bf16, the 4 x 4 register tile for f32), then acc zeroed.
+__device__ __forceinline__ void tile_out(float (&acc)[4][4], const bf16* b,
+                                         const Shape& s, float* y, int t) {
+  tc_tile_to_smem(acc, b, s, 0, y + (size_t)t * kTileM * kLdC);
+#pragma unroll
+  for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[nn][u] = 0.f;
+}
+__device__ __forceinline__ void tile_out(float (&acc)[4][4], const float* b,
+                                         const Shape& s, float* y, int t) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* C = y + (size_t)t * kTileM * kLdC;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    float v[4];
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) {
+      const int co = 4 * tx + cc;
+      v[cc] = acc[r][cc] + (co < s.Co ? b[co] : 0.f);
+      acc[r][cc] = 0.f;
+    }
+    st4(C + (4 * ty + r) * kLdC + 4 * tx, make_float4(v[0], v[1], v[2], v[3]));
+  }
+}
+
+// y of the CTA's n positions on the tensor cores, fat stages (Ci % 64 ==
+// 0, x and w 16-byte aligned): a stage is one tap's 64 channels (A [64
+// positions][72], B [64 k][72], each thread two 16-byte cp.async of each),
+// its two halves of 32 channels each summed from zero on the tensor cores
+// and added to acc in f32 (conv_tile_tc's arithmetic); one ring across the
+// CTA's tiles.
+template <int kDepth>
+__device__ __forceinline__ void cluster_conv_fat(const bf16* __restrict__ x,
+                                                 const bf16* __restrict__ w,
+                                                 const bf16* __restrict__ b,
+                                                 const Shape& s, int n,
+                                                 const int2* pos, float* y,
+                                                 bf16* ring) {
+  const int tid = threadIdx.x, cpt = s.Ci / kCW, nk = 9 * cpt;
+  const int lane = tid & 31, j8 = lane >> 3, r8 = lane & 7;
+  const int wm = (tid >> 5) & 3, wn = tid >> 7;
+  float acc[4][4] = {};
+  auto stage = [&](int g, bf16* buf) {
+    const int t = g / nk, c = g - t * nk, tap = c / cpt;
+    const int toff = tap_off(tap, s) + (c - tap * cpt) * kCW;
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const int idx = tid + p * kThreads, row = idx >> 3, cq = 8 * (idx & 7);
+      const int2 pv = pos[t * kTileM + row];
+      const bool ok = (pv.y >> tap) & 1;
+      __pipeline_memcpy_async(buf + row * kLdW + cq,
+                              ok ? x + (pv.x + toff + cq) : x, 16,
+                              ok ? 0 : 16);
+      const bool bin = cq < s.Co;  // B: reduction row `row`, channels cq ..
+      __pipeline_memcpy_async(
+          buf + (kTileM + row) * kLdW + cq,
+          bin ? w + (size_t)(c * kCW + row) * s.Co + cq : w, 16, bin ? 0 : 16);
+    }
+  };
+  auto consume = [&](int g, const bf16* buf) {
+    const int t = g / nk, c = g - t * nk;
+    const bf16* Bk = buf + kTileM * kLdW;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      float part[4][4] = {};
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        const int kc = 32 * half + 16 * ks;
+        unsigned a[4];
+        ldsm_x4(a, buf + (16 * wm + r8 + 8 * (j8 & 1)) * kLdW + kc +
+                       8 * (j8 >> 1));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          unsigned bq[4];
+          ldsm_b(bq, Bk, kc, 32 * wn, h);
+          mma_bf16(part[2 * h], a, bq[0], bq[1]);
+          mma_bf16(part[2 * h + 1], a, bq[2], bq[3]);
+        }
+      }
+#pragma unroll
+      for (int nn = 0; nn < 4; ++nn)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[nn][u] += part[nn][u];
+    }
+    if (c == nk - 1) tile_out(acc, b, s, y, t);
+  };
+  ring_loop<kDepth>(cdiv(n, kTileM) * nk, ring, kTcFat, stage, consume);
+}
+
+// cluster_conv_fat in f32 on the CUDA cores: a stage is one tap's 64
+// channels (A [64][68], B [64][64], each thread four 16-byte cp.async of
+// each), k ascending in each thread's 4 x 4 FMAs (conv_tile's arithmetic).
+template <int kDepth>
+__device__ __forceinline__ void cluster_conv_fat(const float* __restrict__ x,
+                                                 const float* __restrict__ w,
+                                                 const float* __restrict__ b,
+                                                 const Shape& s, int n,
+                                                 const int2* pos, float* y,
+                                                 float* ring) {
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int cpt = s.Ci / kCW, nk = 9 * cpt;
+  float acc[4][4] = {};
+  auto stage = [&](int g, float* buf) {
+    const int t = g / nk, c = g - t * nk, tap = c / cpt;
+    const int toff = tap_off(tap, s) + (c - tap * cpt) * kCW;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const int idx = tid + p * kThreads, row = idx >> 4, q4 = 4 * (idx & 15);
+      const int2 pv = pos[t * kTileM + row];
+      const bool ok = (pv.y >> tap) & 1;
+      stage4(buf + row * kLdA32 + q4, ok ? x + (pv.x + toff + q4) : x, ok);
+      const bool bin = q4 < s.Co;
+      stage4(buf + kTileM * kLdA32 + row * kTileN + q4,
+             bin ? w + (size_t)(c * kCW + row) * s.Co + q4 : w, bin);
+    }
+  };
+  auto consume = [&](int g, const float* buf) {
+    const int t = g / nk, c = g - t * nk;
+    const float* Bk = buf + kTileM * kLdA32;
+#pragma unroll 4
+    for (int k = 0; k < kCW; k += 4) {
+      float4 a[4], bv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        a[r] = *reinterpret_cast<const float4*>(buf + (4 * ty + r) * kLdA32 + k);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        bv[q] = *reinterpret_cast<const float4*>(Bk + (k + q) * kTileN + 4 * tx);
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc)
+            acc[r][cc] = fmaf(f4(a[r], q), f4(bv[q], cc), acc[r][cc]);
+    }
+    if (c == nk - 1) tile_out(acc, b, s, y, t);
+  };
+  ring_loop<kDepth>(cdiv(n, kTileM) * nk, ring, kF32Fat, stage, consume);
+}
+
+// y of the CTA's n positions element by element (the forward's x or w
+// not 16-byte aligned): the tiled path's stages (32 channels bf16, 16
+// f32), two deep, gathered through the position table.
+__device__ __forceinline__ void cluster_conv_elems(const bf16* x,
+                                                   const bf16* w,
+                                                   const bf16* __restrict__ b,
+                                                   const Shape& s, int n,
+                                                   const int2* pos, float* y,
+                                                   bf16* ring) {
+  const int tid = threadIdx.x, K = 9 * s.Ci, nk = cdiv(K, kTcK);
+  const int row = tid >> 2, q = tid & 3;
+  const bf16 zero = __ushort_as_bfloat16(0);
+  float acc[4][4] = {};
+  auto stage = [&](int g, bf16* buf) {
+    const int t = g / nk, k0 = (g - t * nk) * kTcK;
+    const int kend = min(kTcK, 16 * cdiv(K - k0, 16));
+    const int2 pv = pos[t * kTileM + row];
+#pragma unroll 1
+    for (int kk = q; kk < kend; kk += 4) {
+      const int k = k0 + kk, tap = k / s.Ci;
+      buf[row * kLdA + kk] = k < K && ((pv.y >> tap) & 1)
+                                 ? x[pv.x + tap_off(tap, s) + k - tap * s.Ci]
+                                 : zero;
+    }
+    for (int e = tid; e < kend * kTileN; e += kThreads) {
+      const int k = k0 + e / kTileN, co = e % kTileN;
+      buf[kTcSliceA + (e / kTileN) * kLdB + co] =
+          (k < K && co < s.Co) ? w[(size_t)k * s.Co + co] : zero;
+    }
+  };
+  auto consume = [&](int g, const bf16* buf) {
+    const int t = g / nk, c = g - t * nk;
+    tc_stage_nn(buf, buf + kTcSliceA, acc, K - c * kTcK > 16 ? 2 : 1);
+    if (c == nk - 1) tile_out(acc, b, s, y, t);
+  };
+  ring_loop<2>(cdiv(n, kTileM) * nk, ring, kTcStage, stage, consume);
+}
+__device__ __forceinline__ void cluster_conv_elems(const float* x,
+                                                   const float* w,
+                                                   const float* __restrict__ b,
+                                                   const Shape& s, int n,
+                                                   const int2* pos, float* y,
+                                                   float* ring) {
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int K = 9 * s.Ci, nk = cdiv(K, kTileK);
+  float acc[4][4] = {};
+  auto stage = [&](int g, float* buf) {
+    const int t = g / nk, k0 = (g - t * nk) * kTileK;
+    for (int e = tid; e < kTileM * kTileK; e += kThreads) {
+      const int r = e / kTileK, k = k0 + e % kTileK, tap = k / s.Ci;
+      const int2 pv = pos[t * kTileM + r];
+      buf[r * kLdK + e % kTileK] =
+          k < K && ((pv.y >> tap) & 1)
+              ? x[pv.x + tap_off(tap, s) + k - tap * s.Ci]
+              : 0.f;
+    }
+    for (int e = tid; e < kTileK * kTileN; e += kThreads) {
+      const int k = k0 + e / kTileN, co = e % kTileN;
+      buf[kSliceA + e] = (k < K && co < s.Co) ? w[(size_t)k * s.Co + co] : 0.f;
+    }
+  };
+  auto consume = [&](int g, const float* buf) {
+    const int t = g / nk, c = g - t * nk;
+    mma_nn(buf, buf + kSliceA, acc, tx, ty);
+    if (c == nk - 1) tile_out(acc, b, s, y, t);
+  };
+  ring_loop<2>(cdiv(n, kTileM) * nk, ring, kStage, stage, consume);
+}
+
+// y of the CTA's n positions where Ci == 1 (block 1: 9 taps, x and w in
+// shared memory), on the CUDA cores: thread (co, pg) takes channel co of
+// rows pg, pg + 4, .., y = b + sum over the taps in the image of x w, taps
+// in order, each product of two bf16 exact in f32 (a tensor-core tile
+// would use 9 of 16 reduction rows and restage w for every tile).
+template <typename T>
+__device__ __forceinline__ void cluster_conv_taps(const T* x, const T* w,
+                                                  const T* __restrict__ b,
+                                                  const Shape& s, int n,
+                                                  const int2* pos, float* y) {
+  const int co = threadIdx.x & (kTileN - 1), pg = threadIdx.x / kTileN;
+  float wt[9];
+  int off[9];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    wt[t] = co < s.Co ? ld(w + (size_t)t * s.Co + co) : 0.f;
+    off[t] = tap_off(t, s);
+  }
+  const float bias = co < s.Co ? ld(b + co) : 0.f;
+#pragma unroll 4
+  for (int r = pg; r < n; r += 4) {
+    const int2 pv = pos[r];
+    float a = bias;
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+      if ((pv.y >> t) & 1) a = fmaf(ld(x + (pv.x + off[t])), wt[t], a);
+    y[r * kLdC + co] = a;
+  }
+  __syncthreads();
+}
+
+// BN statistics of the task: the CTA's n rows of y in two passes (4 row
+// groups a channel, rows g, g + 4, ..; then the groups in order; the
+// divisions by __fdividef, whose IEEE form's slow path is a call that
+// makes ptxas spill around it) ->
+// cst[c] = (mean, M2); after a cluster barrier, every rank's in rank order
+// by Chan's combine, mean = sum n_q mean_q / M, M2 = sum M2_q + n_q
+// (mean_q - mean)^2 -> par[0] = mean, par[1] = inv_std, in every CTA.
+// red: 5 kTileN floats of scratch.
+__device__ __forceinline__ void cluster_bn_stats(cg::cluster_group& cluster,
+                                                 const Shape& s, int tiles,
+                                                 int n, const float* y,
+                                                 float* red, ClusterSmem& sm) {
+  const int tid = threadIdx.x, col = tid & (kTileN - 1), part = tid / kTileN;
+  float* mean = red + 4 * kTileN;
+  float a = 0.f;
+#pragma unroll 4
+  for (int r = part; r < n; r += 4) a += y[r * kLdC + col];
+  red[part * kTileN + col] = a;
+  __syncthreads();
+  if (tid < kTileN)
+    mean[col] = __fdividef(red[col] + red[kTileN + col] +
+                               red[2 * kTileN + col] + red[3 * kTileN + col],
+                           (float)n);
+  __syncthreads();
+  const float mu = mean[col];
+  a = 0.f;
+#pragma unroll 4
+  for (int r = part; r < n; r += 4) {
+    const float d = y[r * kLdC + col] - mu;
+    a += d * d;
+  }
+  red[part * kTileN + col] = a;
+  __syncthreads();
+  if (tid < kTileN)
+    sm.cst[col] = make_float2(mu, red[col] + red[kTileN + col] +
+                                      red[2 * kTileN + col] +
+                                      red[3 * kTileN + col]);
+  cluster.sync();
+  if (tid < kTileN) {
+    const int size = (int)cluster.num_blocks();
+    float2 v[kClusterMax];
+#pragma unroll
+    for (int q = 0; q < kClusterMax; ++q)
+      if (q < size) v[q] = *cluster.map_shared_rank(sm.cst + col, q);
+    float sum = 0.f;
+#pragma unroll
+    for (int q = 0; q < kClusterMax; ++q)
+      if (q < size)
+        sum += (float)(rank_m0(q + 1, tiles, s.M) - rank_m0(q, tiles, s.M)) *
+               v[q].x;
+    const float mt = __fdividef(sum, (float)s.M);
+    float m2 = 0.f;
+#pragma unroll
+    for (int q = 0; q < kClusterMax; ++q)
+      if (q < size) {
+        const float d = v[q].x - mt;
+        m2 += v[q].y + (float)(rank_m0(q + 1, tiles, s.M) -
+                               rank_m0(q, tiles, s.M)) * d * d;
+      }
+    sm.par[0][col] = mt;
+    sm.par[1][col] = rsqrtf(__fdividef(m2, (float)s.M) + kEps);
+  }
+  __syncthreads();
+}
+
+// How a cluster kernel takes its conv: the forward's fat stages (Ci % 64
+// == 0, aligned), its element path (unaligned), or block 1's taps from x
+// and w copied to shared memory (bwd_params)
+constexpr int kConvFat = 0, kConvElems = 1, kConvTaps = 2;
+
+// The start of both cluster kernels: scale and bias into par[2], par[3];
+// for kConvTaps x and w copied (x then holds images from nf); the position
+// table; the conv of the CTA's tiles into y; the statistics
+// (cluster_bn_stats). -> x as the dw sums read it.
+template <typename T, int kConv>
+__device__ __forceinline__ const T* cluster_forward(
+    cg::cluster_group& cluster, const T* x, const T* w, const T* b,
+    const T* sc, const T* be, const ClusterPlan& p, const Shape& s, int m0,
+    int m1, ClusterSmem& sm) {
+  const int c = threadIdx.x;
+  if (c < kTileN) {
+    sm.par[2][c] = c < s.Co ? ld(sc + c) : 0.f;
+    sm.par[3][c] = c < s.Co ? ld(be + c) : 0.f;
+  }
+  int nf = 0;
+  if constexpr (kConv == kConvTaps) {
+    const int hw = s.Ho * s.Wo, nl = (m1 - 1) / hw;
+    const size_t img = (size_t)s.H * s.W * s.Ci;
+    nf = m0 / hw;
+    copy_span(reinterpret_cast<T*>(sm.xspan), x + nf * img, (nl - nf + 1) * img);
+    copy_span(reinterpret_cast<T*>(sm.wspan), w, (size_t)9 * s.Ci * s.Co);
+    x = reinterpret_cast<const T*>(sm.xspan);
+    w = reinterpret_cast<const T*>(sm.wspan);
+  }
+  cluster_positions(sm.pos, s, m0, m1, nf, p.tiles * kTileM);
+  __syncthreads();
+  T* ring = reinterpret_cast<T*>(sm.ring);
+  if constexpr (kConv == kConvFat)
+    cluster_conv_fat<std::is_same<T, bf16>::value ? kConvDepthTc
+                                                  : kConvDepthF32>(
+        x, w, b, s, m1 - m0, sm.pos, sm.y, ring);
+  else if constexpr (kConv == kConvTaps)
+    cluster_conv_taps(x, w, b, s, m1 - m0, sm.pos, sm.y);
+  else
+    cluster_conv_elems(x, w, b, s, m1 - m0, sm.pos, sm.y, ring);
+  cluster_bn_stats(cluster, s, p.tiles, m1 - m0, sm.y,
+                   reinterpret_cast<float*>(sm.ring), sm);
+  return x;
+}
+
+// cnn4_block_fwd of one task in one launch: grid (cluster size), one
+// cluster, the plan p. out = relu((y - mean) inv_std scale + bias) from y
+// in shared memory, stored in T (16 bytes a row piece where `vec`).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+fwd_cluster_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                   const T* __restrict__ b, const T* __restrict__ sc,
+                   const T* __restrict__ be, T* __restrict__ out,
+                   ClusterPlan p, bool vec, Shape s) {
+  extern __shared__ __align__(16) unsigned char cl_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  ClusterSmem sm(cl_smem, p);
+  const int rank = (int)cluster.block_rank();
+  const int m0 = rank_m0(rank, p.tiles, s.M);
+  const int m1 = rank_m0(rank + 1, p.tiles, s.M), n = m1 - m0;
+  cluster_forward<T, kVec ? kConvFat : kConvElems>(cluster, x, w, b, sc, be,
+                                                   p, s, m0, m1, sm);
+  const float(*par)[kTileN] = sm.par;
+  for (int e = threadIdx.x; e < n * (kTileN / 4); e += kThreads) {
+    const int row = e >> 4, col = 4 * (e & 15);
+    if (col >= s.Co) continue;
+    const float4 y = *reinterpret_cast<const float4*>(sm.y + row * kLdC + col);
+    float v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      v[u] = fmaxf((f4(y, u) - par[0][col + u]) * par[1][col + u] *
+                       par[2][col + u] + par[3][col + u], 0.f);
+    store_row4(out + (size_t)(m0 + row) * s.Co + col,
+               make_float4(v[0], v[1], v[2], v[3]), s.Co - col, vec);
+  }
+  cluster.sync();  // no CTA leaves while a peer may read its cst
+}
+
+// The dw partial where Ci == 1 (block 1: 9 rows), on the CUDA cores:
+// thread (co, pg) sums x_tap dy over rows pg, pg + 4, .. of the CTA's n
+// positions in order, the 9 taps in 9 chains; the 4 position groups are
+// then added in order through `red` (4 x 9 x kTileN floats) -> part.
+template <typename T>
+__device__ __forceinline__ void cluster_dw_taps(const T* x, const Shape& s,
+                                                int n, const int2* pos,
+                                                const float* dyb, float* red,
+                                                float* part) {
+  const int co = threadIdx.x & (kTileN - 1), pg = threadIdx.x / kTileN;
+  float acc[9];
+  int off[9];
+#pragma unroll
+  for (int t = 0; t < 9; ++t) {
+    acc[t] = 0.f;
+    off[t] = tap_off(t, s);
+  }
+#pragma unroll 4
+  for (int r = pg; r < n; r += 4) {
+    const int2 pv = pos[r];
+    const float d = dyb[r * kLdC + co];
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+      if ((pv.y >> t) & 1) acc[t] = fmaf(ld(x + (pv.x + off[t])), d, acc[t]);
+  }
+#pragma unroll
+  for (int t = 0; t < 9; ++t) red[(pg * 9 + t) * kTileN + co] = acc[t];
+  __syncthreads();
+  for (int e = threadIdx.x; e < 9 * kTileN; e += kThreads) {
+    const int t = e / kTileN, c = e % kTileN;
+    part[t * kLdC + c] = ((red[t * kTileN + c] + red[(9 + t) * kTileN + c]) +
+                          red[(18 + t) * kTileN + c]) +
+                         red[(27 + t) * kTileN + c];
+  }
+}
+
+// cnn4_block_bwd_params of one task in one launch where Ci == 1 (block 1;
+// x and w copied to shared memory by the plan): dy (f32), dw, db, dscale
+// and dbias. grid (cluster size), one cluster, the plan p. After the
+// forward's y and statistics (cluster_forward), the BN-backward sums over
+// the CTA's rows (16 row groups a channel, rows g, g + 16, .., then the
+// groups in order), combined over the ranks in rank order after a cluster
+// barrier; dy = inv_std (dz scale - m1 - xhat m2) in place of y and
+// stored, with the CTA's db partial; then the CTA's dw partial
+// (cluster_dw_taps), a cluster barrier, after which each CTA sums its share
+// of dw's 9 rows over the ranks in rank order and stores them (rank 0 db).
+// `vec`: g, dy and dw rows by 16 bytes.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_params_cluster_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                          const T* __restrict__ b, const T* __restrict__ sc,
+                          const T* __restrict__ be, const T* __restrict__ g,
+                          float* __restrict__ dy, T* __restrict__ dw,
+                          T* __restrict__ db, T* __restrict__ dsc,
+                          T* __restrict__ dbe, ClusterPlan p, bool vec,
+                          Shape s) {
+  extern __shared__ __align__(16) unsigned char cl_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  ClusterSmem sm(cl_smem, p);
+  const int tid = threadIdx.x, rank = (int)cluster.block_rank();
+  const int size = (int)cluster.num_blocks();
+  const int m0 = rank_m0(rank, p.tiles, s.M);
+  const int m1 = rank_m0(rank + 1, p.tiles, s.M), n = m1 - m0;
+  const T* xs =
+      cluster_forward<T, kConvTaps>(cluster, x, w, b, sc, be, p, s, m0, m1,
+                                    sm);
+  float* red = reinterpret_cast<float*>(sm.ring);  // [2][kGroupsRed][kTileN]
+  float(*par)[kTileN] = sm.par;
+
+  // the BN-backward sums of the CTA's rows: thread (rg, q) on rows rg, rg
+  // + 16, .. of channels 4q .. 4q + 3
+  const int col = 4 * (tid & 15), rg = tid >> 4, limit = s.Co - col;
+  {
+    float sx[4] = {0.f, 0.f, 0.f, 0.f}, sz[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int r = rg; r < n && limit > 0; r += kGroupsRed) {
+      const float4 yv = *reinterpret_cast<const float4*>(sm.y + r * kLdC + col);
+      const float4 gv = load_row4(g + (size_t)(m0 + r) * s.Co + col, limit, vec);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float xh;
+        const float dz = bn_dz(f4(yv, u), f4(gv, u), par[0][col + u],
+                               par[1][col + u], par[2][col + u],
+                               par[3][col + u], xh);
+        sx[u] += dz * xh;
+        sz[u] += dz;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      red[rg * kTileN + col + u] = sx[u];
+      red[(kGroupsRed + rg) * kTileN + col + u] = sz[u];
+    }
+    __syncthreads();
+    if (tid < kTileN) {
+      float a = 0.f, c = 0.f;
+      for (int r = 0; r < kGroupsRed; ++r) {
+        a += red[r * kTileN + tid];
+        c += red[(kGroupsRed + r) * kTileN + tid];
+      }
+      sm.csum[tid] = make_float2(a, c);
+    }
+  }
+  cluster.sync();
+  if (tid < kTileN) {
+    float2 v[kClusterMax];
+#pragma unroll
+    for (int q = 0; q < kClusterMax; ++q)
+      if (q < size) v[q] = *cluster.map_shared_rank(sm.csum + tid, q);
+    float ds = 0.f, dbs = 0.f;
+#pragma unroll
+    for (int q = 0; q < kClusterMax; ++q)
+      if (q < size) {
+        ds += v[q].x;
+        dbs += v[q].y;
+      }
+    if (rank == 0 && tid < s.Co) {
+      st(dsc + tid, ds);
+      st(dbe + tid, dbs);
+    }
+    const float scale = par[2][tid];
+    par[4][tid] = __fdividef(scale * dbs, (float)s.M);
+    par[5][tid] = __fdividef(scale * ds, (float)s.M);
+  }
+  __syncthreads();
+
+  // dy in place of y, stored, and the CTA's db partial
+  {
+    float dba[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+    for (int r = rg; r < n && limit > 0; r += kGroupsRed) {
+      float* yr = sm.y + r * kLdC + col;
+      const float4 yv = *reinterpret_cast<const float4*>(yr);
+      const float4 gv = load_row4(g + (size_t)(m0 + r) * s.Co + col, limit, vec);
+      float d[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        float xh;
+        const int c = col + u;
+        const float dz = bn_dz(f4(yv, u), f4(gv, u), par[0][c], par[1][c],
+                               par[2][c], par[3][c], xh);
+        d[u] = par[1][c] * (fmaf(dz, par[2][c], -par[4][c]) - xh * par[5][c]);
+        dba[u] += d[u];
+      }
+      const float4 dv = make_float4(d[0], d[1], d[2], d[3]);
+      st4(yr, dv);
+      store_row4(dy + (size_t)(m0 + r) * s.Co + col, dv, limit, vec);
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) red[rg * kTileN + col + u] = dba[u];
+    __syncthreads();
+    if (tid < kTileN) {
+      float a = 0.f;
+      for (int r = 0; r < kGroupsRed; ++r) a += red[r * kTileN + tid];
+      sm.dbp[tid] = a;
+    }
+    __syncthreads();
+  }
+
+  // dw: the CTA's partial, a cluster barrier, then rows [rb, re) of the 9
+  // are this CTA's to sum over the ranks in order and store
+  cluster_dw_taps(xs, s, n, sm.pos, sm.y, red, sm.part);
+  cluster.sync();
+  const int per = cdiv(9, size), rb = min(9, rank * per);
+  const int each = (min(9, rb + per) - rb) * (kTileN / 4);
+  for (int e = tid; e < each; e += kThreads) {
+    const int row = rb + (e >> 4), c4 = 4 * (e & 15);
+    if (c4 >= s.Co) continue;
+    float4 v[kClusterMax];
+#pragma unroll
+    for (int q = 0; q < kClusterMax; ++q)
+      if (q < size)
+        v[q] = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(sm.part + row * kLdC + c4, q));
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int q = 0; q < kClusterMax; ++q)
+      if (q < size) {
+        a.x += v[q].x;
+        a.y += v[q].y;
+        a.z += v[q].z;
+        a.w += v[q].w;
+      }
+    store_row4(dw + (size_t)row * s.Co + c4, a, s.Co - c4, vec);
+  }
+  if (rank == 0 && tid < s.Co) {
+    float v[kClusterMax];
+#pragma unroll
+    for (int q = 0; q < kClusterMax; ++q)
+      if (q < size) v[q] = *cluster.map_shared_rank(sm.dbp + tid, q);
+    float a = 0.f;
+#pragma unroll
+    for (int q = 0; q < kClusterMax; ++q)
+      if (q < size) a += v[q];
+    st(db + tid, a);
+  }
+  cluster.sync();  // no CTA leaves while a peer may read its partials
+}
+
 Shape make_shape(int N, int H, int W, int Ci, int Co) {
   Shape s;
   s.N = N; s.H = H; s.W = W; s.Ci = Ci; s.Co = Co;
@@ -1808,6 +2592,156 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 bool tc_vec(const bf16* x, const bf16* w, const Shape& s) {
   return s.Ci % kTcK == 0 && s.Co % 8 == 0 && aligned16(x) && aligned16(w);
+}
+
+// The forward's fat stages (cluster_conv_fat): whole taps of 64 channels,
+// copied 16 bytes at a time.
+template <typename T>
+bool fat_vec(const T* x, const T* w, const Shape& s) {
+  return s.Ci % kCW == 0 && s.Co % 8 == 0 && aligned16(x) && aligned16(w);
+}
+
+// The route of one call at B = 1 (cuda/cnn4_cuda.py:cluster_plan mirrors
+// it) on clusters of at most `cmax` CTAs (cluster_max): 0 < Co <= 64, Co
+// % 8 == 0, and for the forward Ci % 64 == 0 and at most kFwdTilesMax
+// tiles a CTA, for bwd_params Ci == 1 (block 1: x and w copied to shared
+// memory) and at most kBwdTilesMax; the CTA's shared memory within
+// kClusterSmemMax. size = ceil(tiles of the task / ceil(tiles / cmax)), and
+// a CTA owns ceil(tiles of the task / size) tiles. The copy of x holds the
+// images a CTA's positions can read, ceil(tiles 64 / (Ho Wo)) + 1 of them
+// at most N.
+int round16(int bytes) { return (bytes + 15) / 16 * 16; }
+bool cluster_plan(const Shape& s, bool bf16, bool bwd, int cmax,
+                  ClusterPlan& p) {
+  if (s.M == 0 || s.Co > kTileN || s.Co % 8 != 0 ||
+      !(bwd ? s.Ci == 1 : s.Ci % kCW == 0))
+    return false;
+  const int ntiles = cdiv(s.M, kTileM), item = bf16 ? 2 : 4;
+  p.size = cdiv(ntiles, cdiv(ntiles, cmax));
+  p.tiles = cdiv(ntiles, p.size);
+  if (p.tiles > (bwd ? kBwdTilesMax : kFwdTilesMax)) return false;
+  p.ring = cluster_ring_bytes(bf16, !bwd);
+  p.xspan = p.wspan = 0;
+  if (bwd) {
+    const int images =
+        std::min(s.N, cdiv(p.tiles * kTileM, s.Ho * s.Wo) + 1);
+    p.xspan = round16(images * s.H * s.W * s.Ci * item);
+    p.wspan = round16(9 * s.Ci * s.Co * item);
+  }
+  p.smem = p.ring + kAuxBytes + p.tiles * kTileM * (int)sizeof(int2) +
+           p.tiles * kTileYBytes + p.xspan + p.wspan + (bwd ? kPartBytes : 0);
+  return p.smem <= kClusterSmemMax;
+}
+
+// The most CTAs a cluster this device schedules: the cluster kernels'
+// dynamic shared-memory attribute (227 KB) and the non-portable size are
+// set once a device, as dw_tc_smem_once's attribute, and each instance is
+// asked whether a cluster of kClusterMax CTAs at that much shared memory
+// can be scheduled; kClusterMax where all can, kClusterPortable else. A
+// plan the device then cannot launch fails at its launch.
+cudaError_t cluster_max(int& cmax) {
+  static std::atomic<int> known[kMaxDevices];  // zero: not yet asked
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  cmax = known[dev].load(std::memory_order_acquire);
+  if (cmax != 0) return cudaSuccess;
+  cmax = kClusterMax;
+  auto ask = [&cmax](auto* kern) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kClusterSmemMax);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kClusterMax, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = kClusterSmemMax;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kClusterMax;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (err != cudaSuccess) {  // a size the device refuses to consider
+      cudaGetLastError();
+      clusters = 0;
+    }
+    if (clusters == 0) cmax = kClusterPortable;
+    return cudaSuccess;
+  };
+  for (cudaError_t err :
+       {ask(fwd_cluster_kernel<float, true>),
+        ask(fwd_cluster_kernel<float, false>),
+        ask(fwd_cluster_kernel<bf16, true>),
+        ask(fwd_cluster_kernel<bf16, false>),
+        ask(bwd_params_cluster_kernel<float>),
+        ask(bwd_params_cluster_kernel<bf16>)})
+    if (err != cudaSuccess) return err;
+  known[dev].store(cmax, std::memory_order_release);
+  return cudaSuccess;
+}
+
+// Whether one call takes the cluster route, and its plan: B = 1 and
+// cluster_plan on this device's cluster_max.
+cudaError_t cluster_route(int B, const Shape& s, bool bf16, bool bwd,
+                          ClusterPlan& p, bool& planned) {
+  planned = false;
+  if (B != 1) return cudaSuccess;
+  int cmax = 0;
+  const cudaError_t e = cluster_max(cmax);
+  if (e != cudaSuccess) return e;
+  planned = cluster_plan(s, bf16, bwd, cmax, p);
+  return cudaSuccess;
+}
+
+// One launch of a cluster kernel on the plan: grid (size), one cluster of
+// `size` CTAs. A launch the device refuses returns its error.
+template <typename... Params, typename... Args>
+int launch_cluster(void (*kern)(Params...), const ClusterPlan& p,
+                   cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(p.size, 1, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.size;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fwd_cluster(const T* x, const T* w, const T* b, const T* sc,
+                       const T* be, T* out, const Shape& s,
+                       const ClusterPlan& p, cudaStream_t st) {
+  const bool vec = aligned16(out);
+  if (fat_vec(x, w, s))
+    return launch_cluster(fwd_cluster_kernel<T, true>, p, st, x, w, b, sc,
+                          be, out, p, vec, s);
+  return launch_cluster(fwd_cluster_kernel<T, false>, p, st, x, w, b, sc,
+                        be, out, p, vec, s);
+}
+
+template <typename T>
+int launch_bwd_params_cluster(const T* x, const T* w, const T* b,
+                              const T* sc, const T* be, const T* g, float* dy,
+                              T* dw, T* db, T* dsc, T* dbe, const Shape& s,
+                              const ClusterPlan& p, cudaStream_t st) {
+  const bool vec = aligned16(g) && aligned16(dy) && aligned16(dw);
+  return launch_cluster(bwd_params_cluster_kernel<T>, p, st, x, w, b, sc, be,
+                        g, dy, dw, db, dsc, dbe, p, vec, s);
 }
 
 // Kernels A and C of the forward: y = conv + bias (f32) and per (task,
@@ -1840,11 +2774,18 @@ int conv_stats(const T* x, const T* w, const T* b, float* y, float2* tstats,
   return (int)cudaGetLastError();
 }
 
-// ws: f32 scratch of cuda/cnn4_cuda.py:fwd_workspace_floats.
+// ws: f32 scratch of cuda/cnn4_cuda.py:fwd_workspace_floats (the tiled
+// route's; a planned cluster launch takes none).
 template <typename T>
 int launch_fwd(const T* x, const T* w, const T* b, const T* sc, const T* be,
                T* out, float* ws, int B, const Shape& s, cudaStream_t st) {
   if (B == 0 || s.M == 0) return 0;
+  ClusterPlan plan;
+  bool planned;
+  const cudaError_t e =
+      cluster_route(B, s, std::is_same<T, bf16>::value, false, plan, planned);
+  if (e != cudaSuccess) return (int)e;
+  if (planned) return launch_fwd_cluster(x, w, b, sc, be, out, s, plan, st);
   const int ntiles = cdiv(s.M, kTileM);
   const dim3 grid(ntiles, cdiv(s.Co, kTileN), B);
   float2* tstats = reinterpret_cast<float2*>(ws);
@@ -1878,7 +2819,7 @@ int dw_chunk(const Shape& s, int B) {
 // order: tile statistics, then tile sums [B][tiles][Co] (float2); stats
 // and consts [B][Co] (float2); y [B][M][Co]; the dw partials [B][chunks]
 // [9 Ci Co + Co] where there is more than one chunk; in bf16, dy's three
-// terms [3][B][M][Co] (bf16).
+// terms [3][B][M][Co] (bf16). A planned cluster launch takes none.
 template <typename T>
 int launch_bwd_params(const T* x, const T* w, const T* b, const T* sc,
                       const T* be, const T* g, float* dy, T* dw, T* db,
@@ -1894,6 +2835,14 @@ int launch_bwd_params(const T* x, const T* w, const T* b, const T* sc,
     cudaMemsetAsync(dbe, 0, per, st);
     return (int)cudaGetLastError();
   }
+  ClusterPlan plan;
+  bool planned;
+  const cudaError_t e =
+      cluster_route(B, s, std::is_same<T, bf16>::value, true, plan, planned);
+  if (e != cudaSuccess) return (int)e;
+  if (planned)
+    return launch_bwd_params_cluster(x, w, b, sc, be, g, dy, dw, db, dsc, dbe,
+                                     s, plan, st);
   const int ntiles = cdiv(s.M, kTileM), nct = cdiv(s.Co, kTileN);
   float2* tsums = reinterpret_cast<float2*>(ws);
   float2* stats = tsums + (size_t)B * ntiles * s.Co;
@@ -2024,6 +2973,25 @@ int cnn4_block_bwd_params(int dtype, const void* x, const void* w,
                                   B, s, st);
   return (int)cudaErrorInvalidValue;
 }
+
+// The route cnn4_block_fwd (kernel 0) or cnn4_block_bwd_params (kernel 1)
+// takes at a shape on the current device: out = (cluster size, dynamic
+// shared-memory bytes) of its one cluster, or (0, 0) for the tiled kernels.
+// Returns a cudaError_t code.
+int cnn4_cluster_plan(int dtype, int kernel, int B, int N, int H, int W,
+                      int Ci, int Co, int* out) {
+  ClusterPlan p;
+  bool planned;
+  const cudaError_t e = cluster_route(B, make_shape(N, H, W, Ci, Co),
+                                      dtype == 1, kernel == 1, p, planned);
+  out[0] = planned ? p.size : 0;
+  out[1] = planned ? p.smem : 0;
+  return (int)e;
+}
+
+// The most CTAs a cluster on the current device (cluster_max) into out[0].
+// Returns a cudaError_t code.
+int cnn4_cluster_max(int* out) { return (int)cluster_max(out[0]); }
 
 int cnn4_block_bwd_input(int dtype, const void* dy, const void* w, void* dx,
                          int B, int N, int H, int W, int Ci, int Co,

@@ -18,6 +18,23 @@ TPU-kernel table in PERF.md). One block is zero-pad -> 3x3 stride-2 conv
 - ``cnn4_block_bwd_input``  dx, the transposed stride-2 conv as four
   parity-class GEMMs.
 
+At one task a call (B = 1: ``VisionServer.__call__``, the vision
+baseline's Adam steps, the CL analysis) the forward and ``bwd_params``
+take one launch a block instead where :func:`cluster_plan` says the
+cluster is faster than the tiled launches: ``fwd_cluster_kernel`` where
+Ci % 64 == 0 and a CTA owns one tile of 64 positions (blocks 2-4 at N <=
+15, blocks 3-4 at N = 25), ``bwd_params_cluster_kernel`` at block 1 (Ci
+= 1) where a CTA owns at most 3 tiles (N <= 15). A thread-block cluster
+of up to 16 CTAs holds the task's f32 conv output in shared memory and
+combines its BN statistics, BN-backward sums and dw partials over
+distributed shared memory, in rank order (the port of the single-task
+TPU kernels, which hold the task in VMEM). The wrappers take the route
+from the built source (:func:`source_cluster_plan`), which decides it for
+the launch too; :func:`cluster_plan` is its mirror for the CPU.
+:func:`block_fwd_cluster_plain` and :func:`block_bwd_params_cluster_plain`
+emulate the kernels' summation order; :func:`routes` counts the calls by
+route.
+
 Every tensor has a leading task axis B (the JAX single-task form is
 B = 1): x ``[B, N, H, W, Ci]`` NHWC, w ``[B, 3, 3, Ci, Co]`` HWIO,
 b/scale/bias ``[B, Co]``, all of one dtype (float32 or bfloat16; math in
@@ -56,6 +73,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +88,26 @@ _TILE_K = 16              # kTileK: positions per stage of the dw GEMM
 _TC_K = 32                # kTcK: channels co per stage of the bf16 dx GEMMs
 _DW_CTAS = 4 * 132        # kDwCtas: CTAs the dw grid aims at
 _DW_MIN_CHUNK = 256       # kDwMinChunk: fewest positions in a dw chunk
+# the cluster route (mirrors cluster_plan in the source)
+_CLUSTER_MAX = 16         # kClusterMax: CTAs a cluster where schedulable
+_FWD_TILES_MAX = 1        # kFwdTilesMax: the forward's tiles a CTA at most
+_BWD_TILES_MAX = 3        # kBwdTilesMax: bwd_params' (block 1)
+_CLUSTER_SMEM_MAX = 232448  # kClusterSmemMax: 227 KB a CTA
+_LD_C = _TILE_N + 4       # kLdC: a row of y in shared memory, floats
+_TILE_Y_BYTES = _TILE_M * _LD_C * 4   # kTileYBytes
+_AUX_BYTES = 11 * _TILE_N * 4         # kAuxBytes
+_PART_BYTES = 9 * _LD_C * 4           # kPartBytes: block 1's dw partial
+_TC_STAGE = _TILE_M * (_TC_K + 8) + _TC_K * (_TILE_N + 8)   # kTcStage, bf16
+_F32_STAGE = (_TILE_M + _TILE_N) * (_TILE_K + 4)            # kStage, floats
+_CW = 64                  # kCW: channels a fat stage of the forward
+# the ring a CTA: (dtype, fat) -> bytes. Fat (the forward, Ci % 64 == 0):
+# bf16 3 stages of 2 x 64 x 72 halves, f32 2 stages of 64 x 68 + 64 x 64
+# floats. Else (bwd_params at block 1) the tiled path's stages, two deep.
+_RING_BYTES = {
+    (torch.bfloat16, True): 2 * 3 * 2 * _TILE_M * (_CW + 8),
+    (torch.bfloat16, False): 2 * 2 * _TC_STAGE,
+    (torch.float32, True): 4 * 2 * (_TILE_M * (_CW + 4) + _CW * _TILE_N),
+    (torch.float32, False): 4 * 2 * _F32_STAGE}
 MAX_TASKS = 65535         # the task axis is gridDim.y or .z of every kernel
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _SOURCE = "cnn4_block.cu"
@@ -103,6 +141,58 @@ def dw_chunk(b: int, m: int, ci: int, co: int) -> int:
     tiles = b * _cdiv(9 * ci, _TILE_M) * _cdiv(co, _TILE_N)
     want = max(1, min(_cdiv(_DW_CTAS, tiles), _cdiv(m, _DW_MIN_CHUNK)))
     return _cdiv(_cdiv(m, want), _TILE_K) * _TILE_K
+
+
+class ClusterPlan(NamedTuple):
+    """One cluster of ``size`` CTAs, each with ``smem`` bytes of dynamic
+    shared memory."""
+    size: int
+    smem: int
+
+
+def cluster_plan(b: int, n: int, h: int, w: int, ci: int, co: int,
+                 dtype: torch.dtype, kernel: str = "cnn4_block_fwd",
+                 max_size: int = _CLUSTER_MAX):
+    """The route of one call of ``kernel`` (``cnn4_block_fwd`` or
+    ``cnn4_block_bwd_params``), mirroring ``cluster_plan`` in the source:
+    a :class:`ClusterPlan` on clusters of at most ``max_size`` CTAs (the
+    device's, :func:`source_cluster_max`) where ``b`` == 1, 0 < Co <= 64
+    with Co % 8 == 0, and for the forward Ci % 64 == 0 and one tile of 64
+    positions a CTA, for ``bwd_params`` Ci == 1 and at most 3 tiles a CTA
+    (:func:`cluster_rows`); else None (the tiled kernels). The CTA's
+    shared memory: the ring, 2816 bytes that peers read, the position table
+    (8 bytes a position), y (64 x 68 floats a tile); for ``bwd_params`` x
+    of the images its positions can read (ceil(tiles 64 / (Ho Wo)) + 1 of
+    them, at most N) and w, copied, and dw's partial (9 x 68 floats);
+    within 227 KB."""
+    m = n * out_hw(h) * out_hw(w)
+    bwd = kernel == "cnn4_block_bwd_params"
+    if (b != 1 or m == 0 or co > _TILE_N or co % 8
+            or not (ci == 1 if bwd else ci % _CW == 0)):
+        return None
+    size = cluster_size(m, max_size)
+    tiles = _cdiv(_cdiv(m, _TILE_M), size)
+    if tiles > (_BWD_TILES_MAX if bwd else _FWD_TILES_MAX):
+        return None
+    smem = (_RING_BYTES[dtype, not bwd] + _AUX_BYTES + tiles * _TILE_M * 8
+            + tiles * _TILE_Y_BYTES)
+    if bwd:
+        item = 2 if dtype == torch.bfloat16 else 4
+        images = min(n, _cdiv(tiles * _TILE_M, out_hw(h) * out_hw(w)) + 1)
+        smem += (_round16(images * h * w * ci * item)
+                 + _round16(9 * ci * co * item) + _PART_BYTES)
+    return ClusterPlan(size, smem) if smem <= _CLUSTER_SMEM_MAX else None
+
+
+def _round16(n: int) -> int:
+    return _cdiv(n, 16) * 16
+
+
+def cluster_rows(m: int, size: int) -> list:
+    """[(first, end)] positions of each rank of a cluster of ``size`` CTAs
+    over a task's ``m`` positions: ceil(tiles / size) tiles of 64 a rank."""
+    per = _cdiv(_cdiv(m, _TILE_M), size) * _TILE_M
+    return [(min(m, q * per), min(m, (q + 1) * per)) for q in range(size)]
 
 
 def bwd_params_workspace_floats(b: int, n: int, h: int, w: int, ci: int,
@@ -349,6 +439,61 @@ def dx_split3_plain(dy, w, h: int, wd: int, step: int = _TC_K):
     return dx
 
 
+def cluster_size(m: int, max_size: int = _CLUSTER_MAX) -> int:
+    """The CTAs of a task's cluster over ``m`` positions (the plan's
+    ``size``): ceil(tiles / ceil(tiles / max_size)), tiles of 64
+    positions."""
+    ntiles = _cdiv(m, _TILE_M)
+    return _cdiv(ntiles, _cdiv(ntiles, max_size))
+
+
+def _cluster_y_stats(x, w, b, size: int):
+    """y ``[B, M, Co]`` (f32) and its (mean, inv_std) as the cluster
+    kernels take them: per rank the two-pass (n, mean, M2) of its rows,
+    combined in rank order by Chan's formula (:func:`tile_stats_plain` and
+    :func:`combine_tile_stats_plain` with a rank's rows as the tile)."""
+    y = conv_plain(x, w, b).reshape(x.shape[0], -1, w.shape[4])
+    per = cluster_rows(y.shape[1], size)[0][1]
+    mu, var = combine_tile_stats_plain(*tile_stats_plain(y, per))
+    return y, mu, torch.rsqrt(var + EPS), per
+
+
+def block_fwd_cluster_plain(x, w, b, scale, bias, size=None):
+    """``fwd_cluster_kernel``'s summation order in plain PyTorch (f32): the
+    statistics per rank of a cluster of ``size`` CTAs (:func:`cluster_size`
+    of the task's positions by default) combined in rank order, then
+    relu((y - mean) inv_std scale + bias), stored in x's dtype."""
+    size = size or cluster_size(x.shape[1] * out_hw(x.shape[2])
+                                * out_hw(x.shape[3]))
+    y, mu, inv, _ = _cluster_y_stats(x, w, b, size)
+    out = torch.relu((y - mu[:, None]) * inv[:, None] * scale.float()[:, None]
+                     + bias.float()[:, None])
+    return out.reshape(*x.shape[:2], out_hw(x.shape[2]), out_hw(x.shape[3]),
+                       -1).to(x.dtype)
+
+
+def block_bwd_params_cluster_plain(x, w, b, scale, bias, g, size=None):
+    """``bwd_params_cluster_kernel``'s summation order in plain PyTorch
+    (f32) -> (dy f32, dw, db, dscale, dbias) as
+    :func:`block_bwd_params_plain`: the statistics as
+    :func:`block_fwd_cluster_plain`; each rank's sums of dz * xhat and dz,
+    in rank order; dy = inv_std (dz scale - m1 - xhat m2); dw and db as
+    each rank's partial over its rows (on the CUDA cores, from the f32 dy,
+    in either dtype), summed in rank order."""
+    size = size or cluster_size(x.shape[1] * out_hw(x.shape[2])
+                                * out_hw(x.shape[3]))
+    y, mu, inv, per = _cluster_y_stats(x, w, b, size)
+    sc, be = scale.float(), bias.float()
+    gf = g.float().reshape(y.shape)
+    ds, dbias, m1, m2 = combine_bwd_sums_plain(
+        *bwd_tile_sums_plain(y, gf, mu, inv, sc, be, per), sc, y.shape[1])
+    dy = bwd_dy_plain(y, gf, mu, inv, sc, be, m1, m2)
+    dw, db = dw_split_plain(x, dy, per)
+    pd = w.dtype
+    return (dy.reshape(g.shape), dw.to(pd), db.to(pd), ds.to(pd),
+            dbias.to(pd))
+
+
 # A bfloat16 output of a kernel against its twin's: within one bfloat16
 # ulp of it plus float32 noise, |got - want| <= 2^-7 |want| + 1e-5
 # max|want|, and equal in all but a share BF16_SHARE of its elements
@@ -466,8 +611,11 @@ def _load():
         lib.cnn4_block_fwd.argtypes = [I] + [P] * 7 + [I] * 6 + [P]
         lib.cnn4_block_bwd_params.argtypes = [I] + [P] * 12 + [I] * 6 + [P]
         lib.cnn4_block_bwd_input.argtypes = [I] + [P] * 3 + [I] * 6 + [P]
+        lib.cnn4_cluster_plan.argtypes = [I] * 8 + [P]
+        lib.cnn4_cluster_max.argtypes = [P]
         for fn in (lib.cnn4_block_fwd, lib.cnn4_block_bwd_params,
-                   lib.cnn4_block_bwd_input):
+                   lib.cnn4_block_bwd_input, lib.cnn4_cluster_plan,
+                   lib.cnn4_cluster_max):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -519,6 +667,72 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def source_cluster_plan(dtype: torch.dtype, kernel: str, b: int, n: int,
+                        h: int, w: int, ci: int, co: int):
+    """The route the built source takes at a shape on the current device
+    (its exported ``cnn4_cluster_plan``, the function its launches call):
+    a :class:`ClusterPlan` or None for the tiled kernels. Needs the CUDA
+    toolkit (it builds) and a card."""
+    out = (ctypes.c_int * 2)()
+    _raise_on(_load().cnn4_cluster_plan(
+        _DTYPES[dtype], int(kernel == "cnn4_block_bwd_params"), b, n, h, w,
+        ci, co, ctypes.addressof(out)), "cnn4_cluster_plan")
+    return ClusterPlan(*out) if out[0] else None
+
+
+def source_cluster_max() -> int:
+    """The most CTAs a cluster the current device schedules (the source's
+    ``cnn4_cluster_max``): 16, or the portable 8."""
+    out = (ctypes.c_int * 1)()
+    _raise_on(_load().cnn4_cluster_max(ctypes.addressof(out)),
+              "cnn4_cluster_max")
+    return out[0]
+
+
+_plans: dict = {}
+
+
+def _plan(x: torch.Tensor, kernel: str, shape: tuple):
+    """source_cluster_plan of a call on x's card, asked once a shape."""
+    key = (x.device.index, x.dtype, kernel, shape)
+    if key not in _plans:
+        _plans[key] = source_cluster_plan(x.dtype, kernel, *shape)
+    return _plans[key]
+
+
+# Calls that launched, by route: a cluster kernel, or the tiled kernels
+ROUTES = {"cnn4_block_fwd": ("fwd_cluster_kernel", "fwd_tiled"),
+          "cnn4_block_bwd_params": ("bwd_params_cluster_kernel",
+                                    "bwd_params_tiled")}
+_routes = {"launches": {}, "captured": {}}
+
+
+def _count_route(route: str) -> None:
+    key = ("captured" if torch.cuda.is_current_stream_capturing()
+           else "launches")
+    _routes[key][route] = _routes[key].get(route, 0) + 1
+
+
+def routes() -> dict:
+    """Calls of the forward and of ``bwd_params`` that launched, by route
+    (``fwd_cluster_kernel``, ``fwd_tiled``, ``bwd_params_cluster_kernel``,
+    ``bwd_params_tiled``)."""
+    return {r: _routes["launches"].get(r, 0)
+            for pair in ROUTES.values() for r in pair}
+
+
+def captured_routes() -> dict:
+    """Calls recorded into CUDA graphs, by route."""
+    return {r: _routes["captured"].get(r, 0)
+            for pair in ROUTES.values() for r in pair}
+
+
+def _workspace(floats: int, plan, device) -> torch.Tensor:
+    """The tiled route's f32 scratch; a cluster launch takes none."""
+    return torch.empty(0 if plan else floats, dtype=torch.float32,
+                       device=device)
+
+
 def block_fwd(x, w, b, scale, bias) -> torch.Tensor:
     """Block forward -> a ``[B, N, Ho, Wo, Co]`` in x's dtype."""
     if _on_cpu(x):
@@ -526,15 +740,17 @@ def block_fwd(x, w, b, scale, bias) -> torch.Tensor:
     B, N, H, W, ci, co = _check(x, w, b, scale, bias)
     out = torch.empty(B, N, out_hw(H), out_hw(W), co, dtype=x.dtype,
                       device=x.device)
-    ws = torch.empty(fwd_workspace_floats(B, N, H, W, co, x.dtype),
-                     dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device), torch.profiler.record_function("cnn4_block_fwd"):
+        plan = _plan(x, "cnn4_block_fwd", (B, N, H, W, ci, co))
+        ws = _workspace(fwd_workspace_floats(B, N, H, W, co, x.dtype), plan,
+                        x.device)
         err = _load().cnn4_block_fwd(
             _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
             scale.data_ptr(), bias.data_ptr(), out.data_ptr(), ws.data_ptr(),
             B, N, H, W, ci, co, _stream(x))
     _raise_on(err, "cnn4_block_fwd")
     count_launch(block_fwd)
+    _count_route(ROUTES["cnn4_block_fwd"][plan is None])
     return out
 
 
@@ -550,10 +766,10 @@ def block_bwd_params(x, w, b, scale, bias, g):
                          f"match the block output {shape} {x.dtype}")
     dy = torch.empty(shape, dtype=torch.float32, device=x.device)
     dw, db, ds, dbe = (torch.empty_like(t) for t in (w, b, scale, bias))
-    ws = torch.empty(bwd_params_workspace_floats(B, N, H, W, ci, co,
-                                                 x.dtype),
-                     dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device), torch.profiler.record_function("cnn4_block_bwd_params"):
+        plan = _plan(x, "cnn4_block_bwd_params", (B, N, H, W, ci, co))
+        ws = _workspace(bwd_params_workspace_floats(B, N, H, W, ci, co,
+                                                    x.dtype), plan, x.device)
         err = _load().cnn4_block_bwd_params(
             _DTYPES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
             scale.data_ptr(), bias.data_ptr(), g.data_ptr(), dy.data_ptr(),
@@ -561,6 +777,7 @@ def block_bwd_params(x, w, b, scale, bias, g):
             ws.data_ptr(), B, N, H, W, ci, co, _stream(x))
     _raise_on(err, "cnn4_block_bwd_params")
     count_launch(block_bwd_params)
+    _count_route(ROUTES["cnn4_block_bwd_params"][plan is None])
     return dy, dw, db, ds, dbe
 
 
@@ -610,6 +827,8 @@ def captured_counts() -> dict:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = fn.captured = 0
+    for counts in _routes.values():
+        counts.clear()
 
 
 # ---------------------------------------------------------------------------

@@ -702,6 +702,209 @@ def test_eval_runs_launch_the_kernels(cuda_device, tmp_path):
         assert os.path.exists(os.path.join(rl.model_path, rel))
 
 
+# -- one task a call: the cluster kernels ------------------------------------
+
+# every N the port launches at B = 1: a one-image call, the vision
+# baseline's Adam step, the served query forward and the served support set
+_CLUSTER_NS = (1, 10, 15, 25)
+
+
+def _cluster_inputs(rng, dev, n, h, ci, dtype):
+    """_block_inputs at B = 1 in ``dtype``, the cotangent's kink mask taken
+    again from the inputs as cast."""
+    x, w, p, g = _block_inputs(rng, dev, 1, n, h, ci)
+    x, w, p = x.to(dtype), w.to(dtype), [t.to(dtype) for t in p]
+    xh, _, s, be = tc.bn_stats_plain(x, w, *p)
+    return x, w, p, (g * ((xh * s + be).abs() > 1e-3)).to(dtype)
+
+
+def _want_routes(calls):
+    """routes() after ``calls``, [(kernel, x, w)], as the mirror plans them
+    on this card's largest cluster."""
+    cmax = tc.source_cluster_max()
+    want = dict.fromkeys(tc.routes(), 0)
+    for kernel, x, w in calls:
+        b, n, h, wd, ci = x.shape
+        plan = tc.cluster_plan(b, n, h, wd, ci, w.shape[-1], x.dtype, kernel,
+                               cmax)
+        want[tc.ROUTES[kernel][plan is None]] += 1
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("n", _CLUSTER_NS)
+@pytest.mark.parametrize("h,ci", _BLOCKS)
+def test_cluster_kernels_match_plain_twins(cuda_device, h, ci, n, dtype):
+    """B = 1 runs each call on its planned route (fwd_cluster_kernel at
+    blocks 2-4 where a CTA owns one tile, bwd_params_cluster_kernel at
+    block 1 where it owns at most three, else the tiled kernels; by
+    routes()): f32 within 1e-4 of the twins; bf16 every output but dy and
+    db within one bf16 ulp of the float64 twin in all but
+    cnn4_cuda.BF16_SHARE of its elements (chip_smoke.held_bf16), dy within
+    float32's 1e-4, db by its magnitude; two calls bitwise equal."""
+    x, w, p, g = _cluster_inputs(np.random.default_rng(7 * n + h), cuda_device,
+                                 n, h, ci, dtype)
+    tc.reset_launch_counts()
+    got_f = tc.block_fwd(x, w, *p)
+    got = tc.block_bwd_params(x, w, *p, g)
+    assert tc.routes() == _want_routes([("cnn4_block_fwd", x, w),
+                                        ("cnn4_block_bwd_params", x, w)])
+    want = tc.block_bwd_params_plain(x, w, *p, g)
+    _held(got[0], want[0], 1e-4)
+    lim = _DB_TOL[dtype] * want[0].abs().sum(dim=(1, 2, 3))
+    assert ((got[2].float() - want[2].float()).abs() <= lim).all()
+    what = f"B 1 N {n} H {h}"
+    if dtype == torch.float32:
+        _held(got_f, tc.block_fwd_plain(x, w, *p), 1e-4)
+        for i in (1, 3, 4):
+            _held(got[i], want[i], 1e-4)
+    else:
+        f64 = torch.float64
+        chip_smoke.held_bf16(tc, got_f, tc.block_fwd_plain(x, w, *p, acc=f64),
+                             f"fwd {what}")
+        want = tc.block_bwd_params_plain(x, w, *p, g, acc=f64)
+        for i, name in ((1, "dw"), (3, "dscale"), (4, "dbias")):
+            chip_smoke.held_bf16(tc, got[i], want[i], f"{name} {what}")
+    assert torch.equal(got_f, tc.block_fwd(x, w, *p))
+    again = tc.block_bwd_params(x, w, *p, g)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h,ci,route", [(14, 64, "fwd_cluster_kernel"),
+                                        (28, 1, "bwd_params_cluster_kernel")])
+def test_cluster_kernels_take_unaligned_inputs(cuda_device, h, ci, route,
+                                               dtype):
+    """x and w one element past a 16-byte boundary at N = 10, where the
+    plan takes the cluster kernel: block 2's forward gathers its conv
+    element by element in the tiled path's stages, block 1's bwd_params
+    copies x and w element by element; held as above."""
+    x, w, p, g = _cluster_inputs(np.random.default_rng(5), cuda_device, 10,
+                                 h, ci, dtype)
+
+    def unaligned(t):
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = flat[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    xu, wu = unaligned(x), unaligned(w)
+    assert xu.data_ptr() % 16 and wu.data_ptr() % 16
+    tc.reset_launch_counts()
+    got_f = tc.block_fwd(xu, wu, *p)
+    got = tc.block_bwd_params(xu, wu, *p, g)
+    assert tc.routes()[route] == 1
+    want = tc.block_bwd_params_plain(x, w, *p, g)
+    _held(got[0], want[0], 1e-4)
+    if dtype == torch.float32:
+        _held(got_f, tc.block_fwd_plain(x, w, *p), 1e-4)
+        for i in (1, 3, 4):
+            _held(got[i], want[i], 1e-4)
+    else:
+        f64 = torch.float64
+        chip_smoke.held_bf16(tc, got_f, tc.block_fwd_plain(x, w, *p, acc=f64),
+                             "fwd unaligned")
+        want = tc.block_bwd_params_plain(x, w, *p, g, acc=f64)
+        for i in (1, 3, 4):
+            chip_smoke.held_bf16(tc, got[i], want[i], f"output {i} unaligned")
+
+
+@pytest.mark.cuda
+def test_cluster_plan_is_the_sources(cuda_device):
+    """cnn4_cuda.cluster_plan, on the card's largest cluster, mirrors the
+    plan the source launches on (its exported cnn4_cluster_plan) at every
+    block shape, task count and N around the route's edges, in both dtypes
+    and for both kernels; an H100 schedules clusters of 16."""
+    cmax = tc.source_cluster_max()
+    assert cmax == 16
+    for dtype in (torch.float32, torch.bfloat16):
+        for kernel in tc.ROUTES:
+            for h, ci in _BLOCKS + [(9, 8), (6, 3), (9, 1)]:
+                for b in (1, 2, 8, 64):
+                    for n in (0, 1, 5, 10, 15, 16, 20, 21, 25, 26, 128):
+                        for co in (64, 32, 8, 12, 72):
+                            args = (b, n, h, h, ci, co)
+                            assert (tc.source_cluster_plan(dtype, kernel,
+                                                           *args)
+                                    == tc.cluster_plan(*args, dtype, kernel,
+                                                       cmax)
+                                    ), (dtype, kernel, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cluster_launches_replay_their_eager_call(cuda_device, dtype):
+    """The four blocks' forward and bwd_params at B = 1, N = 10 (the vision
+    baseline's Adam step), captured in one CUDA graph: blocks 2-4's forward
+    one launch of fwd_cluster_kernel each and block 1's bwd_params one of
+    bwd_params_cluster_kernel (profiler; the rest the tiled kernels), the
+    replay bit for bit the eager calls."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(3)
+    ins = [_cluster_inputs(rng, cuda_device, 10, h, ci, dtype)
+           for h, ci in _BLOCKS]
+
+    def calls():
+        return [(tc.block_fwd(x, w, *p),) + tc.block_bwd_params(x, w, *p, g)
+                for x, w, p, g in ins]
+
+    eager = calls()
+    # CUPTI has been seen to drop a profiler session's first kernel record
+    # on an H100: the session opens with a kernel of its own, and the CNN4
+    # kernels are counted
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=cuda_device).add_(1)
+        calls()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(k in e.name for k in chip_smoke.CNN4_KERNEL_NAMES)]
+    assert sum("fwd_cluster_kernel" in k for k in names) == 3, names
+    assert sum("bwd_params_cluster_kernel" in k for k in names) == 1, names
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    tc.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        captured = calls()
+    assert tc.captured_routes() == {
+        "fwd_cluster_kernel": 3, "fwd_tiled": 1,
+        "bwd_params_cluster_kernel": 1, "bwd_params_tiled": 3}
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, c in zip(eager, captured):
+        assert all(torch.equal(u, v) for u, v in zip(a, c))
+
+
+@pytest.mark.cuda
+def test_batches_keep_the_tiled_kernels(cuda_device):
+    """B = 64 (a served batch) and B = 8 take the tiled kernels; B = 1 at N
+    = 10 block 2's forward and block 1's bwd_params the cluster kernels;
+    each route counted once a call."""
+    for b in (64, 8, 1):
+        for h, ci, fwd, bwd in ((14, 64, "fwd_cluster_kernel",
+                                 "bwd_params_tiled"),
+                                (28, 1, "fwd_tiled",
+                                 "bwd_params_cluster_kernel")):
+            x, w, p, g = _block_inputs(np.random.default_rng(b), cuda_device,
+                                       b, 10, h, ci)
+            tc.reset_launch_counts()
+            tc.block_fwd(x, w, *p)
+            tc.block_bwd_params(x, w, *p, g)
+            want = ({fwd, bwd} if b == 1
+                    else {"fwd_tiled", "bwd_params_tiled"})
+            assert tc.routes() == {k: int(k in want) for k in tc.routes()}, (
+                b, h, tc.routes())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,ci", [(28, 1), (14, 64), (7, 64), (4, 64)])
 def test_single_task_kernels_at_the_vision_baselines_n(cuda_device, h, ci):
