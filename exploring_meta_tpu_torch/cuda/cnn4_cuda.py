@@ -52,8 +52,10 @@ Each wrapper (:func:`block_fwd`, :func:`block_bwd_params`,
 launches its kernel for CUDA tensors; there is no other path. Each counts
 the calls that launch its kernels in ``<wrapper>.launches`` (a call
 recorded into a CUDA graph in ``<wrapper>.captured``) and launches them
-inside a profiler range of the kernel's name, so that a trace attributes
-their device time to it.
+inside a span of the kernel's name (``utils/profiling.py:span``: a
+profiler range while a profiler records), on the CPU too, so that a trace
+attributes their time to it. The double backward's span also marks the
+device, so its time shows inside a replayed, traced iteration.
 
 Beside the twins stand plain versions of the kernels' decompositions
 (:func:`tile_stats_plain`, :func:`combine_tile_stats_plain`,
@@ -80,6 +82,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from exploring_meta_tpu_torch.utils.graphs import count_launch
+from exploring_meta_tpu_torch.utils.profiling import span
 
 EPS = 1e-5
 _TILE_M = 64              # kTileM: positions (or dw rows) per CTA
@@ -735,12 +738,17 @@ def _workspace(floats: int, plan, device) -> torch.Tensor:
 
 def block_fwd(x, w, b, scale, bias) -> torch.Tensor:
     """Block forward -> a ``[B, N, Ho, Wo, Co]`` in x's dtype."""
-    if _on_cpu(x):
-        return block_fwd_plain(x, w, b, scale, bias)
+    with span("cnn4_block_fwd", ranged=True):
+        if _on_cpu(x):
+            return block_fwd_plain(x, w, b, scale, bias)
+        return _launch_fwd(x, w, b, scale, bias)
+
+
+def _launch_fwd(x, w, b, scale, bias) -> torch.Tensor:
     B, N, H, W, ci, co = _check(x, w, b, scale, bias)
     out = torch.empty(B, N, out_hw(H), out_hw(W), co, dtype=x.dtype,
                       device=x.device)
-    with torch.cuda.device(x.device), torch.profiler.record_function("cnn4_block_fwd"):
+    with torch.cuda.device(x.device):
         plan = _plan(x, "cnn4_block_fwd", (B, N, H, W, ci, co))
         ws = _workspace(fwd_workspace_floats(B, N, H, W, co, x.dtype), plan,
                         x.device)
@@ -756,8 +764,13 @@ def block_fwd(x, w, b, scale, bias) -> torch.Tensor:
 
 def block_bwd_params(x, w, b, scale, bias, g):
     """-> (dy f32 ``[B, N, Ho, Wo, Co]``, dw, db, dscale, dbias)."""
-    if _on_cpu(x):
-        return block_bwd_params_plain(x, w, b, scale, bias, g)
+    with span("cnn4_block_bwd_params", ranged=True):
+        if _on_cpu(x):
+            return block_bwd_params_plain(x, w, b, scale, bias, g)
+        return _launch_bwd_params(x, w, b, scale, bias, g)
+
+
+def _launch_bwd_params(x, w, b, scale, bias, g):
     B, N, H, W, ci, co = _check(x, w, b, scale, bias)
     shape = (B, N, out_hw(H), out_hw(W), co)
     if tuple(g.shape) != shape or g.dtype != x.dtype \
@@ -766,7 +779,7 @@ def block_bwd_params(x, w, b, scale, bias, g):
                          f"match the block output {shape} {x.dtype}")
     dy = torch.empty(shape, dtype=torch.float32, device=x.device)
     dw, db, ds, dbe = (torch.empty_like(t) for t in (w, b, scale, bias))
-    with torch.cuda.device(x.device), torch.profiler.record_function("cnn4_block_bwd_params"):
+    with torch.cuda.device(x.device):
         plan = _plan(x, "cnn4_block_bwd_params", (B, N, H, W, ci, co))
         ws = _workspace(bwd_params_workspace_floats(B, N, H, W, ci, co,
                                                     x.dtype), plan, x.device)
@@ -784,8 +797,13 @@ def block_bwd_params(x, w, b, scale, bias, g):
 def block_bwd_input(dy, w, h: int, wd: int) -> torch.Tensor:
     """dx ``[B, N, h, wd, Ci]`` in w's dtype from dy (f32, from
     :func:`block_bwd_params`)."""
-    if _on_cpu(dy):
-        return block_bwd_input_plain(dy, w, h, wd)
+    with span("cnn4_block_bwd_input", ranged=True):
+        if _on_cpu(dy):
+            return block_bwd_input_plain(dy, w, h, wd)
+        return _launch_bwd_input(dy, w, h, wd)
+
+
+def _launch_bwd_input(dy, w, h: int, wd: int) -> torch.Tensor:
     B, N, ho, wo, co = dy.shape
     ci = w.shape[3]
     if (dy.dtype != torch.float32 or w.dtype not in _DTYPES
@@ -797,7 +815,7 @@ def block_bwd_input(dy, w, h: int, wd: int) -> torch.Tensor:
                          f"{dy.dtype}, w {tuple(w.shape)} {w.dtype} and "
                          f"input {h}x{wd} do not fit")
     dx = torch.empty(B, N, h, wd, ci, dtype=w.dtype, device=dy.device)
-    with torch.cuda.device(dy.device), torch.profiler.record_function("cnn4_block_bwd_input"):
+    with torch.cuda.device(dy.device):
         err = _load().cnn4_block_bwd_input(
             _DTYPES[w.dtype], dy.data_ptr(), w.data_ptr(), dx.data_ptr(),
             B, N, h, wd, ci, co, _stream(dy))
@@ -917,8 +935,8 @@ class FusedBlockBackward(torch.autograd.Function):
         first_wrt, cots = ((ins[:5], cotangents) if ctx.need_dx
                            else (ins[1:5], cotangents[1:]))
         targets = [t for t, n in zip(ins, need) if n]
-        with torch.enable_grad(), \
-                torch.profiler.record_function("cnn4_block_double_backward"):
+        with torch.enable_grad(), span("cnn4_block_double_backward",
+                                       device=ins[0].device, ranged=True):
             first = torch.autograd.grad(_reference_block(*ins[:5]),
                                         first_wrt, ins[5], create_graph=True)
             pairs = [(f, c) for f, c in zip(first, cots) if c is not None]

@@ -50,6 +50,7 @@ from exploring_meta_tpu_torch.rl.adapt_rl import (
     RLConfig, masked_mean, masked_normalize, traj_advantages, trpo_update,
 )
 from exploring_meta_tpu_torch.rl.rollout import Trajectory, stack_trajectories
+from exploring_meta_tpu_torch.utils.profiling import span
 from exploring_meta_tpu_torch.utils.tree import (
     tree_leaves, tree_map, tree_unflatten,
 )
@@ -176,7 +177,7 @@ def natural_gradient_step(loss_kl, flat0: torch.Tensor,
     final, accepted, index = flat0, False, -1
     sizes = [trpo_cfg.backtrack_factor ** i * trpo_cfg.outer_lr
              for i in range(trpo_cfg.ls_max_steps)]
-    with torch.no_grad(), torch.profiler.record_function("trpo_line_search"):
+    with torch.no_grad(), span("trpo_line_search", ranged=True):
         if host_free:
             accepted = torch.zeros(old_loss.shape, dtype=torch.bool,
                                    device=flat0.device)

@@ -29,7 +29,9 @@ graph launch instead of thousands of kernel launches. Per-request work is
 independent (BN statistics, inner steps and actions are per request), so
 the padding changes no request's result. A server's graph calls are
 serialised by a lock, so several threads may call one server. On the CPU
-the same code runs eagerly.
+the same code runs eagerly. Inside ``utils/profiling.py:tracing`` a batched
+call is a root span (``serve.batch``, ``serve.adapt_batched``) over the
+graph's ``graphs.copy_in``, ``graphs.replay`` and ``graphs.clone_out``.
 
 ``mesh=`` (``parallel/mesh.py:make_task_mesh``, a server's mesh: one
 process, a tuple of local devices) makes every bucket a multiple of the
@@ -56,6 +58,7 @@ from exploring_meta_tpu_torch.parallel.mesh import split_requests
 from exploring_meta_tpu_torch.rl.adapt_rl import RLConfig, single_adapt_step
 from exploring_meta_tpu_torch.rl.rollout import Trajectory
 from exploring_meta_tpu_torch.utils.graphs import CapturedCalls
+from exploring_meta_tpu_torch.utils.profiling import span
 from exploring_meta_tpu_torch.utils.tree import tree_map
 
 
@@ -163,13 +166,16 @@ class VisionServer:
     def batch(self, support_x, support_y, query_x):
         """Serve B requests (leading axis) -> ``(preds [B, Q],
         probs [B, Q, ways])``, as the program of B's bucket."""
-        inputs = self._inputs(support_x, support_y, query_x)
-        B = inputs[0].shape[0]
-        bucket = self._bucket(B, self.mesh.size if self.mesh else 1)
-        inputs = _pad_leading(inputs, bucket - B)
-        if self.mesh is None:
-            return self._served(self.device, *inputs, rows=B)
-        return _sharded(self.mesh, self._served, bucket, *inputs, rows=B)
+        with span("serve.batch") as root:
+            inputs = self._inputs(support_x, support_y, query_x)
+            B = inputs[0].shape[0]
+            bucket = self._bucket(B, self.mesh.size if self.mesh else 1)
+            root.note(rows=B, bucket=bucket)
+            inputs = _pad_leading(inputs, bucket - B)
+            if self.mesh is None:
+                return self._served(self.device, *inputs, rows=B)
+            return _sharded(self.mesh, self._served, bucket, *inputs,
+                            rows=B)
 
     def _served(self, device, sx, sy, qx, rows=None):
         """:meth:`_serve` of a bucket on ``device`` as its graph."""
@@ -272,15 +278,18 @@ class PolicyServer:
         the same ``steps`` budget as :meth:`adapt`. The stack is padded to
         its bucket and the whole ``steps``-step inner loop is one graph
         per (bucket, shapes, steps)."""
-        support = Trajectory(*(self._as_input(x) for x in support_stack))
-        steps = self.cfg.adapt_steps if steps is None else steps
-        n = support.reward.shape[0]
-        bucket = _next_bucket(n, self.mesh.size if self.mesh else 1)
-        support = _pad_leading(support, bucket - n)
-        if self.mesh is None:
-            return self._adapted(self.device, support, steps, rows=n)
-        return _sharded(self.mesh, lambda d, sup: self._adapted(
-            d, sup, steps), bucket, support, rows=n)
+        with span("serve.adapt_batched") as root:
+            support = Trajectory(*(self._as_input(x)
+                                   for x in support_stack))
+            steps = self.cfg.adapt_steps if steps is None else steps
+            n = support.reward.shape[0]
+            bucket = _next_bucket(n, self.mesh.size if self.mesh else 1)
+            root.note(rows=n, bucket=bucket, steps=steps)
+            support = _pad_leading(support, bucket - n)
+            if self.mesh is None:
+                return self._adapted(self.device, support, steps, rows=n)
+            return _sharded(self.mesh, lambda d, sup: self._adapted(
+                d, sup, steps), bucket, support, rows=n)
 
     def _adapted(self, device, support: Trajectory, steps: int, rows=None):
         meta = self._params_on[device]

@@ -27,6 +27,13 @@ is no eager fallback on the card.
 which XLA compiles once per input shape: one graph per key (a name, the
 device, each input's shape and dtype), captured at the key's first call
 and replayed at every later one.
+
+Inside ``utils/profiling.py:tracing`` both keep a second graph, an
+instrumented twin captured at the first traced call (or chunk) with a
+device mark first and last (the ``graphs.replay`` span's site), so each
+replay's device time is stamped; graphs captured outside it hold no mark.
+Their host path is spanned: ``graphs.copy_in``, ``graphs.replay``,
+``graphs.clone_out``, ``graphs.capture`` and a fused ``graphs.chunk``.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from typing import Callable
 
 import torch
 
+from exploring_meta_tpu_torch.utils.profiling import span, tracing_on
 from exploring_meta_tpu_torch.utils.tree import (
     tree_leaves, tree_map, tree_unflatten,
 )
@@ -78,6 +86,18 @@ def capture(fn: Callable, stream, generators=(), pool=None):
     return graph, out
 
 
+def marked(fn: Callable, device, sites: list) -> Callable:
+    """``fn`` inside a ``graphs.replay`` span with marks on ``device``:
+    captured, the marks are the graph's first and last nodes; the span's
+    site is appended to ``sites``."""
+    def run(*args):
+        with span("graphs.replay", device=device) as s:
+            out = fn(*args)
+        sites.append(s.site)
+        return out
+    return run
+
+
 def count_launch(wrapper) -> None:
     """A kernel wrapper's counter: ``wrapper.launches`` counts launches;
     a call made while the current stream is being captured launches
@@ -108,6 +128,8 @@ class FusedIterations:
         self.row = torch.zeros((), dtype=torch.long, device=self.device)
         self.stream = None
         self.graph = None
+        self.traced_graph = None      # the instrumented twin, and its site
+        self.traced_site = None
 
     def step(self) -> None:
         """One iteration, its metrics written into the buffer's next row."""
@@ -125,26 +147,43 @@ class FusedIterations:
     def _warm_up(self) -> None:
         self.stream, _ = warm_up(self.device, self.step)
 
-    def _capture(self) -> None:
-        self.graph, _ = capture(self.step, self.stream, self.generators)
+    def _capture(self, traced: bool = False) -> None:
+        with span("graphs.capture"):
+            if not traced:
+                self.graph, _ = capture(self.step, self.stream,
+                                        self.generators)
+                return
+            sites: list = []
+            self.traced_graph, _ = capture(
+                marked(self.step, self.device, sites), self.stream,
+                self.generators)
+            self.traced_site = sites[0]
+
+    def _replay(self) -> None:
+        traced = tracing_on()
+        if (self.traced_graph if traced else self.graph) is None:
+            self._capture(traced)
+        graph, site = ((self.traced_graph, self.traced_site) if traced
+                       else (self.graph, None))
+        with span("graphs.replay", site=site):
+            graph.replay()
 
     def __call__(self, n: int | None = None) -> dict:
         n = self.n_steps if n is None else n
         if not 1 <= n <= self.n_steps:
             raise ValueError(f"a chunk of {n} iterations; this loop runs 1 "
                              f"to {self.n_steps}")
-        self.row.zero_()
-        for _ in range(n):
-            if self.device.type != "cuda":
-                self.step()
-            elif self.buffer is None:
-                self._warm_up()
-            else:
-                if self.graph is None:
-                    self._capture()
-                self.graph.replay()
-                COUNTS["replays"] += 1
-        rows = self.buffer[:n].clone()
+        with span("graphs.chunk", steps=n):
+            self.row.zero_()
+            for _ in range(n):
+                if self.device.type != "cuda":
+                    self.step()
+                elif self.buffer is None:
+                    self._warm_up()
+                else:
+                    self._replay()
+                    COUNTS["replays"] += 1
+            rows = self.buffer[:n].clone()
         return {k: rows[:, i] for i, k in enumerate(self.keys)}
 
 
@@ -169,6 +208,12 @@ def run_eagerly():
         _EAGER.pop()
 
 
+def _runs_eagerly(device) -> bool:
+    """Whether a :class:`CapturedCalls` call on ``device`` runs its
+    function: on the CPU, and under :func:`run_eagerly`."""
+    return device.type != "cuda" or _EAGER[-1]
+
+
 class CapturedCalls:
     """``calls(key, fn, inputs, rows=None, generator=None)`` ->
     ``fn(*inputs)`` (``fn(generator, *inputs)`` with a generator), every
@@ -178,7 +223,8 @@ class CapturedCalls:
     returns a tree of tensors computed from them (and from tensors that
     never change, such as a server's params) and from the generator
     alone. On the card a graph is kept per ``key`` (which names ``fn``),
-    device, and input shapes and dtypes. The first call at a key copies
+    device, input shapes and dtypes, and whether tracing is on (a traced
+    key's graph is the marked twin). The first call at a key copies
     the inputs into static buffers, runs ``fn`` on them eagerly on a side
     stream, captures it right after into a graph, and returns the eager
     result. Every later call copies the inputs into the static buffers,
@@ -210,9 +256,11 @@ class CapturedCalls:
             raise TypeError("a captured call takes and returns tensors")
         call = fn if generator is None else functools.partial(fn, generator)
         device = leaves[0].device
-        if device.type != "cuda" or _EAGER[-1]:
+        if _runs_eagerly(device):
             return _rows(call(*inputs), rows)
-        full = (key, device, tuple((t.shape, t.dtype) for t in leaves))
+        traced = tracing_on()
+        full = (key, device, tuple((t.shape, t.dtype) for t in leaves),
+                traced)
         with self.lock, torch.cuda.device(device):
             stream = torch.cuda.current_stream(device)
             last = self.last_stream.get(device, stream)
@@ -221,19 +269,24 @@ class CapturedCalls:
             self.last_stream[device] = stream
             entry = self.graphs.get(full)
             if entry is None:
-                return self._first_call(full, fn, call, inputs, leaves,
-                                        rows, generator)
-            graph, static, out, own = entry
-            torch._foreach_copy_(static, leaves)
-            if own is not None:
-                own.set_state(generator.get_state())
-            graph.replay()
-            if own is not None:
-                generator.set_state(own.get_state())
+                with span("graphs.capture"):
+                    return self._first_call(full, fn, call, inputs, leaves,
+                                            rows, generator, traced)
+            graph, static, out, own, site = entry
+            with span("graphs.copy_in"):
+                torch._foreach_copy_(static, leaves)
+                if own is not None:
+                    own.set_state(generator.get_state())
+            with span("graphs.replay", site=site):
+                graph.replay()
             COUNTS["replays"] += 1
-            return _rows(out, rows, fresh=True)
+            with span("graphs.clone_out"):
+                if own is not None:
+                    generator.set_state(own.get_state())
+                return _rows(out, rows, fresh=True)
 
-    def _first_call(self, full, fn, call, inputs, leaves, rows, generator):
+    def _first_call(self, full, fn, call, inputs, leaves, rows, generator,
+                    traced):
         if self.pool is None:
             self.pool = torch.cuda.graph_pool_handle()
         static = [t.clone(memory_format=torch.contiguous_format)
@@ -243,9 +296,12 @@ class CapturedCalls:
         own = None if generator is None else torch.Generator(device=device)
         captured = fn if own is None else functools.partial(fn, own)
         stream, eager = warm_up(device, lambda: call(*tree))
+        sites: list = [None]
+        if traced:
+            captured = marked(captured, device, sites)
         graph, out = capture(lambda: captured(*tree), stream,
                              () if own is None else (own,), self.pool)
-        self.graphs[full] = (graph, static, out, own)
+        self.graphs[full] = (graph, static, out, own, sites[-1])
         return _rows(eager, rows)
 
 
