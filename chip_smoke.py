@@ -64,15 +64,20 @@ Phases, each of which fails the run (non-zero exit) on any error:
    held against a float64 reference on the kernels' ReLU masks and, more
    loosely, the direct path (cuDNN) and the CPU path, bf16's loss
    against f32's, with the launch counters showing that the kernels ran
-   under ``create_graph=True``; 3 iterations of ``VisionTrainer`` at
-   ``bench.py``'s ``maml_omni`` configuration (bf16, meta-batch 32) in a
+   under ``create_graph=True``; the double backward alone
+   (``cnn4_block_double_bwd``) at B = 32, N = 25 a block against its
+   float64 twin in f32 and bf16, twice bitwise equal, and in f32 its
+   device ms beside its bound, its twin's and the library path's it
+   replaced (autograd twice through the per-op block on cuDNN); 3
+   iterations of ``VisionTrainer`` at ``bench.py``'s ``maml_omni``
+   configuration (bf16, meta-batch 32) in a
    temporary run dir, with the counters zeroed just before and checked per
    iteration, finite metrics, the saved model and checkpoint loading back
    and a finite meta-test; tasks/s of the meta-step in f32 and bf16,
    fused and direct, timed in turns (CUDA-graph replays of
    ``make_train_scan``, as ``bench.py`` times one XLA program); one
    eager meta-step profiled (idle share,
-   launches, device time of the CNN4 kernels, of the plain double backward
+   launches, device time of the CNN4 kernels, of the double backward
    and of the rest);
 7. meta-RL policy serving (slice 7), at ``bench.py``'s ``serve_rl``:
    a full-width ``DiagNormalPolicy`` (100, 100) with random weights, 64
@@ -357,11 +362,12 @@ META_BATCH, VISION_ITERATIONS = 32, 3
 # CNN4 kernel calls of one second-order meta-step: the support and query
 # forwards (4 + 4); the inner backward (4 bwd_params + 3 bwd_input, block 1
 # needs no dx); the outer pass, the query blocks' backward and the support
-# blocks' backward (4 + 3 each). A meta-eval adapts first order: 8 / 4 / 3.
+# blocks' backward (4 + 3 each), and the inner backward's double backward
+# (4). A meta-eval adapts first order: 8 / 4 / 3 / 0.
 META_STEP_CALLS = {"cnn4_block_fwd": 8, "cnn4_block_bwd_params": 12,
-                   "cnn4_block_bwd_input": 9}
+                   "cnn4_block_bwd_input": 9, "cnn4_block_double_backward": 4}
 META_EVAL_CALLS = {"cnn4_block_fwd": 8, "cnn4_block_bwd_params": 4,
-                   "cnn4_block_bwd_input": 3}
+                   "cnn4_block_bwd_input": 3, "cnn4_block_double_backward": 0}
 # The second-order check: 4 tasks at full width, f32, inner_lr 0.05 (at
 # 0.5 the f32 meta-gradient through batch-stat BN is ill-conditioned).
 # At full width (1.25M block-1 activations a pass) a few ReLU inputs lie
@@ -391,7 +397,7 @@ BF16_LOSS_TOL, BF16_GRAD_RATIO = 2e-2, 1.5
 # WINDOWS windows, the configurations timed in turns. Since slice 8 the
 # timed steps are CUDA-graph replays, as bench.py's are one XLA program.
 TIMED_STEPS, WARM_STEPS, WINDOWS = 10, 2, 3
-# profiler ranges: the kernel wrappers' and the plain double backward's
+# profiler ranges: the kernel wrappers' (the double backward's too)
 RANGES = ("cnn4_block_fwd", "cnn4_block_bwd_params", "cnn4_block_bwd_input",
           "cnn4_block_double_backward", "trpo_line_search")
 # the kernels of csrc/cnn4_block.cu (the profiler prefixes their
@@ -414,6 +420,9 @@ TC_KERNEL_NAMES = ("fwd_conv_stats_tc_kernel", "bwd_dw_tc_kernel",
 # instances only (bwd_params_cluster_kernel, block 1, on the CUDA cores)
 CLUSTER_KERNELS = {"fwd_cluster_kernel": "cnn4_block_fwd",
                    "bwd_params_cluster_kernel": "cnn4_block_bwd_params"}
+# the first-order CNN4 wrappers, which the kernel phases time block by block
+FIRST_ORDER = ("cnn4_block_fwd", "cnn4_block_bwd_params",
+               "cnn4_block_bwd_input")
 # a kernel of each CNN4 wrapper on a bf16 path (the vision meta-training
 # cells compute in bf16): all three on the tensor cores
 BF16_WRAPPER_KERNELS = TC_KERNEL_NAMES
@@ -702,7 +711,7 @@ def planned_routes(tc, dt, n: int, calls: int = 1, kernels=None) -> dict:
     """routes() after ``calls`` four-block calls of ``kernels`` (both
     routed wrappers by default) at B = 1 with ``n`` images."""
     want = dict.fromkeys(tc.routes(), 0)
-    for kernel in kernels or tc.ROUTES:
+    for kernel in kernels or CLUSTER_KERNELS.values():
         for h, ci in BLOCKS:
             want[planned_route(tc, kernel, dt, 1, n, h, ci)] += calls
     return want
@@ -760,7 +769,7 @@ def kernel_phase(tc, F, torch) -> dict:
     res = {name: {"max_abs_err": {}, "ms": 0.0, "plain_ms": 0.0,
                   "library_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                   "bound_ms": 0.0, "shapes": []}
-           for name in tc.KERNELS}
+           for name in FIRST_ORDER}
     res["cnn4_block_bwd_params"].update(library_ms=None, dw_library_ms=0.0)
     res["cnn4_block_fwd"].update(ms_n15=0.0, library_ms_n15=0.0,
                                  bound_ms_n15=0.0)
@@ -932,8 +941,8 @@ def kernel_phase(tc, F, torch) -> dict:
         """The calls since the counts were zeroed, at the four block shapes
         with ``b`` tasks of ``n`` images, took the routes planned there
         (planned_route: the tiled kernels at B = 64) and no other."""
-        want = {planned_route(tc, k, dt, b, n, h, ci) for k in tc.ROUTES
-                for h, ci in BLOCKS}
+        want = {planned_route(tc, k, dt, b, n, h, ci)
+                for k in CLUSTER_KERNELS.values() for h, ci in BLOCKS}
         r = tc.routes()
         check(all((c > 0) == (k in want) for k, c in r.items()),
               f"{what}: calls routed to {sorted(want)}, {r}")
@@ -1203,8 +1212,10 @@ def serve_phase(torch, np, tc, gpu) -> dict:
     torch.cuda.synchronize()
     launches = tc.launch_counts()
     print(f"launches in one served batch: {launches}", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"{name} ran on the served path")
+    for name in FIRST_ORDER:
+        check(launches[name] > 0, f"{name} ran on the served path")
+    check(launches["cnn4_block_double_backward"] == 0,
+          "serving adapts first order: no double backward")
     check(tuple(probs.shape) == (BATCH, QUERIES, WAYS)
           and bool(torch.isfinite(probs).all()), "finite probs [B, Q, ways]")
     check(float((probs.sum(-1) - 1).abs().max()) < 1e-5, "probs sum to 1")
@@ -1683,6 +1694,142 @@ def recorded_masks(tc, fn) -> tuple:
         return fn(), masks
     finally:
         del tc.FusedBlock.apply     # the inherited Function.apply again
+
+
+# The double backward (cnn4_block_double_bwd) at the meta-training cell's
+# size: 32 tasks of 25 images a block, every cotangent sent
+DBL_B, DBL_N = 32, 25
+DBL_NAMES = ("x", "w", "b", "scale", "bias", "g")
+
+
+def double_bwd_case(tc, torch, gen, b: int, n: int, h: int, ci: int,
+                    co: int, dt) -> tuple:
+    """One block's double backward on the kernels at random inputs
+    (cnn4_cuda.block_inputs) and cotangents (each one sent; dx's where the
+    block takes x's gradient, Ci > 1) -> (the call, its outputs, the twin's
+    in float64, the ReLU inputs within 1e-3 of the kink (ties: there the
+    two may choose their masks differently, which moves g_bar alone, since
+    the cotangent g is zero there), the call's arguments)."""
+    x, w, bb, sc, be, g = tc.block_inputs(gen, b, n, h, ci, co, dt)
+    need_x = ci != 1
+    dy = tc.block_bwd_params(x, w, bb, sc, be, g)[0]
+
+    def rnd(t):
+        return torch.randn(t.shape, generator=gen, device=t.device).to(dt)
+    cots = [rnd(x) if need_x else None, rnd(w), rnd(bb), rnd(sc), rnd(be)]
+
+    args = (x, w, bb, sc, be, g, dy, cots, need_x)
+
+    def call():
+        return tc.block_double_bwd(*args)
+    got = call()
+    want = tc.block_double_bwd_plain(x, w, bb, sc, be, g, cots, need_x,
+                                     acc=torch.float64)
+    xh, _, s, bias = tc.bn_stats_plain(x, w, bb, sc, be, torch.float64)
+    return call, got, want, (xh * s + bias).abs() <= 1e-3, args
+
+
+def double_bwd_held(tc, torch, got, want, tie, dname: str,
+                    what: str) -> dict:
+    """The double backward's outputs against the float64 twin's: f32 within
+    TOL, bf16 by held_bf16 (one bf16 ulp plus f32 noise, BF16_SHARE); g_bar
+    off the kink's ties; b_bar = sum y_bar, zero in exact arithmetic, by
+    its magnitude: within DB_TOL["float32"] of max|w_bar| -> the largest
+    error of each."""
+    out = {}
+    for name, a, c in zip(DBL_NAMES, got, want):
+        if c is None:
+            check(a is None, f"{what}: no {name}_bar")
+            continue
+        if name == "g":
+            a, c = a.masked_fill(tie, 0), c.masked_fill(tie, 0)
+        if name == "b":
+            top = float(want[1].abs().max())
+            err = float((a.double() - c).abs().max())
+            check(err <= DB_TOL["float32"] * top,
+                  f"{what}: |b_bar| {err} (max|w_bar| {top})")
+            out[name] = err
+        elif dname == "float32":
+            out[name] = held(torch, a, c, dname, f"{what} {name}_bar")
+        else:
+            out[name] = held_bf16(tc, a, c, f"{what} {name}_bar")
+    return out
+
+
+def double_bwd_bound(b: int, n: int, h: int, ci: int,
+                     co: int) -> tuple[float, float]:
+    """(ms if bytes bound, ms if operations bound) of one block's double
+    backward in f32: the conv passes (A: the re-forward and conv(x, c_dw),
+    with conv(c_dx, w) where x takes a gradient; B: its two dgrads there;
+    C: wgrad(x, y_bar), with wgrad(c_dx, dy) there: 7 passes, 3 at block
+    1) at 2 FLOP a multiply-add and the BN step's ~40 FLOP an output
+    element; x, c_dx, g and dy read and x_bar and g_bar written once."""
+    ho = (h - 1) // 2 + 1
+    xin, out = b * n * h * h * ci, b * n * ho * ho * co
+    need_x = ci != 1
+    flops = (2 * (7 if need_x else 3) * conv_macs(b, n, h, ci, co)
+             + 40 * out)
+    nbytes = 4 * (xin * (3 if need_x else 1) + 3 * out)
+    return 1e3 * nbytes / PEAK_BYTES, 1e3 * flops / PEAK_F32
+
+
+def double_backward_phase(tc, torch, gpu) -> dict:
+    """Phase 6, second part: the double backward alone at B = 32, N = 25 a
+    block: held against its float64 twin in f32 and bf16 (twice, bitwise
+    equal), and in f32 timed (device ms back to back in a CUDA graph)
+    beside its bound, its plain twin (f32, CUDA events) and the library
+    path it replaced, autograd taken twice through the per-op block
+    (``_reference_block``: cuDNN's grouped convolutions, TF32 off)."""
+    from exploring_meta_tpu_torch.utils.profiling import graph_ms_per_call
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 23)
+    out = {"blocks": [], "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
+    for dname, dt in (("float32", torch.float32),
+                      ("bfloat16", torch.bfloat16)):
+        for blk, (h, ci) in enumerate(BLOCKS):
+            what = f"double backward {dname} B {DBL_B} block {blk + 1}"
+            call, got, want, tie, args = double_bwd_case(
+                tc, torch, gen, DBL_B, DBL_N, h, ci, HIDDEN, dt)
+            err = double_bwd_held(tc, torch, got, want, tie, dname, what)
+            again = call()
+            check(all(a is None or torch.equal(a, c)
+                      for a, c in zip(got, again)),
+                  f"{what}: twice bitwise equal")
+            if dname != "float32":
+                continue
+            x, w, bb, sc, be, g, dy, cots, need_x = args
+
+            def library():
+                ins = [t.detach().requires_grad_(on) for t, on in zip(
+                    (x, w, bb, sc, be, g), (need_x, True, True, True, True,
+                                            True))]
+                with torch.enable_grad():
+                    wrt = ins[:5] if need_x else ins[1:5]
+                    first = torch.autograd.grad(tc._reference_block(
+                        *ins[:5]), wrt, ins[5], create_graph=True)
+                    return torch.autograd.grad(
+                        first, [t for t in ins if t.requires_grad],
+                        cots if need_x else cots[1:], allow_unused=True)
+            bms, oms = double_bwd_bound(DBL_B, DBL_N, h, ci, HIDDEN)
+            row = {"block": blk + 1, "max_abs_err": err,
+                   "ms": graph_ms_per_call(call, 5, 10),
+                   "plain_ms": time_ms(lambda: tc.block_double_bwd_plain(
+                       x, w, bb, sc, be, g, cots, need_x), 1, 3),
+                   "library_ms": time_ms(library, 2, 5),
+                   "bytes_ms": bms, "ops_ms": oms, "bound_ms": max(bms, oms)}
+            out["blocks"].append(row)
+            for k in ("ms", "plain_ms", "library_ms", "bytes_ms", "ops_ms",
+                      "bound_ms"):
+                out[k] += row[k]
+            print(f"double backward block {blk + 1}: ms {row['ms']:.4f} "
+                  f"(bound {row['bound_ms']:.4f}, plain {row['plain_ms']:.3f},"
+                  f" library {row['library_ms']:.3f}) err {err} [{gpu}]",
+                  flush=True)
+    print(f"double backward, four blocks: ms {out['ms']:.4f} bound "
+          f"{out['bound_ms']:.4f} ({100 * out['bound_ms'] / out['ms']:.1f} "
+          f"%) plain {out['plain_ms']:.3f} library {out['library_ms']:.3f}"
+          f" [{gpu}]", flush=True)
+    return out
 
 
 def vision_second_order(torch, tc, gpu) -> dict:
@@ -3042,7 +3189,7 @@ def analysis_phase(torch, gc, tc, gpu, tmp) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches = counts()
-    for k in tc.KERNELS:
+    for k in FIRST_ORDER:
         check(launches[k] > 0, f"eval_vision: {k} launched, {launches}")
     arts = check_artifacts(run, {
         "ckpnt_results.json": {"0", "1"},
@@ -3232,7 +3379,7 @@ def single_task_kernels(tc, F, torch, gpu) -> dict:
     from exploring_meta_tpu_torch.utils.profiling import graph_ms_per_call
     gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
     co = HIDDEN
-    res = {name: {"max_abs_err": {}} for name in tc.KERNELS}
+    res = {name: {"max_abs_err": {}} for name in FIRST_ORDER}
 
     def block_runs(x, w, b, sc, be, g, dy):
         """{kernel: (kernel, twin, library)} of one block's inputs, and
@@ -3265,7 +3412,7 @@ def single_task_kernels(tc, F, torch, gpu) -> dict:
         item, peak = (4, PEAK_F32) if dt == torch.float32 else (2, PEAK_BF16)
         for n in SINGLE_NS:
             key = f"{dname}_n{n}"
-            rows = {name: [] for name in tc.KERNELS}
+            rows = {name: [] for name in FIRST_ORDER}
             runs_of = []
             tc.reset_launch_counts()
             for blk, (h, ci) in enumerate(BLOCKS):
@@ -3309,7 +3456,7 @@ def single_task_kernels(tc, F, torch, gpu) -> dict:
                 runs = block_runs(x, w, b, sc, be, g, dy)
                 on_path = blk > 0
                 runs_of.append((runs, on_path))
-                for name in tc.KERNELS:
+                for name in FIRST_ORDER:
                     kern, plain, lib = runs[name]
                     bms, oms = bound(name, 1, n, h, ci, co, item, peak)
                     row = {"block": blk + 1, "x": [1, n, h, h, ci],
@@ -3351,7 +3498,7 @@ def single_task_kernels(tc, F, torch, gpu) -> dict:
             names = {name: cuda_kernel_names(torch, lambda: [
                 runs[name][0]() for runs, on in runs_of
                 if on or name != "cnn4_block_bwd_input"])
-                for name in tc.KERNELS}
+                for name in FIRST_ORDER}
             for name, rs in rows.items():
                 path = [r for r in rs if r["on_path"]]
                 launched = names[name]
@@ -4040,7 +4187,7 @@ def imported_model_phase(torch, tc, gpu, tmp) -> dict:
     torch.cuda.synchronize()
     out["launches_batch"] = tc.launch_counts()
     for what in ("launches_request", "launches_batch"):
-        check(all(n > 0 for n in out[what].values()),
+        check(all(out[what][k] > 0 for k in FIRST_ORDER),
               f"imported model: every CNN4 kernel ran, {what} {out[what]}")
     agree(one, cpu(sx[0].cpu(), sy[0].cpu(), qx[0].cpu()), 1e-3,
           "imported model, one request: card vs CPU")
@@ -4625,7 +4772,7 @@ def seeded_cnn4_kernels(tc, F, torch, gpu, b: int) -> dict:
     n, co = WAYS * SHOTS, HIDDEN
     gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
     out = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-               "library_ms": 0.0, "bound_ms": 0.0} for k in tc.KERNELS}
+               "library_ms": 0.0, "bound_ms": 0.0} for k in FIRST_ORDER}
     out["cnn4_block_bwd_params"]["library_ms"] = None
     for dname, dt in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
         for blk, (h, ci) in enumerate(BLOCKS):
@@ -6545,6 +6692,7 @@ def main() -> int:
         outer = outer_step_phase(torch, trpo.pop("params"), gpu)
     prof = trpo_profile(torch, gpu)
     second_order = vision_second_order(torch, tc, gpu)
+    double_backward = double_backward_phase(tc, torch, gpu)
     with tempfile.TemporaryDirectory() as tmp:
         vision = vision_trainer_phase(torch, tc, gpu, tmp)
     vision_times = vision_timing(torch, gpu)
@@ -6582,6 +6730,7 @@ def main() -> int:
                    "kernels": {**res, **sweeps}, "serve": served,
                    "trpo": trpo, "outer_step": outer, "trpo_profile": prof,
                    "vision_second_order": second_order,
+                   "double_backward": double_backward,
                    "vision_trainer": vision, "vision_timing": vision_times,
                    "policy_serve": policy_serve, "adam_rl": adam_rl,
                    "replay_meta_grad": replay_grad, "fused": fused,

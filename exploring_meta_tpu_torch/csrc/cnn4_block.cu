@@ -18,6 +18,9 @@
 //                             _blk_bwd_pallas_batched :364)
 //   cnn4_block_bwd_input  <- the dx half of the same two kernels
 //                            (_conv_s2_bwd :127, its lax.pad tap scatter)
+//   cnn4_block_double_bwd <- none: the VJP of that backward, which JAX
+//                            takes as plain XLA (_bwd_op_jvp :544); the
+//                            last section of this file
 // The single-task TPU forms are the B = 1 case here: at one task a call,
 // at the shapes cluster_plan takes, the forward and bwd_params run
 // fwd_cluster_kernel and bwd_params_cluster_kernel, one thread-block-
@@ -3005,6 +3008,727 @@ int cnn4_block_bwd_input(int dtype, const void* dy, const void* w, void* dx,
   if (dtype == 1)
     return launch_bwd_input<H16>((const float*)dy, (const H16*)w, (H16*)dx, B,
                                  s, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"
+
+// ===========================================================================
+// cnn4_block_double_bwd: the VJP of the block's backward (second-order MAML)
+// ===========================================================================
+//
+// Second-order MAML differentiates the inner step's backward, (x, w, b,
+// scale, bias, g) -> (dx, dw, db, dscale, dbias), once more
+// (cuda/cnn4_cuda.py:FusedBlockBackward). No TPU kernel stands behind
+// this section: JAX takes that derivative as plain XLA (_bwd_op_jvp,
+// cnn4_pallas.py:538). The maths is derived in full in the wrapper's twin,
+// cuda/cnn4_cuda.py:block_double_bwd_plain. Per (task, channel), with the
+// forward's xhat, inv_std and ReLU mask, gz = g mask, and the backward dy =
+// inv (gz s - mean(gz s) - xhat mean(gz s xhat)), the VJP at the
+// cotangents (c_dx, c_dw, c_db, c_ds, c_dbias) is three sums of
+// convolutions, each one implicit GEMM with its reduction doubled, and a BN
+// step between them:
+//   A  dbl_conv_kernel       v = conv(c_dx, w) + conv(x, c_dw) + c_db, dy's
+//      cotangent, and in the same K loop the re-forward y = conv(x, w) + b
+//      (x and w are shared operands: three products a stage of four
+//      slices), y with its tile statistics exactly as fwd_conv_stats_kernel
+//      takes them, so in f32 y, the statistics and the mask are the
+//      forward's bit for bit;
+//      dbl_stats_kernel      Chan's combine, as fwd_combine_kernel;
+//   BN dbl_bn_sums_kernel    per tile the channel sums of v, v xhat, v gz,
+//      gz and gz xhat;
+//      dbl_bn_consts_kernel  per (task, channel) those sums in tile order ->
+//      scale_bar, and seven constants that make y_bar and g_bar affine in
+//      (gz, v, xhat) and (v, xhat);
+//      dbl_bn_apply_kernel   y_bar (over v, in place) and g_bar =
+//      mask (...), elementwise;
+//   B  dbl_dgrad_kernel      x_bar = dgrad(dy, c_dw) + dgrad(y_bar, w): the
+//      four parity-class GEMMs of bwd_input_kernel, each over both pairs;
+//   C  dbl_wgrad_kernel      w_bar = wgrad(c_dx, dy) + wgrad(x, y_bar) and
+//      b_bar = sum y_bar: bwd_dw_kernel's split reduction over both pairs'
+//      positions; dbl_wgrad_reduce_kernel sums the chunks in order.
+// bias_bar is zero (bias reaches the backward only through the mask) and is
+// not computed. A missing cotangent launches none of its products, and pass
+// B runs only where x takes a gradient (not at block 1, the images).
+//
+// What bounds it. Seven conv passes (three in A, two in B, two in C) of
+// f32 FMAs on the CUDA cores, no TF32, as the first-order kernels: 25.3
+// GFLOP over the four blocks of 32 tasks of 25 images, 0.38 ms at the 67
+// TFLOP/s of an H100 SXM at 700 W; the BN passes and y and v (block 1:
+// 40 MB each) are bytes, ~0.1 ms. bf16 takes the same templates: bf16
+// operands converted to f32 as they are staged, f32 products and sums.
+//
+// What the design does about it: the tiles, rings and FMA loops of the
+// first-order f32 kernels (conv_tile's, bwd_input_kernel's,
+// bwd_dw_kernel's), each pass one launch over both pairs, so the doubled
+// reduction costs no extra launch or pass over its output. Every sum has a
+// fixed order and none uses atomics: replays repeat bit for bit.
+
+namespace {
+
+constexpr int kBSlice = kTileK * kTileN;                // a B slice [k][n]
+constexpr int kDblStage = 2 * kSliceA + 2 * kBSlice;    // x, c_dx; w, c_dw
+constexpr int kDblSums = 5;   // v, v xhat, v gz, gz, gz xhat
+constexpr int kDblConsts = 8;  // A1 A2 A3 A0 B1 B2 B0, padded
+static_assert(kTileM * kLdC + 5 * kTileN <= 2 * kDblStage,
+              "the epilogue's tile and reductions fit the ring");
+
+// dst[0..3] <- src[0..3] as f32, zeros where !valid (src then not read):
+// f32 by one 16-byte cp.async, bf16 by one 8-byte load converted in
+// registers.
+template <typename T>
+__device__ __forceinline__ void stage4t(float* dst, const T* src,
+                                        bool valid) {
+  if constexpr (std::is_same<T, float>::value) {
+    __pipeline_memcpy_async(dst, src, 16, valid ? 0 : 16);
+  } else {
+    st4(dst, valid ? ld4(src) : make_float4(0.f, 0.f, 0.f, 0.f));
+  }
+}
+
+// Pass A. grid (tiles, ceil(Co/64), B). y = conv(x, w) + b of one tile ->
+// yout[b][m][co] (f32) and its tile statistics (tile_y_stats); v =
+// conv(u, w) + conv(x, uw) + ub -> vout[b][m][co] (f32). u = c_dx, uw =
+// c_dw and ub = c_db may each be null. A stage is kTileK values of k of
+// the four operands; y's FMAs run in conv_tile's order. kVec: Ci % 16 ==
+// 0, Co % 4 == 0 and 16-byte aligned operands.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+dbl_conv_kernel(const T* __restrict__ x, const T* __restrict__ u,
+                const T* __restrict__ w, const T* __restrict__ uw,
+                const T* __restrict__ b, const T* __restrict__ ub,
+                float* __restrict__ yout, float* __restrict__ vout,
+                float2* __restrict__ tstats, Shape s) {
+  __shared__ __align__(16) float ring[2 * kDblStage];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int tile = blockIdx.x, co0 = blockIdx.y * kTileN, t = blockIdx.z;
+  const int m0 = tile * kTileM, rows = min(kTileM, s.M - m0);
+  const bool hu = u != nullptr, huw = uw != nullptr;
+  const size_t xo = (size_t)t * s.N * s.H * s.W * s.Ci;
+  const size_t wo = (size_t)t * 9 * s.Ci * s.Co;
+  x += xo;
+  w += wo;
+  if (hu) u += xo;
+  if (huw) uw += wo;
+  const int K = 9 * s.Ci;
+  float ay[4][4], av[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) ay[r][c] = av[r][c] = 0.f;
+  auto mma = [&](int, const float* buf) {
+    const float* bw = buf + 2 * kSliceA;
+    mma_nn(buf, bw, ay, tx, ty);
+    if (hu) mma_nn(buf + kSliceA, bw, av, tx, ty);
+    if (huw) mma_nn(buf, bw + kBSlice, av, tx, ty);
+  };
+  if constexpr (kVec) {
+    const int row = tid >> 2, q = tid & 3;              // A piece
+    const int bk = tid >> 4, bc = 4 * (tid & 15);       // B piece
+    const int m = m0 + row;
+    const bool in = m < s.M;
+    const int j = m % s.Wo, i = (m / s.Wo) % s.Ho, n = m / (s.Wo * s.Ho);
+    const size_t xn = in ? (size_t)n * s.H * s.W * s.Ci : 0;
+    const bool bin = co0 + bc < s.Co;
+    ring_loop<2>(K / kTileK, ring, kDblStage, [&](int c, float* buf) {
+      const int k0 = c * kTileK, tap = k0 / s.Ci, ci0 = k0 - tap * s.Ci;
+      const int hi = 2 * i + tap / 3 - 1, wi = 2 * j + tap % 3 - 1;
+      const bool ok = in && hi >= 0 && hi < s.H && wi >= 0 && wi < s.W;
+      const size_t xoff =
+          ok ? xn + ((size_t)hi * s.W + wi) * s.Ci + ci0 + 4 * q : 0;
+      const size_t woff = bin ? (size_t)(k0 + bk) * s.Co + co0 + bc : 0;
+      stage4t(buf + row * kLdK + 4 * q, x + xoff, ok);
+      if (hu) stage4t(buf + kSliceA + row * kLdK + 4 * q, u + xoff, ok);
+      float* bs = buf + 2 * kSliceA + bk * kTileN + bc;
+      stage4t(bs, w + woff, bin);
+      if (huw) stage4t(bs + kBSlice, uw + woff, bin);
+    }, mma);
+  } else {
+    ring_loop<2>(cdiv(K, kTileK), ring, kDblStage, [&](int c, float* buf) {
+      const int k0 = c * kTileK;
+      for (int e = tid; e < kTileM * kTileK; e += kThreads) {
+        const int row = e / kTileK, k = k0 + e % kTileK, m = m0 + row;
+        float vx = 0.f, vu = 0.f;
+        if (k < K && m < s.M) {
+          const int tap = k / s.Ci, ci = k - tap * s.Ci;
+          const int j = m % s.Wo, i = (m / s.Wo) % s.Ho, n = m / (s.Wo * s.Ho);
+          const int hi = 2 * i + tap / 3 - 1, wi = 2 * j + tap % 3 - 1;
+          if (hi >= 0 && hi < s.H && wi >= 0 && wi < s.W) {
+            const size_t off = (((size_t)n * s.H + hi) * s.W + wi) * s.Ci + ci;
+            vx = ld(x + off);
+            if (hu) vu = ld(u + off);
+          }
+        }
+        buf[row * kLdK + e % kTileK] = vx;
+        if (hu) buf[kSliceA + row * kLdK + e % kTileK] = vu;
+      }
+      for (int e = tid; e < kBSlice; e += kThreads) {
+        const int k = k0 + e / kTileN, co = co0 + e % kTileN;
+        const bool ok = k < K && co < s.Co;
+        const size_t off = ok ? (size_t)k * s.Co + co : 0;
+        buf[2 * kSliceA + e] = ok ? ld(w + off) : 0.f;
+        if (huw) buf[2 * kSliceA + kBSlice + e] = ok ? ld(uw + off) : 0.f;
+      }
+    }, mma);
+  }
+
+  // v from the registers: each thread holds 4 contiguous channels a row
+  const int col = co0 + 4 * tx, limit = s.Co - col;
+  float ubv[4], bias[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const bool in = c < limit;
+    ubv[c] = (in && ub) ? ld(ub + (size_t)t * s.Co + col + c) : 0.f;
+    bias[c] = in ? ld(b + (size_t)t * s.Co + col + c) : 0.f;
+  }
+  const bool vec = (s.Co & 3) == 0;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    if (4 * ty + r < rows && limit > 0)
+      store_row4(vout + ((size_t)t * s.M + m0 + 4 * ty + r) * s.Co + col,
+                 make_float4(av[r][0] + ubv[0], av[r][1] + ubv[1],
+                             av[r][2] + ubv[2], av[r][3] + ubv[3]),
+                 limit, vec);
+  // y through the tile, as fwd_conv_stats_kernel
+  float* C = ring;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+    st4(C + (4 * ty + r) * kLdC + 4 * tx,
+        make_float4(ay[r][0] + bias[0], ay[r][1] + bias[1],
+                    ay[r][2] + bias[2], ay[r][3] + bias[3]));
+  __syncthreads();
+  tile_y_stats(C, yout, tstats, s, t, tile, co0, rows);
+}
+
+// grid (ceil(Co/64), B): y's statistics, fwd_combine_kernel's arithmetic.
+__global__ void __launch_bounds__(kTileN)
+dbl_stats_kernel(const float2* __restrict__ tstats,
+                 float2* __restrict__ stats, int ntiles, Shape s) {
+  const int co = blockIdx.x * kTileN + threadIdx.x, t = blockIdx.y;
+  if (co >= s.Co) return;
+  const float2* ts = tstats + (size_t)t * ntiles * s.Co + co;
+  float sum = 0.f;
+  for (int k = 0; k < ntiles; ++k)
+    sum += (float)min(kTileM, s.M - k * kTileM) * ts[(size_t)k * s.Co].x;
+  const float mu = sum / s.M;
+  float m2 = 0.f;
+  for (int k = 0; k < ntiles; ++k) {
+    const float2 v = ts[(size_t)k * s.Co];
+    const float d = v.x - mu;
+    m2 += v.y + (float)min(kTileM, s.M - k * kTileM) * d * d;
+  }
+  stats[(size_t)t * s.Co + co] = make_float2(mu, rsqrtf(m2 / s.M + kEps));
+}
+
+// grid (tiles, ceil(Co/64), B). Per channel of one tile the kDblSums sums
+// -> tsums[q][b][tile][co], rows and row groups in bwd_tile_sums_kernel's
+// order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dbl_bn_sums_kernel(const T* __restrict__ sc, const T* __restrict__ be,
+                   const T* __restrict__ g, const float* __restrict__ y,
+                   const float* __restrict__ v,
+                   const float2* __restrict__ stats, float* __restrict__ tsums,
+                   bool vec, int B, Shape s) {
+  constexpr int kGroups = kThreads / (kTileN / 4);
+  __shared__ float par[4][kTileN];  // mean, inv_std, scale, bias
+  __shared__ float red[kDblSums][kGroups][kTileN];
+  const int tid = threadIdx.x, col = 4 * (tid & 15), rg = tid >> 4;
+  const int tile = blockIdx.x, co0 = blockIdx.y * kTileN, t = blockIdx.z;
+  const int m0 = tile * kTileM, rows = min(kTileM, s.M - m0);
+  const int limit = s.Co - co0 - col;
+  load_bn_par(par, stats, sc, be, t, co0, s);
+  __syncthreads();
+  float a[kDblSums][4] = {};
+  for (int r = rg; r < rows && limit > 0; r += kGroups) {
+    const size_t off = ((size_t)t * s.M + m0 + r) * s.Co + co0 + col;
+    const float4 yv = load_row4(y + off, limit, vec);
+    const float4 vv = load_row4(v + off, limit, vec);
+    const float4 gv = load_row4(g + off, limit, vec);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float xh;
+      const float dz = bn_dz(f4(yv, e), f4(gv, e), par[0][col + e],
+                             par[1][col + e], par[2][col + e],
+                             par[3][col + e], xh);
+      const float ve = f4(vv, e);
+      a[0][e] += ve;
+      a[1][e] += ve * xh;
+      a[2][e] += ve * dz;
+      a[3][e] += dz;
+      a[4][e] += dz * xh;
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < kDblSums; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) red[q][rg][col + e] = a[q][e];
+  __syncthreads();
+  if (tid < kTileN && co0 + tid < s.Co) {
+    for (int q = 0; q < kDblSums; ++q) {
+      float acc = 0.f;
+      for (int r = 0; r < kGroups; ++r) acc += red[q][r][tid];
+      tsums[(((size_t)q * B + t) * gridDim.x + tile) * s.Co + co0 + tid] =
+          acc;
+    }
+  }
+}
+
+// grid (ceil(Co/64), B), kDblSums x 64 threads: thread (q, c) adds sum q
+// of channel c over the tiles in tile order (Sv, Svx, Svg, Sg, Sgx), then
+// one thread per (task, channel): scale_bar = inv (Svg - Sv Sg / M -
+// Svx Sgx / M); consts[b][co] = (A1, A2, A3, A0, B1, B2, B0) with y_bar =
+// A1 gz + A2 v + A3 xhat + A0 and g_bar = mask (B1 v + B2 xhat + B0)
+// (block_double_bwd_plain: h = alpha gz + gamma v, alpha = c_ds - inv s
+// Svx / M, gamma = -inv s Sgx / M, q = s Svg - s Sg Sv / M - s Sgx Svx /
+// M). cds = c_ds and cdbe = c_dbias may be null.
+template <typename T>
+__global__ void __launch_bounds__(kDblSums * kTileN)
+dbl_bn_consts_kernel(const float* __restrict__ tsums,
+                     const float2* __restrict__ stats, const T* __restrict__ sc,
+                     const T* __restrict__ cds, const T* __restrict__ cdbe,
+                     float* __restrict__ consts, T* __restrict__ sbar,
+                     int ntiles, int B, Shape s) {
+  __shared__ float sums[kDblSums][kTileN];
+  const int c = threadIdx.x % kTileN, co = blockIdx.x * kTileN + c;
+  const int t = blockIdx.y;
+  if (co < s.Co) {
+    const int q = threadIdx.x / kTileN;
+    const float* ts = tsums + ((size_t)q * B + t) * ntiles * s.Co + co;
+    float acc = 0.f;
+    for (int k = 0; k < ntiles; ++k) acc += ts[(size_t)k * s.Co];
+    sums[q][c] = acc;
+  }
+  __syncthreads();
+  if (threadIdx.x >= kTileN || co >= s.Co) return;
+  float S[kDblSums];
+  for (int q = 0; q < kDblSums; ++q) S[q] = sums[q][c];
+  const size_t pc = (size_t)t * s.Co + co;
+  const float inv = stats[pc].y, scale = ld(sc + pc), m = (float)s.M;
+  const float u_ds = cds ? ld(cds + pc) : 0.f;
+  const float u_dbe = cdbe ? ld(cdbe + pc) : 0.f;
+  const float v_mean = S[0] / m, vx_mean = S[1] / m;
+  const float a_mean = scale * S[3] / m, ax_mean = scale * S[4] / m;
+  st(sbar + pc, inv * (S[2] - v_mean * S[3] - vx_mean * S[4]));
+  const float q = scale * S[2] - a_mean * S[0] - ax_mean * S[1];
+  const float alpha = u_ds - inv * scale * vx_mean, gamma = -inv * ax_mean;
+  const float h_mean = alpha * S[3] / m + gamma * v_mean;
+  const float hx_mean = alpha * S[4] / m + gamma * vx_mean;
+  float* out = consts + pc * kDblConsts;
+  out[0] = inv * alpha;
+  out[1] = inv * gamma;
+  out[2] = -(inv * hx_mean + q * inv * inv / m);
+  out[3] = -inv * h_mean;
+  out[4] = scale * inv;
+  out[5] = u_ds - scale * inv * vx_mean;
+  out[6] = u_dbe - scale * inv * v_mean;
+}
+
+// grid (tiles, ceil(Co/64), B): y_bar over v (each element read, then
+// written, by one thread) and g_bar (null: not asked for), one tile.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dbl_bn_apply_kernel(const T* __restrict__ sc, const T* __restrict__ be,
+                    const T* __restrict__ g, const float* __restrict__ y,
+                    float* v, const float2* __restrict__ stats,
+                    const float* __restrict__ consts, T* __restrict__ gbar,
+                    bool vec, Shape s) {
+  __shared__ float par[4][kTileN];  // mean, inv_std, scale, bias
+  __shared__ float cst[7][kTileN];
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x, co0 = blockIdx.y * kTileN, t = blockIdx.z;
+  const int m0 = tile * kTileM, rows = min(kTileM, s.M - m0);
+  load_bn_par(par, stats, sc, be, t, co0, s);
+  if (tid < kTileN)
+    for (int q = 0; q < 7; ++q)
+      cst[q][tid] = co0 + tid < s.Co
+                        ? consts[((size_t)t * s.Co + co0 + tid) * kDblConsts + q]
+                        : 0.f;
+  __syncthreads();
+  const size_t base = (size_t)t * s.M * s.Co;
+  for (int e = tid; e < kTileM * kTileN / 4; e += kThreads) {
+    const int row = e >> 4, col = 4 * (e & 15);
+    if (row >= rows || co0 + col >= s.Co) continue;
+    const size_t off = base + (size_t)(m0 + row) * s.Co + co0 + col;
+    const int limit = s.Co - co0 - col;
+    const float4 yv = load_row4(y + off, limit, vec);
+    const float4 vv = load_row4(v + off, limit, vec);
+    const float4 gv = load_row4(g + off, limit, vec);
+    float yb[4], gb[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int c = col + u;
+      const float xh = (f4(yv, u) - par[0][c]) * par[1][c];
+      const bool on = fmaf(xh, par[2][c], par[3][c]) > 0.f;
+      const float gz = on ? f4(gv, u) : 0.f, ve = f4(vv, u);
+      yb[u] = cst[0][c] * gz + cst[1][c] * ve + cst[2][c] * xh + cst[3][c];
+      gb[u] = on ? cst[4][c] * ve + cst[5][c] * xh + cst[6][c] : 0.f;
+    }
+    store_row4(v + off, make_float4(yb[0], yb[1], yb[2], yb[3]), limit, vec);
+    if (gbar)
+      store_row4(gbar + off, make_float4(gb[0], gb[1], gb[2], gb[3]), limit,
+                 vec);
+  }
+}
+
+// Pass B. grid (tiles of all four classes, ceil(Ci/64), B), as
+// bwd_input_kernel: xbar = dgrad(dy, uw) + dgrad(yb, w), the stages of the
+// pair (dy, uw) (where uw = c_dw is not null), then those of (yb, w).
+// kVec: Co % 16 == 0 and 16-byte aligned operands.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+dbl_dgrad_kernel(const float* __restrict__ dy, const T* __restrict__ uw,
+                 const float* __restrict__ yb, const T* __restrict__ w,
+                 T* __restrict__ xbar, Shape s) {
+  __shared__ __align__(16) float ring[kRing];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int ci0 = blockIdx.y * kTileN, t = blockIdx.z;
+  const DxClass dc = dx_class(s);
+  const int hc = dc.hc, wc = dc.wc, P = dc.P;
+  const int ph = class_ph(dc.cls), pw = class_pw(dc.cls);
+  const int p0 = dc.tile * kTileM;
+  const int nco = cdiv(s.Co, kTileK);
+  const int per = (1 + ph) * (1 + pw) * nco;  // stages of one pair
+  const int first = uw ? 0 : 1;
+  const size_t yo = (size_t)t * s.M * s.Co, wo = (size_t)t * 9 * s.Ci * s.Co;
+  dy += yo;
+  yb += yo;
+  w += wo;
+  if (uw) uw += wo;
+  xbar += (size_t)t * s.N * s.H * s.W * s.Ci;
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  auto mma = [&](int, const float* buf) {
+    mma_nt(buf, buf + kSliceA, acc, tx, ty);
+  };
+  const int nst = (2 - first) * per;
+  if constexpr (kVec) {
+    const int row = tid >> 2, q = tid & 3;  // A piece; B piece: ci row `row`
+    const int p = p0 + row;
+    const bool in = p < P;
+    const int bb = p % wc, a = (p / wc) % hc, n = p / (wc * hc);
+    const size_t dyn = in ? (size_t)n * s.Ho * s.Wo * s.Co : 0;
+    const bool bin = ci0 + row < s.Ci;
+    ring_loop<2>(nst, ring, kStage, [&](int c, float* buf) {
+      const bool second = first + c / per == 1;
+      const DxTap tp = dx_tap(c % per, nco, ph, pw, kTileK);
+      const int i = a + tp.di, j = bb + tp.dj;
+      const bool ok = in && i < s.Ho && j < s.Wo;
+      const float* A = second ? yb : dy;
+      const T* Bm = second ? w : uw;
+      stage4(buf + row * kLdK + 4 * q,
+             A + (ok ? dyn + ((size_t)i * s.Wo + j) * s.Co + tp.co0 + 4 * q
+                     : 0),
+             ok);
+      stage4t(buf + kSliceA + row * kLdK + 4 * q,
+              Bm + (bin ? ((size_t)tp.wtap * s.Ci + ci0 + row) * s.Co +
+                              tp.co0 + 4 * q
+                        : 0),
+              bin);
+    }, mma);
+  } else {
+    ring_loop<2>(nst, ring, kStage, [&](int c, float* buf) {
+      const bool second = first + c / per == 1;
+      const DxTap tp = dx_tap(c % per, nco, ph, pw, kTileK);
+      const float* A = second ? yb : dy;
+      const T* Bm = second ? w : uw;
+      for (int e = tid; e < kTileM * kTileK; e += kThreads) {
+        const int row = e / kTileK, co = tp.co0 + e % kTileK, p = p0 + row;
+        float v = 0.f;
+        if (p < P && co < s.Co) {
+          const int j = p % wc + tp.dj, i = (p / wc) % hc + tp.di;
+          const int n = p / (wc * hc);
+          if (i < s.Ho && j < s.Wo)
+            v = A[(((size_t)n * s.Ho + i) * s.Wo + j) * s.Co + co];
+        }
+        buf[row * kLdK + e % kTileK] = v;
+      }
+      for (int e = tid; e < kTileN * kTileK; e += kThreads) {
+        const int ci = ci0 + e / kTileK, co = tp.co0 + e % kTileK;
+        buf[kSliceA + (e / kTileK) * kLdK + e % kTileK] =
+            (ci < s.Ci && co < s.Co)
+                ? ld(Bm + ((size_t)tp.wtap * s.Ci + ci) * s.Co + co)
+                : 0.f;
+      }
+    }, mma);
+  }
+
+  float* C = ring;
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      C[(4 * ty + r) * kLdC + tx + 16 * c] = acc[r][c];
+  __syncthreads();
+  const bool vec = (s.Ci & 3) == 0;
+  for (int e = tid; e < kTileM * kTileN / 4; e += kThreads) {
+    const int row = e >> 4, col = 4 * (e & 15), p = p0 + row;
+    if (p >= P || ci0 + col >= s.Ci) continue;
+    const int bb = p % wc, a = (p / wc) % hc, n = p / (wc * hc);
+    const size_t pos = ((size_t)n * s.H + 2 * a + ph) * s.W + 2 * bb + pw;
+    store_row4(xbar + pos * s.Ci + ci0 + col,
+               *reinterpret_cast<const float4*>(C + row * kLdC + col),
+               s.Ci - ci0 - col, vec);
+  }
+}
+
+// Pass C. grid (chunks, dw row tiles x column tiles, B), as bwd_dw_kernel:
+// wbar[k][co] = sum over the chunk's positions of u_tap(m, ci) dy(m, co) +
+// x_tap(m, ci) yb(m, co), the stages of the pair (u, dy) (where u = c_dx
+// is not null), then those of (x, yb). The CTAs of row tile 0 also sum b_bar
+// = sum yb over the chunk. kVec: Ci % 4 == 0 and 16-byte aligned A
+// operands; `vec`: Co % 4 == 0 and 16-byte aligned dy and yb.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+dbl_wgrad_kernel(const T* __restrict__ u, const float* __restrict__ dy,
+                 const T* __restrict__ x, const float* __restrict__ yb,
+                 T* __restrict__ wbar, T* __restrict__ bbar,
+                 float* __restrict__ part, int chunk, bool vec, Shape s) {
+  __shared__ __align__(16) float ring[kRing];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4, col = 4 * tx;
+  const int K = 9 * s.Ci, nct = cdiv(s.Co, kTileN), nchunks = gridDim.x;
+  const int ch = blockIdx.x, t = blockIdx.z;
+  const int k0 = blockIdx.y / nct * kTileM, co0 = blockIdx.y % nct * kTileN;
+  const bool first_row = k0 == 0;
+  const int mb = ch * chunk, me = min(mb + chunk, s.M);
+  const int limit = s.Co - co0 - col;
+  const size_t xo = (size_t)t * s.N * s.H * s.W * s.Ci, yo = (size_t)t * s.M;
+  const int pfirst = u ? 0 : 1;
+  x += xo;
+  if (u) u += xo;
+  const int ka = k0 + col, tap = ka / s.Ci, ci = ka - tap * s.Ci;
+  const int dty = tap / 3 - 1, dtx = tap % 3 - 1;
+  const bool kin = ka < K;
+  const int kw = min(kTileM, K - k0);  // rows of wbar in this tile
+  const int nk = cdiv(me - mb, kTileK);
+  float acc[4][4], dbacc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.f;
+  if (!kVec && kw < kTileM) {  // A rows past K: zero in both stages, once
+    for (int e = tid; e < kTileK * kTileM; e += kThreads)
+      ring[e] = ring[kStage + e] = 0.f;
+    __syncthreads();
+  }
+  ring_loop<2>((2 - pfirst) * nk, ring, kStage, [&](int c, float* buf) {
+    const bool second = pfirst + c / nk == 1;
+    const int m0 = mb + (c % nk) * kTileK;
+    const T* A = second ? x : u;
+    const float* Bd = second ? yb : dy;
+    if constexpr (kVec) {
+      const int m = m0 + ty;
+      const int j = m % s.Wo, i = (m / s.Wo) % s.Ho, n = m / (s.Wo * s.Ho);
+      const int hi = 2 * i + dty, wi = 2 * j + dtx;
+      const bool ok =
+          kin && m < me && hi >= 0 && hi < s.H && wi >= 0 && wi < s.W;
+      stage4t(buf + ty * kTileM + col,
+              A + (ok ? (((size_t)n * s.H + hi) * s.W + wi) * s.Ci + ci : 0),
+              ok);
+    } else {  // the rows k < K only: the others stay zero
+      for (int e = tid; e < kTileK * kw; e += kThreads) {
+        const int row = e / kw, kk = e - row * kw;
+        const int m = m0 + row, k = k0 + kk;
+        float v = 0.f;
+        if (m < me) {
+          const int tp = k / s.Ci, cc = k - tp * s.Ci;
+          const int j = m % s.Wo, i = (m / s.Wo) % s.Ho, n = m / (s.Wo * s.Ho);
+          const int hi = 2 * i + tp / 3 - 1, wi = 2 * j + tp % 3 - 1;
+          if (hi >= 0 && hi < s.H && wi >= 0 && wi < s.W)
+            v = ld(A + (((size_t)n * s.H + hi) * s.W + wi) * s.Ci + cc);
+        }
+        buf[row * kTileM + kk] = v;
+      }
+    }
+    const int m = m0 + ty;
+    const bool ok = m < me && limit > 0;
+    const size_t off = ok ? (yo + m) * s.Co + co0 + col : 0;
+    if (vec)
+      stage4(buf + kSliceA + ty * kTileN + col, Bd + off, ok);
+    else
+      st4(buf + kSliceA + ty * kTileN + col,
+          ok ? load_row4(Bd + off, limit, false)
+             : make_float4(0.f, 0.f, 0.f, 0.f));
+  }, [&](int c, const float* buf) {
+    if (4 * ty < kw) mma_tn(buf, buf + kSliceA, acc, tx, ty);
+    if (first_row && pfirst + c / nk == 1) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dbacc[e] += buf[kSliceA + ty * kTileN + col + e];
+    }
+  });
+
+  const bool vw = (s.Co & 3) == 0;
+  T* wt = wbar + (size_t)t * K * s.Co;
+  float* pt = part + ((size_t)t * nchunks + ch) * ((size_t)K * s.Co + s.Co);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int k = k0 + 4 * ty + r;
+    if (k >= K || limit <= 0) continue;
+    const float4 v = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    const size_t off = (size_t)k * s.Co + co0 + col;
+    if (nchunks == 1)
+      store_row4(wt + off, v, limit, vw);
+    else
+      store_row4(pt + off, v, limit, vw);
+  }
+  if (!first_row) return;
+  // b_bar over the chunk: the 16 row groups of each channel, in order
+  float* red = ring;  // [kTileK][kTileN]; ring_loop ended on a barrier
+#pragma unroll
+  for (int e = 0; e < 4; ++e) red[ty * kTileN + col + e] = dbacc[e];
+  __syncthreads();
+  if (tid < kTileN && co0 + tid < s.Co) {
+    float a = 0.f;
+    for (int r = 0; r < kTileK; ++r) a += red[r * kTileN + tid];
+    if (nchunks == 1)
+      st(bbar + (size_t)t * s.Co + co0 + tid, a);
+    else
+      pt[(size_t)K * s.Co + co0 + tid] = a;
+  }
+}
+
+// Where the positions were split: wbar and bbar are the chunk partials
+// summed in chunk order, one thread per output (bwd_dw_reduce_kernel's).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+dbl_wgrad_reduce_kernel(const float* __restrict__ part, T* __restrict__ wbar,
+                        T* __restrict__ bbar, int nchunks, int B, Shape s) {
+  const size_t kco = (size_t)9 * s.Ci * s.Co, len = kco + s.Co;
+  const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
+  if (e >= (size_t)B * len) return;
+  const size_t t = e / len, i = e - t * len;
+  const float* p = part + t * nchunks * len + i;
+  float a = 0.f;
+  for (int c = 0; c < nchunks; ++c) a += p[(size_t)c * len];
+  if (i < kco)
+    st(wbar + t * kco + i, a);
+  else
+    st(bbar + t * s.Co + (i - kco), a);
+}
+
+size_t round4(size_t n) { return (n + 3) / 4 * 4; }
+
+bool aligned16_or_null(const void* p) { return p == nullptr || aligned16(p); }
+
+// ws: f32 scratch of cuda/cnn4_cuda.py:double_bwd_workspace_floats, each
+// part rounded up to 16 bytes, in order: y and v (then y_bar) [B][M][Co];
+// tile statistics [B][tiles][Co] and statistics [B][Co] (float2); the tile
+// sums [kDblSums][B][tiles][Co]; the constants [B][Co][kDblConsts]; the
+// wgrad partials [B][chunks][9 Ci Co + Co] where there is more than one
+// chunk. A null cotangent (cdx .. cdbe) has no terms; a null xbar or gbar
+// is not computed.
+template <typename T>
+int launch_double_bwd(const T* x, const T* w, const T* b, const T* sc,
+                      const T* be, const T* g, const float* dy, const T* cdx,
+                      const T* cdw, const T* cdb, const T* cds, const T* cdbe,
+                      T* xbar, T* wbar, T* bbar, T* sbar, T* gbar, float* ws,
+                      int B, const Shape& s, cudaStream_t st) {
+  if (B == 0) return 0;
+  const int K = 9 * s.Ci;
+  if (s.M == 0) {  // no positions: every sum is empty
+    const size_t per = (size_t)B * s.Co * sizeof(T);
+    cudaMemsetAsync(wbar, 0, K * per, st);
+    cudaMemsetAsync(bbar, 0, per, st);
+    cudaMemsetAsync(sbar, 0, per, st);
+    return (int)cudaGetLastError();
+  }
+  const int ntiles = cdiv(s.M, kTileM), nct = cdiv(s.Co, kTileN);
+  const size_t ym = (size_t)B * s.M * s.Co;
+  float* y = ws;
+  float* v = y + round4(ym);
+  float2* tstats = reinterpret_cast<float2*>(v + round4(ym));
+  float2* stats = tstats + round4(2 * (size_t)B * ntiles * s.Co) / 2;
+  float* tsums = reinterpret_cast<float*>(stats) + round4(2 * (size_t)B * s.Co);
+  float* consts = tsums + round4((size_t)kDblSums * B * ntiles * s.Co);
+  float* part = consts + round4((size_t)kDblConsts * B * s.Co);
+  const dim3 tiles(ntiles, nct, B), chans(nct, B);
+  int err;
+  if (s.Ci % kTileK == 0 && s.Co % 4 == 0 && aligned16(x) && aligned16(w) &&
+      aligned16_or_null(cdx) && aligned16_or_null(cdw))
+    dbl_conv_kernel<T, true><<<tiles, kThreads, 0, st>>>(
+        x, cdx, w, cdw, b, cdb, y, v, tstats, s);
+  else
+    dbl_conv_kernel<T, false><<<tiles, kThreads, 0, st>>>(
+        x, cdx, w, cdw, b, cdb, y, v, tstats, s);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  dbl_stats_kernel<<<chans, kTileN, 0, st>>>(tstats, stats, ntiles, s);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  const bool vec = s.Co % 4 == 0 && aligned16(g) && aligned16_or_null(gbar);
+  dbl_bn_sums_kernel<T><<<tiles, kThreads, 0, st>>>(sc, be, g, y, v, stats,
+                                                    tsums, vec, B, s);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  dbl_bn_consts_kernel<T><<<chans, kDblSums * kTileN, 0, st>>>(
+      tsums, stats, sc, cds, cdbe, consts, sbar, ntiles, B, s);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  dbl_bn_apply_kernel<T><<<tiles, kThreads, 0, st>>>(sc, be, g, y, v, stats,
+                                                     consts, gbar, vec, s);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  if (xbar) {
+    int ctiles = 0;
+    for (int cls = 0; cls < 4; ++cls)
+      ctiles += cdiv(s.N * class_extent(s.H, class_ph(cls)) *
+                         class_extent(s.W, class_pw(cls)),
+                     kTileM);
+    const dim3 grid(ctiles, cdiv(s.Ci, kTileN), B);
+    if (s.Co % kTileK == 0 && aligned16(dy) && aligned16(w) &&
+        aligned16_or_null(cdw))
+      dbl_dgrad_kernel<T, true><<<grid, kThreads, 0, st>>>(dy, cdw, v, w,
+                                                           xbar, s);
+    else
+      dbl_dgrad_kernel<T, false><<<grid, kThreads, 0, st>>>(dy, cdw, v, w,
+                                                            xbar, s);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+  }
+  const int chunk = dw_chunk(s, B), nchunks = cdiv(s.M, chunk);
+  const dim3 grid(nchunks, cdiv(K, kTileM) * nct, B);
+  const bool bvec = s.Co % 4 == 0 && aligned16(dy);
+  if (s.Ci % 4 == 0 && aligned16(x) && aligned16_or_null(cdx))
+    dbl_wgrad_kernel<T, true><<<grid, kThreads, 0, st>>>(
+        cdx, dy, x, v, wbar, bbar, part, chunk, bvec, s);
+  else
+    dbl_wgrad_kernel<T, false><<<grid, kThreads, 0, st>>>(
+        cdx, dy, x, v, wbar, bbar, part, chunk, bvec, s);
+  if ((err = (int)cudaGetLastError()) != 0 || nchunks == 1) return err;
+  const size_t outs = (size_t)B * ((size_t)K * s.Co + s.Co);
+  dbl_wgrad_reduce_kernel<T><<<(unsigned)((outs + kThreads - 1) / kThreads),
+                               kThreads, 0, st>>>(part, wbar, bbar, nchunks,
+                                                  B, s);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// The VJP of the block's backward at its cotangents (second-order MAML).
+// dy: the backward's f32 dy (cnn4_block_bwd_params). cdx .. cdbe: the
+// cotangents of dx, dw, db, dscale and dbias, any of them null (no terms);
+// xbar, wbar, bbar, sbar, gbar: the cotangents of x, w, b, scale and g,
+// xbar and gbar null where not wanted (bias's is zero). ws: f32 scratch of
+// cuda/cnn4_cuda.py:double_bwd_workspace_floats(...) floats. Returns a
+// cudaError_t code; 0 means launched.
+int cnn4_block_double_bwd(int dtype, const void* x, const void* w,
+                          const void* b, const void* sc, const void* be,
+                          const void* g, const void* dy, const void* cdx,
+                          const void* cdw, const void* cdb, const void* cds,
+                          const void* cdbe, void* xbar, void* wbar, void* bbar,
+                          void* sbar, void* gbar, void* ws, int B, int N,
+                          int H, int W, int Ci, int Co, void* stream) {
+  const Shape s = make_shape(N, H, W, Ci, Co);
+  cudaStream_t st = (cudaStream_t)stream;
+  auto run = [&](auto* tag) {
+    using T = std::remove_pointer_t<decltype(tag)>;
+    return launch_double_bwd<T>(
+        (const T*)x, (const T*)w, (const T*)b, (const T*)sc, (const T*)be,
+        (const T*)g, (const float*)dy, (const T*)cdx, (const T*)cdw,
+        (const T*)cdb, (const T*)cds, (const T*)cdbe, (T*)xbar, (T*)wbar,
+        (T*)bbar, (T*)sbar, (T*)gbar, (float*)ws, B, s, st);
+  };
+  if (dtype == 0) return run((float*)nullptr);
+  if (dtype == 1) return run((bf16*)nullptr);
   return (int)cudaErrorInvalidValue;
 }
 

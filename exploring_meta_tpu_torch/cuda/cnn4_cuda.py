@@ -3,7 +3,8 @@
 Port of ``exploring_meta_tpu/pallas/cnn4_pallas.py`` (rows 1-4 of the
 TPU-kernel table in PERF.md). One block is zero-pad -> 3x3 stride-2 conv
 + bias -> batch-stat BN over (N, H, W) per channel and task -> scale/bias
--> ReLU. Three entry points in ``csrc/cnn4_block.cu`` compute it:
+-> ReLU. Four entry points in ``csrc/cnn4_block.cu`` compute it and its
+derivatives:
 
 - ``cnn4_block_fwd``        the block forward (``_blk_fwd_kernel``): a
   tiled implicit GEMM with per-tile BN statistics, their combine in tile
@@ -16,7 +17,13 @@ TPU-kernel table in PERF.md). One block is zero-pad -> 3x3 stride-2 conv
   in bfloat16, where dy and its three bf16 terms are formed by a launch
   of their own);
 - ``cnn4_block_bwd_input``  dx, the transposed stride-2 conv as four
-  parity-class GEMMs.
+  parity-class GEMMs;
+- ``cnn4_block_double_bwd`` the VJP of that backward (second-order MAML,
+  :class:`FusedBlockBackward`; no TPU kernel: JAX takes it as plain XLA),
+  analytic, as three implicit GEMMs each over two pairs of operands (the
+  re-forward and dy's cotangent; x's; w's) around the BN step's sums,
+  constants and elementwise pass (six to eight launches, f32 products
+  and sums on the CUDA cores in either dtype).
 
 At one task a call (B = 1: ``VisionServer.__call__``, the vision
 baseline's Adam steps, the CL analysis) the forward and ``bwd_params``
@@ -48,14 +55,15 @@ products, as JAX's kernel does after upcasting its bf16 inputs
 arithmetic).
 
 Each wrapper (:func:`block_fwd`, :func:`block_bwd_params`,
-:func:`block_bwd_input`) runs the plain PyTorch twin for CPU tensors and
-launches its kernel for CUDA tensors; there is no other path. Each counts
-the calls that launch its kernels in ``<wrapper>.launches`` (a call
-recorded into a CUDA graph in ``<wrapper>.captured``) and launches them
-inside a span of the kernel's name (``utils/profiling.py:span``: a
-profiler range while a profiler records), on the CPU too, so that a trace
-attributes their time to it. The double backward's span also marks the
-device, so its time shows inside a replayed, traced iteration.
+:func:`block_bwd_input`, :func:`block_double_bwd`) runs the plain PyTorch
+twin for CPU tensors and launches its kernels for CUDA tensors; there is
+no other path. Each counts the calls that launch its kernels in
+``<wrapper>.launches`` (a call recorded into a CUDA graph in
+``<wrapper>.captured``) and launches them inside a span of the kernel's
+name (``utils/profiling.py:span``: a profiler range while a profiler
+records), on the CPU too, so that a trace attributes their time to it.
+The double backward's span also marks the device, so its time shows
+inside a replayed, traced iteration.
 
 Beside the twins stand plain versions of the kernels' decompositions
 (:func:`tile_stats_plain`, :func:`combine_tile_stats_plain`,
@@ -217,6 +225,24 @@ def bwd_params_workspace_floats(b: int, n: int, h: int, w: int, ci: int,
             + terms)
 
 
+def double_bwd_workspace_floats(b: int, n: int, h: int, w: int, ci: int,
+                                co: int) -> int:
+    """f32 scratch of ``cnn4_block_double_bwd`` (mirrors
+    ``launch_double_bwd``), each part rounded up to 16 bytes: y and v
+    ``[B, M, Co]``; the tile statistics and the statistics (pairs); the
+    five BN sums a tile; eight constants a (task, channel); the wgrad
+    partials ``[B, chunks, 9 Ci Co + Co]`` where the positions are split
+    into more than one chunk."""
+    m = n * out_hw(h) * out_hw(w)
+    if b == 0 or m == 0:
+        return 0
+    tiles, chunks = _cdiv(m, _TILE_M), _cdiv(m, dw_chunk(b, m, ci, co))
+    part = b * chunks * (9 * ci * co + co) if chunks > 1 else 0
+    return (sum(_cdiv(k, 4) * 4 for k in (
+        b * m * co, b * m * co, 2 * b * tiles * co, 2 * b * co,
+        5 * b * tiles * co, 8 * b * co)) + part)
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch twins (CPU path; the card-side reference in chip_smoke.py)
 # ---------------------------------------------------------------------------
@@ -290,6 +316,91 @@ def block_bwd_input_plain(dy, w, h: int, wd: int,
             dxp[:, :, dyy:dyy + 2 * ho - 1:2, dxx:dxx + 2 * wo - 1:2, :] += \
                 torch.einsum("bnhwo,bco->bnhwc", dy, wf[:, dyy, dxx])
     return dxp[:, :, 1:1 + h, 1:1 + wd, :].to(w.dtype)
+
+
+def _wgrad_plain(a, d) -> torch.Tensor:
+    """dw-type product: w[tap, ci, co] = sum over positions of a's tap
+    (zero-padded, stride 2) times d, -> ``[B, 3, 3, Ci, Co]`` in d's
+    dtype."""
+    dw = torch.stack([torch.einsum("bnhwc,bnhwo->bco", t, d)
+                      for t in _taps(a.to(d.dtype))], dim=1)
+    return dw.reshape(a.shape[0], 3, 3, a.shape[4], d.shape[4])
+
+
+def block_double_bwd_plain(x, w, b, scale, bias, g, cots, need_x=True,
+                           need_g=True, acc=torch.float32):
+    """The VJP of the block's backward ``(x, w, b, scale, bias, g) -> (dx,
+    dw, db, dscale, dbias)`` (:func:`block_bwd_params_plain` and
+    :func:`block_bwd_input_plain`) at the cotangents ``cots`` = (c_dx,
+    c_dw, c_db, c_ds, c_dbias), each a tensor or None, computed in ``acc``.
+    -> (x_bar or None, w_bar, b_bar, scale_bar, None, g_bar or None) in
+    the inputs' dtypes; bias_bar is None: the bias reaches the backward
+    only through the ReLU mask, whose derivative is zero.
+
+    Per (task, channel), with xhat, inv_std and the mask of the forward,
+    gz = g * mask, a = scale * gz, and means over the M positions, the
+    backward is dy = inv (a - mean(a) - xhat mean(a xhat)), ds = sum gz
+    xhat, dbias = sum gz, dw = wgrad(x, dy), db = sum dy, dx = dgrad(dy,
+    w). Its VJP:
+
+    1. v = conv(c_dx, w) + conv(x, c_dw) + c_db, dy's cotangent;
+    2. through BN, from the sums Sv = sum v, Svx = sum v xhat, Svg = sum
+       v gz, Sg = sum gz, Sgx = sum gz xhat: scale_bar = inv (Svg -
+       mean(v) Sg - mean(v xhat) Sgx); g_bar = mask (scale inv (v - mean(v)
+       - xhat mean(v xhat)) + c_ds xhat + c_dbias); and y_bar, the
+       cotangent of the conv output, as h = d(.)/d xhat at fixed inv_std
+       and q = d(.)/d inv_std at fixed xhat taken back through BN's
+       normalisation: h = gz (c_ds - inv scale mean(v xhat)) - inv
+       (scale Sgx / M) v, q = scale Svg - mean(a) Sv - mean(a xhat) Svx,
+       y_bar = inv (h - mean(h) - xhat mean(h xhat)) - q inv^2 xhat / M;
+    3. x_bar = dgrad(dy, c_dw) + dgrad(y_bar, w), where ``need_x``;
+    4. w_bar = wgrad(c_dx, dy) + wgrad(x, y_bar), b_bar = sum y_bar."""
+    c_dx, c_dw, c_db, c_ds, c_dbe = cots
+    xh, inv, s, be = bn_stats_plain(x, w, b, scale, bias, acc)
+    dims, m = (1, 2, 3), xh.shape[1] * xh.shape[2] * xh.shape[3]
+    mask = (xh * s + be) > 0
+    gz = g.to(acc) * mask
+    sg = gz.sum(dim=dims, keepdim=True)
+    sgx = (gz * xh).sum(dim=dims, keepdim=True)
+    a_mean, ax_mean = s * sg / m, s * sgx / m
+    dy = inv * (gz * s - a_mean - xh * ax_mean)
+    wa = w.to(acc)
+    v = torch.zeros_like(xh)
+    if c_dx is not None:
+        v = v + conv_plain(c_dx, wa, torch.zeros_like(b, dtype=acc), acc)
+    if c_dw is not None:
+        v = v + conv_plain(x, c_dw, torch.zeros_like(b, dtype=acc), acc)
+    if c_db is not None:
+        v = v + c_db.to(acc)[:, None, None, None, :]
+    sv = v.sum(dim=dims, keepdim=True)
+    svx = (v * xh).sum(dim=dims, keepdim=True)
+    svg = (v * gz).sum(dim=dims, keepdim=True)
+    v_mean, vx_mean = sv / m, svx / m
+    u_ds, u_dbe = (torch.zeros_like(sv) if c is None
+                   else c.to(acc)[:, None, None, None, :]
+                   for c in (c_ds, c_dbe))
+    s_bar = inv * (svg - v_mean * sg - vx_mean * sgx)
+    g_bar = mask * (s * inv * (v - v_mean - xh * vx_mean) + u_ds * xh + u_dbe)
+    h = gz * (u_ds - inv * s * vx_mean) - inv * ax_mean * v
+    q = s * svg - a_mean * sv - ax_mean * svx
+    y_bar = (inv * (h - h.mean(dim=dims, keepdim=True)
+                    - xh * (h * xh).mean(dim=dims, keepdim=True))
+             - q * inv * inv * xh / m)
+    x_bar = None
+    if need_x:
+        h_in, w_in = x.shape[2], x.shape[3]
+        x_bar = block_bwd_input_plain(y_bar, wa, h_in, w_in, acc)
+        if c_dw is not None:
+            x_bar = x_bar + block_bwd_input_plain(dy, c_dw.to(acc), h_in,
+                                                  w_in, acc)
+        x_bar = x_bar.to(x.dtype)
+    w_bar = _wgrad_plain(x, y_bar)
+    if c_dx is not None:
+        w_bar = w_bar + _wgrad_plain(c_dx, dy)
+    pd = w.dtype
+    return (x_bar, w_bar.to(pd), y_bar.sum(dim=dims).to(pd),
+            s_bar.reshape(s_bar.shape[0], -1).to(pd), None,
+            g_bar.to(g.dtype) if need_g else None)
 
 
 # ---------------------------------------------------------------------------
@@ -614,11 +725,12 @@ def _load():
         lib.cnn4_block_fwd.argtypes = [I] + [P] * 7 + [I] * 6 + [P]
         lib.cnn4_block_bwd_params.argtypes = [I] + [P] * 12 + [I] * 6 + [P]
         lib.cnn4_block_bwd_input.argtypes = [I] + [P] * 3 + [I] * 6 + [P]
+        lib.cnn4_block_double_bwd.argtypes = [I] + [P] * 18 + [I] * 6 + [P]
         lib.cnn4_cluster_plan.argtypes = [I] * 8 + [P]
         lib.cnn4_cluster_max.argtypes = [P]
         for fn in (lib.cnn4_block_fwd, lib.cnn4_block_bwd_params,
-                   lib.cnn4_block_bwd_input, lib.cnn4_cluster_plan,
-                   lib.cnn4_cluster_max):
+                   lib.cnn4_block_bwd_input, lib.cnn4_block_double_bwd,
+                   lib.cnn4_cluster_plan, lib.cnn4_cluster_max):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -703,23 +815,28 @@ def _plan(x: torch.Tensor, kernel: str, shape: tuple):
     return _plans[key]
 
 
-# Calls that launched, by route: a cluster kernel, or the tiled kernels
+# Calls by route: for the forward and bwd_params a cluster kernel or the
+# tiled kernels (calls that launched); for the double backward its kernels
+# (on a card) or its plain twin (on the CPU)
 ROUTES = {"cnn4_block_fwd": ("fwd_cluster_kernel", "fwd_tiled"),
           "cnn4_block_bwd_params": ("bwd_params_cluster_kernel",
-                                    "bwd_params_tiled")}
+                                    "bwd_params_tiled"),
+          "cnn4_block_double_backward": ("double_bwd_kernels",
+                                         "double_bwd_plain")}
 _routes = {"launches": {}, "captured": {}}
 
 
-def _count_route(route: str) -> None:
-    key = ("captured" if torch.cuda.is_current_stream_capturing()
+def _count_route(route: str, on_card: bool = True) -> None:
+    key = ("captured" if on_card and torch.cuda.is_current_stream_capturing()
            else "launches")
     _routes[key][route] = _routes[key].get(route, 0) + 1
 
 
 def routes() -> dict:
-    """Calls of the forward and of ``bwd_params`` that launched, by route
+    """Calls by route: of the forward and of ``bwd_params`` that launched
     (``fwd_cluster_kernel``, ``fwd_tiled``, ``bwd_params_cluster_kernel``,
-    ``bwd_params_tiled``)."""
+    ``bwd_params_tiled``), and of the double backward (``double_bwd_kernels``,
+    ``double_bwd_plain``)."""
     return {r: _routes["launches"].get(r, 0)
             for pair in ROUTES.values() for r in pair}
 
@@ -824,13 +941,64 @@ def _launch_bwd_input(dy, w, h: int, wd: int) -> torch.Tensor:
     return dx
 
 
+def block_double_bwd(x, w, b, scale, bias, g, dy, cots, need_x=True,
+                     need_g=True):
+    """The VJP of the block's backward at ``cots`` = (c_dx, c_dw, c_db,
+    c_ds, c_dbias), each a tensor or None: -> (x_bar or None, w_bar, b_bar,
+    scale_bar, None, g_bar or None), as :func:`block_double_bwd_plain`.
+    ``dy`` is the backward's f32 dy (:func:`block_bwd_params`), which the
+    kernels read; the twin forms its own. Marks the device, so its time
+    shows inside a replayed, traced iteration."""
+    with span("cnn4_block_double_backward", device=x.device, ranged=True):
+        if _on_cpu(x):
+            _count_route(ROUTES["cnn4_block_double_backward"][1],
+                         on_card=False)
+            return block_double_bwd_plain(x, w, b, scale, bias, g, cots,
+                                          need_x, need_g)
+        return _launch_double_bwd(x, w, b, scale, bias, g, dy, cots, need_x,
+                                  need_g)
+
+
+def _launch_double_bwd(x, w, b, scale, bias, g, dy, cots, need_x, need_g):
+    B, N, H, W, ci, co = _check(x, w, b, scale, bias)
+    shape = (B, N, out_hw(H), out_hw(W), co)
+    cots = [None if c is None else c.contiguous() for c in cots]
+    wants = [(g, shape, x.dtype), (dy, shape, torch.float32)] + [
+        (c, tuple(t.shape), x.dtype)
+        for c, t in zip(cots, (x, w, b, scale, bias)) if c is not None]
+    for t, want, dt in wants:
+        if (tuple(t.shape) != want or t.dtype != dt or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError(f"block_double_bwd: {tuple(t.shape)} {t.dtype} "
+                             f"does not match {want} {dt}")
+    xbar = torch.empty_like(x) if need_x else None
+    wbar, bbar, sbar = (torch.empty_like(t) for t in (w, b, scale))
+    gbar = torch.empty_like(g) if need_g else None
+    ws = torch.empty(double_bwd_workspace_floats(B, N, H, W, ci, co),
+                     dtype=torch.float32, device=x.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        err = _load().cnn4_block_double_bwd(
+            _DTYPES[x.dtype], *(ptr(t) for t in (
+                x, w, b, scale, bias, g, dy, *cots, xbar, wbar, bbar, sbar,
+                gbar, ws)), B, N, H, W, ci, co, _stream(x))
+    _raise_on(err, "cnn4_block_double_bwd")
+    count_launch(block_double_bwd)
+    _count_route(ROUTES["cnn4_block_double_backward"][0])
+    return xbar, wbar, bbar, sbar, None, gbar
+
+
 block_fwd.launches = block_fwd.captured = 0
 block_bwd_params.launches = block_bwd_params.captured = 0
 block_bwd_input.launches = block_bwd_input.captured = 0
+block_double_bwd.launches = block_double_bwd.captured = 0
 
 KERNELS = {"cnn4_block_fwd": block_fwd,
            "cnn4_block_bwd_params": block_bwd_params,
-           "cnn4_block_bwd_input": block_bwd_input}
+           "cnn4_block_bwd_input": block_bwd_input,
+           "cnn4_block_double_backward": block_double_bwd}
 
 
 def launch_counts() -> dict:
@@ -854,18 +1022,17 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 def _kernel_grads(need_dx: bool, x, w, b, scale, bias, g):
-    """The block's backward on the two bwd kernels -> (dx or None, dw, db,
-    dscale, dbias); dx only where ``need_dx``."""
-    dy, dw, db, ds, dbe = block_bwd_params(x, w, b, scale, bias,
-                                           g.contiguous())
+    """The block's backward on the two bwd kernels -> (dy, dx or None, dw,
+    db, dscale, dbias); dx only where ``need_dx``."""
+    dy, dw, db, ds, dbe = block_bwd_params(x, w, b, scale, bias, g)
     dx = block_bwd_input(dy, w, x.shape[2], x.shape[3]) if need_dx else None
-    return dx, dw, db, ds, dbe
+    return dy, dx, dw, db, ds, dbe
 
 
 def _reference_block(x, w, b, scale, bias) -> torch.Tensor:
     """The block in the port's per-op layers (grouped conv stride 2, pad 1
-    -> batch-stat BN -> ReLU, per task): the formulation the double
-    backward differentiates, as ``_pure_base`` is in JAX."""
+    -> batch-stat BN -> ReLU, per task), as ``_pure_base`` is in JAX: the
+    oracle the tests differentiate twice to hold the double backward."""
     from exploring_meta_tpu_torch.models.layers import (
         _conv_nhwc, batch_norm, relu,
     )
@@ -879,8 +1046,8 @@ class FusedBlock(torch.autograd.Function):
 
     Under ``create_graph=True`` (second-order MAML) the backward is
     :class:`FusedBlockBackward`, whose own forward is the same kernel
-    backward and whose backward is plain PyTorch; otherwise the backward is
-    first order."""
+    backward and whose backward is its VJP on ``cnn4_block_double_bwd``;
+    otherwise the backward is first order."""
 
     @staticmethod
     def forward(ctx, x, w, b, scale, bias):
@@ -897,7 +1064,8 @@ class FusedBlock(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def _backward(ctx, g):
-        return _kernel_grads(ctx.needs_input_grad[0], *ctx.saved_tensors, g)
+        return _kernel_grads(ctx.needs_input_grad[0], *ctx.saved_tensors,
+                             g.contiguous())[1:]
 
 
 class FusedBlockBackward(torch.autograd.Function):
@@ -906,10 +1074,10 @@ class FusedBlockBackward(torch.autograd.Function):
 
     Forward: the primal backward on the kernels, ``(x, w, b, scale, bias,
     g) -> (dx, dw, db, dscale, dbias)`` (dx is None unless ``need_dx``).
-    Backward: the VJP of that map, taken by plain autograd through the
-    per-op reference formulation (:func:`_reference_block`): its first
-    derivative rebuilt with ``create_graph=True``, then differentiated
-    against the incoming cotangents. It is once differentiable.
+    Backward: the VJP of that map, analytic, on the kernels of
+    ``cnn4_block_double_bwd`` (:func:`block_double_bwd`; its twin on the
+    CPU); a cotangent no one sent is None and adds no terms. It is once
+    differentiable.
 
     JAX also needs a forward tangent (``_fwd_op_jvp``) because its outer
     ``grad`` linearises the whole staged graph, the kernel forward
@@ -919,31 +1087,19 @@ class FusedBlockBackward(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, need_dx, x, w, b, scale, bias, g):
-        ctx.need_dx = need_dx
-        ctx.save_for_backward(x, w, b, scale, bias, g)
-        return _kernel_grads(need_dx, x, w, b, scale, bias, g)
+        g = g.contiguous()
+        dy, *grads = _kernel_grads(need_dx, x, w, b, scale, bias, g)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, w, b, scale, bias, g, dy)
+        return tuple(grads)
 
     @staticmethod
     @once_differentiable
     def backward(ctx, *cotangents):
         need = ctx.needs_input_grad[1:]
-        ins = [t.detach() for t in ctx.saved_tensors]
-        # x needs a graph where the forward returned dx; the params always
-        # (the first derivative is taken wrt them); g where asked for
-        for t, on in zip(ins, (ctx.need_dx, True, True, True, True, need[5])):
-            t.requires_grad_(on)
-        first_wrt, cots = ((ins[:5], cotangents) if ctx.need_dx
-                           else (ins[1:5], cotangents[1:]))
-        targets = [t for t, n in zip(ins, need) if n]
-        with torch.enable_grad(), span("cnn4_block_double_backward",
-                                       device=ins[0].device, ranged=True):
-            first = torch.autograd.grad(_reference_block(*ins[:5]),
-                                        first_wrt, ins[5], create_graph=True)
-            pairs = [(f, c) for f, c in zip(first, cots) if c is not None]
-            grads = iter(torch.autograd.grad(
-                [f for f, _ in pairs], targets, [c for _, c in pairs],
-                allow_unused=True) if pairs and targets else ())
-        return (None, *(next(grads, None) if n else None for n in need))
+        grads = block_double_bwd(*ctx.saved_tensors, cotangents, need[0],
+                                 need[5])
+        return (None, *(t if n else None for t, n in zip(grads, need)))
 
 
 def _per_task(p: torch.Tensor, B: int, shared_ndim: int) -> torch.Tensor:

@@ -175,7 +175,7 @@ def main() -> int:
         return torch.autograd.grad(y.sum(), [w, ps[1]])
 
     capture("CNN4 block 1: kernels under FusedBlockBackward's double "
-            "backward (cuDNN)", block1)
+            "backward", block1)
     x2, w2_, ps2 = block(14, 64, 0.1)
 
     def block2():

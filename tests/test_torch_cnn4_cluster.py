@@ -144,7 +144,8 @@ def test_cpu_calls_take_the_twins_and_count_no_route():
     assert not any(tc.routes().values())
     assert set(tc.routes()) == {"fwd_cluster_kernel", "fwd_tiled",
                                 "bwd_params_cluster_kernel",
-                                "bwd_params_tiled"}
+                                "bwd_params_tiled", "double_bwd_kernels",
+                                "double_bwd_plain"}
 
 
 # -- (b) the emulations against JAX's single-task kernels ---------------------

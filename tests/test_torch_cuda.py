@@ -203,7 +203,8 @@ def test_bf16_served_batch_takes_dx_on_the_tensor_cores(cuda_device):
     eager = dx_kernels(lambda: server.batch(sx, sy, qx))
     assert tc.launch_counts() == {"cnn4_block_fwd": 8,
                                   "cnn4_block_bwd_params": 4,
-                                  "cnn4_block_bwd_input": 3}
+                                  "cnn4_block_bwd_input": 3,
+                                  "cnn4_block_double_backward": 0}
     replay = dx_kernels(lambda: server.batch(sx, sy, qx))
     want = {"bwd_input_tc_kernel": 3, "bwd_input_kernel": 0}
     assert eager == want and replay == want, (eager, replay)
@@ -278,7 +279,8 @@ def test_served_batch_runs_every_kernel(cuda_device):
     torch.cuda.synchronize()
     assert tc.launch_counts() == {"cnn4_block_fwd": 8,
                                   "cnn4_block_bwd_params": 4,
-                                  "cnn4_block_bwd_input": 3}
+                                  "cnn4_block_bwd_input": 3,
+                                  "cnn4_block_double_backward": 0}
     assert torch.isfinite(probs).all() and preds.shape == (3, 15)
 
 
@@ -480,7 +482,8 @@ def test_second_order_fused_matches_direct_f32(cuda_device):
     loss, got, counts, masks, base, data, labels = _meta_grad("fused",
                                                               cuda_device)
     assert counts == {"cnn4_block_fwd": 8, "cnn4_block_bwd_params": 12,
-                      "cnn4_block_bwd_input": 9}
+                      "cnn4_block_bwd_input": 9,
+                      "cnn4_block_double_backward": 4}
     ref_loss, ref = chip_smoke.reference_meta_grad(torch, base, data,
                                                    labels, masks, 0.05)
     direct_loss, direct, direct_counts, *_ = _meta_grad("direct",
@@ -521,7 +524,8 @@ def test_second_order_fused_bf16_near_f32(cuda_device):
                                            torch.bfloat16)
     dgrads = _meta_grad("direct", cuda_device, torch.bfloat16)[1]
     assert counts == {"cnn4_block_fwd": 8, "cnn4_block_bwd_params": 12,
-                      "cnn4_block_bwd_input": 9}
+                      "cnn4_block_bwd_input": 9,
+                      "cnn4_block_double_backward": 4}
     assert abs(bloss - loss) <= 2e-2 * abs(loss)
     assert all(bool(torch.isfinite(g).all()) for g in bgrads.values())
     assert _rel_l2(bgrads, grads) <= 1.5 * _rel_l2(dgrads, grads)
@@ -550,15 +554,118 @@ def test_meta_step_kernel_counts(cuda_device):
     assert np.isfinite(float(m["loss"]))
     assert tc.launch_counts() == {"cnn4_block_fwd": 8,
                                   "cnn4_block_bwd_params": 12,
-                                  "cnn4_block_bwd_input": 9}
+                                  "cnn4_block_bwd_input": 9,
+                                  "cnn4_block_double_backward": 4}
     tc.reset_launch_counts()
     make_meta_eval(fa)(params, data, labels)
     assert tc.launch_counts() == {"cnn4_block_fwd": 8,
                                   "cnn4_block_bwd_params": 4,
-                                  "cnn4_block_bwd_input": 3}
+                                  "cnn4_block_bwd_input": 3,
+                                  "cnn4_block_double_backward": 0}
     counts = _meta_grad("fused", cuda_device, tasks=2, steps=2)[2]
     assert counts == {"cnn4_block_fwd": 12, "cnn4_block_bwd_params": 20,
-                      "cnn4_block_bwd_input": 15}
+                      "cnn4_block_bwd_input": 15,
+                      "cnn4_block_double_backward": 8}
+
+
+# The double backward (cnn4_block_double_bwd): the meta-training cell's
+# B = 32, N = 25 at the four blocks, one task, and shapes off the 16-byte
+# paths (Ci 3 and 8, Co 12 and 20), as (B, N, H, Ci, Co)
+_DBL_SHAPES = ([(32, 25, h, ci, 64) for h, ci in _BLOCKS]
+               + [(1, 25, h, ci, 64) for h, ci in _BLOCKS]
+               + [(2, 3, 9, 3, 12), (3, 5, 14, 8, 20)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,n,h,ci,co", _DBL_SHAPES)
+def test_double_backward_matches_its_twin(cuda_device, b, n, h, ci, co,
+                                          dtype):
+    """Every cotangent sent: the kernels' outputs against the float64
+    twin's (f32 within 1e-4, bf16 within one bf16 ulp and BF16_SHARE,
+    chip_smoke.double_bwd_held), twice bitwise equal, and each call on the
+    kernel route."""
+    gen = torch.Generator(device=cuda_device).manual_seed(b * n + h + ci)
+    tc.reset_launch_counts()
+    call, got, want, tie, _ = chip_smoke.double_bwd_case(tc, torch, gen, b,
+                                                         n, h, ci, co, dtype)
+    chip_smoke.double_bwd_held(tc, torch, got, want, tie,
+                               str(dtype).split(".")[1], f"{b} {n} {h} {ci}")
+    assert all(a is None or torch.equal(a, c) for a, c in zip(got, call()))
+    assert tc.routes()["double_bwd_kernels"] == 2
+    assert tc.routes()["double_bwd_plain"] == 0
+    assert tc.launch_counts()["cnn4_block_double_backward"] == 2
+
+
+@pytest.mark.cuda
+def test_second_order_meta_gradient_replays_its_eager_call(cuda_device):
+    """A full-width second-order meta-gradient (4 tasks, f32) captured in
+    one CUDA graph: two replays give the eager call's meta-gradient bit for
+    bit, and the four double backwards take the kernel route, eager and
+    captured."""
+    from exploring_meta_tpu_torch.adapt.vision import make_vision_fast_adapt
+    from exploring_meta_tpu_torch.utils.tree import tree_leaves, tree_map
+    spec = omniglot_spec(5)
+    params = tree_map(lambda t: t.requires_grad_(), init_cnn4(
+        torch.Generator(device=cuda_device).manual_seed(2), spec))
+    data = torch.rand(4, 50, 28, 28, 1, device=cuda_device)
+    labels = torch.arange(5, device=cuda_device).repeat_interleave(10)
+    labels = labels.expand(4, -1)
+    fa = make_vision_fast_adapt(spec, 0.05, 1, 5, 5)
+
+    def meta_grad():
+        loss = fa(params, data, labels).loss.mean()
+        return torch.autograd.grad(loss, tree_leaves(params))
+
+    tc.reset_launch_counts()
+    eager = meta_grad()
+    assert tc.routes()["double_bwd_kernels"] == 4
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        meta_grad()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    tc.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        captured = meta_grad()
+    assert tc.captured_routes()["double_bwd_kernels"] == 4
+    assert tc.captured_counts()["cnn4_block_double_backward"] == 4
+    assert not tc.routes()["double_bwd_kernels"]
+    graph.replay()
+    torch.cuda.synchronize()
+    first = [t.clone() for t in captured]
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(eager, first))
+    assert all(torch.equal(a, c) for a, c in zip(first, captured))
+
+
+@pytest.mark.cuda
+def test_first_order_kernels_unchanged_by_the_double_backward(cuda_device):
+    """``csrc/cnn4_block.cu`` built whole and built without its
+    double-backward section: the forward, ``bwd_params`` and ``bwd_input``
+    give the same bits at the four blocks in f32 and bf16, at B = 32 and at
+    B = 1 (the cluster route)."""
+    from exploring_meta_tpu_torch.cuda import build
+    from exploring_meta_tpu_torch.cuda import compare_cnn4 as cc
+    from exploring_meta_tpu_torch.cuda.compare_sweeps import _compile
+    with open(os.path.join(build.CSRC, tc._SOURCE)) as f:
+        src = f.read()
+    cut = src[:src.index("// " + "=" * 75 + "\n// cnn4_block_double_bwd")]
+    first_order = cc._load(_compile("first_order", cut, "cuda_tests")[0])
+    whole = cc._load(build.build(tc._SOURCE))
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    for dname in ("float32", "bfloat16"):
+        for b, n in ((32, 25), (1, 10)):
+            for h, ci in cc.BLOCKS:
+                ins = cc.block_inputs(gen, b, n, h, ci, cc.DTYPES[dname][0])
+                a = cc._run(cc._calls(first_order, dname, ins))
+                c = cc._run(cc._calls(whole, dname, ins))
+                for k in a:
+                    assert all(torch.equal(u, v)
+                               for u, v in zip(a[k], c[k])), (dname, b, h, k)
 
 
 def _fused_run(kind, fuse, tmp_path, algo="trpo"):
@@ -668,7 +775,8 @@ def test_cl_matrix_card_vs_cpu_on_one_pool(cuda_device):
 @pytest.mark.cuda
 def test_eval_runs_launch_the_kernels(cuda_device, tmp_path):
     """eval_vision on a card-trained run dir launches the three CNN4
-    kernels, eval_rl (CL and RC) both sweeps; every artifact is written."""
+    kernels (and no double backward: it adapts first order), eval_rl (CL
+    and RC) both sweeps; every artifact is written."""
     from exploring_meta_tpu_torch.analysis import eval_rl, eval_vision
     from exploring_meta_tpu_torch.trainers.rl import RLTrainer
     from exploring_meta_tpu_torch.trainers.vision import VisionTrainer
@@ -686,7 +794,9 @@ def test_eval_runs_launch_the_kernels(cuda_device, tmp_path):
                           rep_params={"adapt_steps": 1, "inner_lr": 0.1,
                                       "n_tasks": 2, "layers": [4]},
                           synthetic=True)
-    assert all(n > 0 for n in tc.launch_counts().values())
+    counts = tc.launch_counts()
+    assert counts.pop("cnn4_block_double_backward") == 0
+    assert all(n > 0 for n in counts.values())
     assert len(out["cca_through_time"]) == 1
     rl = RLTrainer(RLScriptConfig(num_iterations=2, meta_batch_size=3,
                                   adapt_batch_size=5, max_path_length=20,
@@ -877,7 +987,8 @@ def test_cluster_launches_replay_their_eager_call(cuda_device, dtype):
         captured = calls()
     assert tc.captured_routes() == {
         "fwd_cluster_kernel": 3, "fwd_tiled": 1,
-        "bwd_params_cluster_kernel": 1, "bwd_params_tiled": 3}
+        "bwd_params_cluster_kernel": 1, "bwd_params_tiled": 3,
+        "double_bwd_kernels": 0, "double_bwd_plain": 0}
     graph.replay()
     torch.cuda.synchronize()
     for a, c in zip(eager, captured):
@@ -950,7 +1061,8 @@ def test_baselines_launch_the_kernels(cuda_device, tmp_path):
     # 5 Adam steps, then a meta-eval at B = 64
     assert tc.launch_counts() == {"cnn4_block_fwd": 28,
                                   "cnn4_block_bwd_params": 24,
-                                  "cnn4_block_bwd_input": 18}
+                                  "cnn4_block_bwd_input": 18,
+                                  "cnn4_block_double_backward": 0}
     assert 0.0 <= acc <= 1.0
 
 
@@ -1164,7 +1276,8 @@ def test_vision_buckets_replay_their_eager_call(cuda_device, dtype):
     first = server.batch(sx[:5], sy[:5], qx[:5])
     torch.cuda.synchronize()
     eager = {"cnn4_block_fwd": 8, "cnn4_block_bwd_params": 4,
-             "cnn4_block_bwd_input": 3}
+             "cnn4_block_bwd_input": 3,
+             "cnn4_block_double_backward": 0}
     assert tc.launch_counts() == tc.captured_counts() == eager
     seven = server.batch(sx, sy, qx)
     again = server.batch(sx[:5], sy[:5], qx[:5])

@@ -74,7 +74,8 @@ def test_serve_vision_prints_the_scripts_result_line(cpu, capsys,
     assert [_masked(x) for x in got[-1:]] == [_masked(x) for x in want[-1:]]
     assert got[-1].startswith("batch=2 omni 5w5s maml bf16: ")
     assert got[-2] == ("kernel launches in one batch: cnn4_block_fwd 0, "
-                       "cnn4_block_bwd_params 0, cnn4_block_bwd_input 0")
+                       "cnn4_block_bwd_params 0, cnn4_block_bwd_input 0, "
+                       "cnn4_block_double_backward 0")
     assert res["launches"] == {k: 0 for k in cnn4_cuda.KERNELS}
     assert res["requests_per_s"] > 0 and res["device"] == "cpu"
 
